@@ -1,0 +1,291 @@
+"""Shared layer library (PyTorch port of ``repro.models.layers``).
+
+Conventions, as in the JAX package:
+  * params are nested dicts of tensors in the JAX ``[in, out]`` layout
+    (``x @ w``); functions are plain functions of (params, activations);
+  * activations compute in ``cfg.act_dtype``; weights are cast on entry with
+    ``.to(dtype)``, which is a no-op (no copy) when they already are in it;
+  * contractions the JAX package runs with ``preferred_element_type=f32``
+    (attention scores, the vocab projection) produce float32 here too;
+  * decode KV caches are chunked ``[B, kvH, n_chunks, chunk, hd]`` with the
+    flash-decode log-sum-exp merge across chunks.
+
+Two deliberate differences from the JAX package: the KV cache keeps one
+length per batch row (so serving slots decode at independent positions
+without a ``vmap``), and the cache writes update the tensors in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ref import NEG, attention_ref
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(p, x, eps=1e-5):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * p["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (the non-M-RoPE branch)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_tables(positions, head_dim: int, theta: float, dtype):
+    """(cos, sin) ``[B, S, 1, hd/2]`` in ``dtype`` for ``[B, S]`` positions —
+    computed once per forward and shared by every layer."""
+    inv = rope_freqs(head_dim, theta, positions.device)
+    ang = positions.float()[..., None] * inv
+    return (torch.cos(ang)[..., None, :].to(dtype),
+            torch.sin(ang)[..., None, :].to(dtype))
+
+
+def _rotate(x, cos, sin):
+    hd = x.shape[-1]
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [B, S, H, hd]; positions: [B, S]."""
+    return _rotate(x, *rope_tables(positions, x.shape[-1], theta, x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# attention (training / prefill)
+# ---------------------------------------------------------------------------
+
+def _naive_attention(q, k, v, *, causal, window, cross, return_lse=False):
+    """Full (loop-free) attention, the test oracle: the kernel package's
+    :func:`attention_ref` under the layer's ``cross`` flag."""
+    return attention_ref(q, k, v, causal=causal and not cross, window=window,
+                         return_lse=return_lse)
+
+
+def blocked_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                      q_block: int = 512, kv_block: int = 512,
+                      cross: bool = False):
+    """Online-softmax blocked attention.
+
+    q: [B, Sq, H, hd]; k, v: [B, Skv, kvH, hd] (GQA: H % kvH == 0).
+    window > 0 => sliding-window causal attention; cross => no causal mask.
+
+    On a CUDA tensor this is the hand-written flash-attention forward kernel
+    (:mod:`repro_torch.kernels.flash_attention`; its tiles are its own, so
+    ``q_block``/``kv_block`` do not apply). On a CPU tensor it is the plain
+    blocked path of the JAX package (``layers.py:149-207``), which never
+    materialises more than ``[B, H, q_block, kv_block]`` scores.
+    """
+    if q.is_cuda:
+        out, _ = flash_attention(q, k, v, causal=causal and not cross,
+                                 window=window)
+        return out
+    B, Sq, H, hd = q.shape
+    Skv, kvH = k.shape[1], k.shape[2]
+    rep = H // kvH
+    scale = 1.0 / math.sqrt(hd)
+    q_block = min(q_block, Sq)
+    kv_block = min(kv_block, Skv)
+    nq, nk = -(-Sq // q_block), -(-Skv // kv_block)
+    qp = F.pad(q, (0, 0, 0, 0, 0, nq * q_block - Sq))
+    kp = F.pad(k, (0, 0, 0, 0, 0, nk * kv_block - Skv))
+    vp = F.pad(v, (0, 0, 0, 0, 0, nk * kv_block - Skv))
+    q_pos_base = torch.arange(q_block, device=q.device)
+    k_pos_base = torch.arange(kv_block, device=q.device)
+    outs = []
+    for qi in range(nq):
+        qc = qp[:, qi * q_block:(qi + 1) * q_block] * scale  # [B, qb, H, hd]
+        m = torch.full((B, H, q_block), NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, q_block), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, q_block, hd), dtype=torch.float32,
+                          device=q.device)
+        qpos = qi * q_block + q_pos_base
+        for ki in range(nk):
+            sl = slice(ki * kv_block, (ki + 1) * kv_block)
+            kcr = torch.repeat_interleave(kp[:, sl], rep, dim=2)
+            vcr = torch.repeat_interleave(vp[:, sl], rep, dim=2)
+            s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), kcr.float())
+            kpos = ki * kv_block + k_pos_base
+            mask = (kpos[None, :] <= Skv - 1) & (qpos[:, None] <= Sq - 1)
+            if causal and not cross:
+                off = Skv - Sq
+                mask &= kpos[None, :] <= (qpos[:, None] + off)
+                if window > 0:
+                    mask &= kpos[None, :] > (qpos[:, None] + off - window)
+            s = torch.where(mask[None, None], s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(vcr.dtype).float(), vcr.float())
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.transpose(1, 2))                     # [B, qb, H, hd]
+    out = torch.cat(outs, dim=1)
+    return out[:, :Sq].to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# chunked decode cache + flash-decode
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    """k/v: [B, kvH, n_chunks, chunk, hd]; length: [B] tokens written per
+    row (the JAX cache keeps one scalar; per-row lengths let serving slots
+    sit at independent positions in one batch). Stacked per layer the
+    leaves gain a leading ``[L]`` axis."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+    @staticmethod
+    def create(batch, kv_heads, max_len, head_dim, n_chunks,
+               dtype=torch.bfloat16, device=None):
+        if max_len % n_chunks:
+            raise ValueError(f"max_len={max_len} must be divisible by "
+                             f"n_chunks={n_chunks}")
+        chunk = max_len // n_chunks
+        shape = (batch, kv_heads, n_chunks, chunk, head_dim)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros((batch,), dtype=torch.int64, device=device))
+
+
+def cache_insert(cache: KVCache, k_new, v_new) -> KVCache:
+    """Append one token's k/v ([B, 1, kvH, hd]) at each row's position
+    ``cache.length``, in place.
+
+    The JAX version writes with ``dynamic_update_slice``, which clamps an
+    out-of-range start instead of failing; a torch indexed write would raise
+    (on the GPU, as a device-side assert). To keep the JAX semantics the
+    chunk index is clamped the same way, so a row decoded past ``max_len``
+    (an idle serving slot) overwrites inside its last chunk as in JAX."""
+    B, kvH, nc, ck, hd = cache.k.shape
+    pos = cache.length
+    ci = torch.clamp(pos // ck, max=nc - 1)
+    co = pos % ck
+    rows = torch.arange(B, device=pos.device)
+    cache.k[rows, :, ci, co] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[rows, :, ci, co] = v_new[:, 0].to(cache.v.dtype)
+    cache.length.add_(1)
+    return cache
+
+
+def cache_prefill(cache: KVCache, k_all, v_all) -> KVCache:
+    """Bulk-write a prefill of S tokens ([B, S, kvH, hd]) from position 0,
+    in place; the rest of the cache is zeroed as in the JAX version."""
+    B, kvH, nc, ck, hd = cache.k.shape
+    S = k_all.shape[1]
+    for dst, src in ((cache.k, k_all), (cache.v, v_all)):
+        flat = dst.view(B, kvH, nc * ck, hd)
+        flat[:, :, :S] = src.transpose(1, 2).to(dst.dtype)
+        flat[:, :, S:] = 0
+    cache.length.fill_(S)
+    return cache
+
+
+def flash_decode(q, cache: KVCache, *, window: int = 0):
+    """One-token decode attention against the chunked cache (plain torch,
+    as in the JAX package). q: [B, 1, H, hd] -> [B, 1, H, hd].
+
+    Each chunk computes a partial softmax (max, sum, weighted values), then
+    the partials merge across chunks by log-sum-exp. GQA reads the shared
+    kv head through a ``[B, kvH, rep, hd]`` view of q instead of repeating
+    the cache; scores and partial values are float32."""
+    B, _, H, hd = q.shape
+    kvH, nc, ck = cache.k.shape[1], cache.k.shape[2], cache.k.shape[3]
+    rep = H // kvH
+    scale = 1.0 / math.sqrt(hd)
+    qh = (q[:, 0] * scale).reshape(B, kvH, rep, hd).float()
+    s = torch.einsum("bgrd,bgnkd->bgrnk", qh, cache.k.float())
+    pos = torch.arange(nc * ck, device=q.device).reshape(1, nc, ck)
+    length = cache.length.reshape(B, 1, 1)
+    valid = pos < length
+    if window > 0:
+        valid &= pos > (length - window)
+    s = torch.where(valid[:, None, None], s, NEG)            # [B, g, r, n, k]
+    m = s.amax(dim=-1)                                      # [B, g, r, n]
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    part = torch.einsum("bgrnk,bgnkd->bgrnd", p.to(cache.v.dtype).float(),
+                        cache.v.float())
+    g = m.amax(dim=-1, keepdim=True)
+    w = torch.exp(m - g)
+    den = (w * l).sum(dim=-1)
+    num = (part * w[..., None]).sum(dim=3)                  # [B, g, r, hd]
+    out = num / torch.clamp(den[..., None], min=1e-30)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block + SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def attention_qkv(p, x, n_heads, n_kv_heads, head_dim, positions, theta,
+                  dtype=torch.bfloat16, rope=None):
+    """q/k/v projections plus RoPE. ``rope`` takes precomputed
+    :func:`rope_tables` (else they are computed from ``positions``)."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"].to(dtype)).reshape(B, S, n_heads, head_dim)
+    k = (x @ p["wk"].to(dtype)).reshape(B, S, n_kv_heads, head_dim)
+    v = (x @ p["wv"].to(dtype)).reshape(B, S, n_kv_heads, head_dim)
+    if rope is None and positions is not None:
+        rope = rope_tables(positions, head_dim, theta, q.dtype)
+    if rope is not None:
+        q = _rotate(q, *rope)
+        k = _rotate(k, *rope)
+    return q, k, v
+
+
+def attention_out(p, attn, dtype=torch.bfloat16):
+    B, S, H, hd = attn.shape
+    return attn.reshape(B, S, H * hd) @ p["wo"].to(dtype)
+
+
+def swiglu(p, x, dtype=torch.bfloat16):
+    g = x @ p["w_gate"].to(dtype)
+    u = x @ p["w_up"].to(dtype)
+    return (F.silu(g) * u) @ p["w_down"].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings / lm head
+# ---------------------------------------------------------------------------
+
+def embed(p, tokens, dtype=torch.bfloat16):
+    """Gather rows, then cast: the table itself is never copied."""
+    return F.embedding(tokens, p["table"]).to(dtype)
+
+
+def unembed(p, x):
+    """[B, S, D] x [V, D] -> float32 logits [B, S, V].
+
+    The JAX einsum keeps bf16 operands and asks for f32 output; a bare bf16
+    matmul would round the logits to bf16. On the GPU the product runs on
+    the bf16 operands with a float32 result (``out_dtype``), so the vocab
+    table is not copied; on the CPU the operands are widened (bf16 products
+    are exact in f32, so both compute the same sums)."""
+    table = p["table"].to(x.dtype)
+    B, S, D = x.shape
+    x2 = x.reshape(B * S, D)
+    if x.is_cuda and x.dtype != torch.float32:
+        out = torch.mm(x2, table.t(), out_dtype=torch.float32)
+    else:
+        out = x2.float() @ table.float().t()
+    return out.reshape(B, S, -1)

@@ -1,0 +1,203 @@
+"""Dense decoder-only transformer, inference half (PyTorch port of
+``repro.models.transformer``: ``init``, ``init_caches``, ``prefill``,
+``decode_step``). Training (``forward`` with remat, ``loss``) arrives with
+the training slice.
+
+Params keep the JAX tree and layout: ``blocks`` leaves are stacked
+``[L, ...]`` and matrices are ``[in, out]``. The layer ``scan`` is a Python
+loop. Serving runs several replicas (each its own params) on one batch; the
+``*_replicas`` functions take a list of R param trees and run each
+replica's projections on its own, at the shapes a single replica would see
+(honest replicas then give bit-identical logits), while the attention
+kernel takes all ``R * B * H`` rows in one launch.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import layers as L
+from .config import ArchConfig
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.act_dtype)
+
+
+def _norm(cfg: ArchConfig):
+    if cfg.norm != "rmsnorm":
+        raise NotImplementedError(f"norm {cfg.norm!r}: only rmsnorm is ported")
+    return lambda p, x: L.rmsnorm(p, x, eps=cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _dense(gen, fan_in, shape, dtype):
+    """``truncated_normal(-2, 2) / sqrt(fan_in)`` — the JAX init in law, not
+    in bits — by inverse-CDF sampling in float32, in place (one float32
+    buffer per leaf)."""
+    lo, hi = (0.5 * (1 + math.erf(b / math.sqrt(2))) for b in (-2.0, 2.0))
+    x = torch.rand(shape, generator=gen, device=gen.device)
+    x.mul_(2 * (hi - lo)).add_(2 * lo - 1).erfinv_().mul_(math.sqrt(2))
+    return x.clamp_(-2.0, 2.0).div_(math.sqrt(fan_in)).to(dtype)
+
+
+def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32):
+    """Random params on ``gen.device`` in ``dtype`` (the JAX init draws f32;
+    serving casts to bf16 — passing ``dtype`` casts leaf by leaf, so the
+    float32 copy of the whole model never exists)."""
+    Lyr, D, hd = cfg.n_layers, cfg.d_model, cfg.hd
+    H, kvH, Fd = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    dev = gen.device
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    params = {
+        "embed": {"table": (0.02 * torch.randn(
+            (cfg.vocab, D), generator=gen, device=dev)).to(dtype)},
+        "blocks": {
+            "ln_attn": {"scale": ones(Lyr, D)},
+            "attn": {"wq": _dense(gen, D, (Lyr, D, H * hd), dtype),
+                     "wk": _dense(gen, D, (Lyr, D, kvH * hd), dtype),
+                     "wv": _dense(gen, D, (Lyr, D, kvH * hd), dtype),
+                     "wo": _dense(gen, H * hd, (Lyr, H * hd, D), dtype)},
+            "ln_mlp": {"scale": ones(Lyr, D)},
+            "mlp": {"w_gate": _dense(gen, D, (Lyr, D, Fd), dtype),
+                    "w_up": _dense(gen, D, (Lyr, D, Fd), dtype),
+                    "w_down": _dense(gen, Fd, (Lyr, Fd, D), dtype)},
+        },
+        "ln_f": {"scale": ones(D)},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"table": _dense(gen, D, (cfg.vocab, D), dtype)}
+    return params
+
+
+def layer(params, i: int):
+    """Block ``i``'s params (views into the stacked ``[L, ...]`` leaves)."""
+    def walk(t):
+        return {k: walk(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[i]
+    return walk(params["blocks"])
+
+
+# ---------------------------------------------------------------------------
+# inference: prefill + decode
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, n_chunks: int,
+                dtype=torch.bfloat16, device=None) -> L.KVCache:
+    """One cache per layer, stacked: k/v ``[L, B, kvH, nc, ck, hd]``,
+    length ``[L, B]``."""
+    c = L.KVCache.create(batch, cfg.n_kv_heads, max_len, cfg.hd, n_chunks,
+                         dtype, device)
+    return L.KVCache(*(t.unsqueeze(0).repeat((cfg.n_layers,)
+                                             + (1,) * t.ndim) for t in c))
+
+
+def cache_layer(caches: L.KVCache, i: int) -> L.KVCache:
+    """Layer ``i``'s cache (views: in-place writes land in the stack)."""
+    return L.KVCache(caches.k[i], caches.v[i], caches.length[i])
+
+
+def cache_rows(caches: L.KVCache, rows: slice) -> L.KVCache:
+    """Batch rows ``rows`` of every layer's cache (views), e.g. one serving
+    slot to prefill."""
+    return L.KVCache(caches.k[:, rows], caches.v[:, rows],
+                     caches.length[:, rows])
+
+
+def _logits(params, hidden, cfg: ArchConfig):
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return L.unembed(table, hidden)
+
+
+def _attention_mlp(xs, blocks, rope, cfg, dtype, attend):
+    """One block on every replica: per-replica norm and projections (RoPE
+    from the precomputed ``rope`` tables), ``attend(qs, ks, vs) ->
+    per-replica attention outputs``, then per-replica output projection and
+    MLP."""
+    norm = _norm(cfg)
+    qkv = [L.attention_qkv(blk["attn"], norm(blk["ln_attn"], x), cfg.n_heads,
+                           cfg.n_kv_heads, cfg.hd, None, cfg.rope_theta,
+                           dtype=dtype, rope=rope)
+           for blk, x in zip(blocks, xs)]
+    attn = attend(*zip(*qkv))
+    out = []
+    for blk, x, a in zip(blocks, xs, attn):
+        x = x + L.attention_out(blk["attn"], a, dtype)
+        out.append(x + L.swiglu(blk["mlp"], norm(blk["ln_mlp"], x), dtype))
+    return out
+
+
+def prefill_replicas(reps, tokens, caches, *, cfg: ArchConfig):
+    """Prefill ``tokens [B, S]`` on R replicas. ``reps``: list of R param
+    trees; ``caches``: list of R stacked caches, filled in place. Returns
+    last-token logits ``[R, B, V]`` float32."""
+    dtype = _dtype(cfg)
+    B, S = tokens.shape
+    R = len(reps)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, dtype)
+    xs = [L.embed(p["embed"], tokens, dtype) for p in reps]
+
+    for i in range(cfg.n_layers):
+        blocks = [layer(p, i) for p in reps]
+
+        def attend(qs, ks, vs, i=i):
+            for c, k, v in zip(caches, ks, vs):
+                L.cache_prefill(cache_layer(c, i), k, v)
+            o = L.blocked_attention(
+                torch.cat(qs), torch.cat(ks), torch.cat(vs), causal=True,
+                window=cfg.sliding_window, q_block=cfg.q_block,
+                kv_block=cfg.kv_block)
+            return o.chunk(R)
+
+        xs = _attention_mlp(xs, blocks, rope, cfg, dtype, attend)
+    norm = _norm(cfg)
+    return torch.stack([_logits(p, norm(p["ln_f"], x[:, -1:]), cfg)[:, 0]
+                        for p, x in zip(reps, xs)])
+
+
+def decode_replicas(reps, caches, tokens, *, cfg: ArchConfig):
+    """One token ``[B, 1]`` per row against each replica's caches (each row
+    at its own position, its cache length). Returns logits ``[R, B, V]``
+    float32; caches are updated in place."""
+    dtype = _dtype(cfg)
+    xs = [L.embed(p["embed"], tokens, dtype) for p in reps]
+    # each row's position is its cache length before this token's insert
+    positions = caches[0].length[0][:, None]              # [B, 1]
+    rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, dtype)
+
+    for i in range(cfg.n_layers):
+        blocks = [layer(p, i) for p in reps]
+
+        def attend(qs, ks, vs, i=i):
+            out = []
+            for c, q, k, v in zip(caches, qs, ks, vs):
+                cache = L.cache_insert(cache_layer(c, i), k, v)
+                out.append(L.flash_decode(q, cache,
+                                          window=cfg.sliding_window))
+            return out
+
+        xs = _attention_mlp(xs, blocks, rope, cfg, dtype, attend)
+    norm = _norm(cfg)
+    return torch.stack([_logits(p, norm(p["ln_f"], x), cfg)[:, 0]
+                        for p, x in zip(reps, xs)])
+
+
+def prefill(params, batch, caches, *, cfg: ArchConfig):
+    """Returns (last-token logits [B, V] float32, filled caches)."""
+    logits = prefill_replicas([params], batch["tokens"], [caches], cfg=cfg)
+    return logits[0], caches
+
+
+def decode_step(params, caches, batch, *, cfg: ArchConfig):
+    """batch: {"token": [B, 1]}. Returns (logits [B, V] float32, caches).
+    One new token against the KV cache."""
+    logits = decode_replicas([params], [caches], batch["token"], cfg=cfg)
+    return logits[0], caches
