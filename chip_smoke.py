@@ -19,6 +19,20 @@
    lengths 64-1024 and 16 new tokens each. The continuations must be
    token-identical to an honest single replica, and both kernels must have
    been launched by that run.
+5. Training kernel phase: the batched median, the trimmed mean, MeaMed, the
+   Gram and the subset diameters against their plain versions at the
+   training path's shapes (the ``mlp_h1024`` model, D = 1,093,642), timed as
+   in 2.
+6. Train reference phase: ``quickstart`` at ``mlp_h1024`` for 2T + 3 = 23
+   steps on fixed quorum tables and numpy batches, on the card (kernels)
+   and on the CPU (plain versions): params within the stated tolerance and
+   every MDA selection the same.
+7. Train phase: three fused runs on the card through ``repro_torch.exp.run``
+   — ``quickstart`` (150 steps), ``sync_filters`` (100 steps) and the
+   attack gallery's point (ALIE x2, ``gar="trimmed_mean"``, 120 steps), all
+   at ``mlp_h1024`` — each with steps/s, final accuracy (finite, above 0.2),
+   peak memory and its kernel launches; and a profiler window on
+   ``quickstart`` for the device busy share.
 
 Phases print on earlier lines; the line before the last holds the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -48,6 +62,7 @@ F32_FLOPS = 67e12
 L2_BYTES = 50 * 2**20
 
 SEED = 0
+D_MLP_H1024 = 32 * 1024 + 1024 + 1024 * 1024 + 1024 + 1024 * 10 + 10
 N_REPLICAS, F_BYZ, N_SLOTS, N_REQUESTS, MAX_NEW = 4, 1, 4, 8, 16
 
 
@@ -295,25 +310,305 @@ def serve_phase(dev):
 
 def profile_window(svc, prompts, max_new: int = 8):
     """Where the serve time goes: one short quorum run (a prefill of 256
-    tokens per slot, then decode) under torch.profiler; device busy share
+    tokens per slot, then decode) under torch.profiler."""
+    _profile(f"{len(prompts)} x 256-token prefill + {max_new} tokens each on "
+             f"{svc.pool.n_replicas} replicas",
+             lambda: svc.generate(prompts, max_new=max_new))
+
+
+def _profile(label: str, fn) -> float:
+    """Run ``fn`` under torch.profiler: device busy share of the wall time
     and the kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.generate(prompts, max_new=max_new)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in events)
-    log(f"[profile] {len(prompts)} x 256-token prefill + {max_new} tokens "
-        f"each on {svc.pool.n_replicas} replicas: wall {wall_us / 1e3:.1f} "
-        f"ms, device busy {busy_us / 1e3:.1f} ms "
-        f"({100 * busy_us / wall_us:.1f}% of wall)")
+    log(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}% of wall)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:6d} x  {e.key[:90]}")
+    return busy_us / wall_us
+
+
+# ---------------------------------------------------------------------------
+# training phases (the ByzSGD loop on mlp_h1024)
+# ---------------------------------------------------------------------------
+
+TRAIN_MODEL = "mlp_h1024"
+REF_STEPS = 23                                   # 2T + 3 at T = 10
+
+
+def _bitonic_ops(n: int) -> int:
+    """min/max operations per column of the bitonic network over n rows
+    padded to a power of two: np2 / 2 compare-exchanges (two operations
+    each) in each of its log2(np2) (log2(np2) + 1) / 2 stages."""
+    lg = max(n - 1, 0).bit_length()
+    return (1 << lg) * lg * (lg + 1) // 2
+
+
+def _row(label, err, ms, plain_ms, library_ms, nbytes, ops, extra=""):
+    b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
+    lib = "—" if library_ms is None else f"{library_ms:.4f} ms"
+    log(f"[train-kernel] {label}: max|kernel-plain|={err:.3g} | kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound "
+        f"{b_ms:.4f} ms ({b_by}), {nbytes / ms / 1e6:.1f} GB/s{extra}")
+    return dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                nbytes=nbytes)
+
+
+def train_kernel_phase(dev, D: int):
+    """The five aggregation kernels of the training path against their
+    plain versions at its shapes (quickstart: 9 workers pull 4 of 5 servers,
+    5 servers take 7 of 9 gradients with f = 2; sync_filters: MeaMed over
+    the 5 equivocated servers)."""
+    from repro_torch.agg.rules import subset_masks
+    from repro_torch.kernels.cwise_median import ops as order_ops
+    from repro_torch.kernels.mda_diameter import ops as diam_ops
+    from repro_torch.kernels.pairwise_sqdist import ops as gram_ops
+    from repro_torch.kernels.pairwise_sqdist.ref import sqdists_from_gram
+    rows: dict[str, list] = {"cwise_median": [], "cwise_trimmed_mean": [],
+                             "cwise_meamed": [], "gram": [],
+                             "subset_diameters": []}
+
+    def stack(B, n, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = 0.05 * torch.randn((B, n, D), generator=g, device=dev)
+        x[:, -1, ::97] = float("nan")        # Byzantine NaN coordinates
+        return x
+
+    def exact(got, want):
+        torch.cuda.synchronize()
+        err = (got - want).abs().nan_to_num(0.0).max().item()
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        return err
+
+    # median: worker pulls [9, 4, D] and the DMC gather [5, 4, D]; exact
+    for B, n, role in ((9, 4, "pull"), (5, 4, "DMC gather")):
+        x = stack(B, n, B * n)
+        err = exact(order_ops.cwise_median(x), order_ops.cwise_median_plain(x))
+        rows["cwise_median"].append(_row(
+            f"cwise_median {role} [{B}, {n}, {D}]", err,
+            cold_ms(order_ops.cwise_median, (x,), 100),
+            cold_ms(order_ops.cwise_median_plain, (x,), 20),
+            cold_ms(lambda t: torch.quantile(t, 0.5, dim=1), (x,), 20),
+            4.0 * (B * n * D + B * D), _bitonic_ops(n) * B * D))
+    # trimmed mean: the gallery's servers [5, 7, D], f = 2; the same sorted
+    # rows added in the same order and one IEEE division: exact
+    x = stack(5, 7, 57)
+    err = exact(order_ops.cwise_trimmed_mean(x, 2),
+                order_ops.cwise_trimmed_mean_plain(x, 2))
+    rows["cwise_trimmed_mean"].append(_row(
+        f"cwise_trimmed_mean [5, 7, {D}] f=2", err,
+        cold_ms(lambda t: order_ops.cwise_trimmed_mean(t, 2), (x,), 100),
+        cold_ms(lambda t: order_ops.cwise_trimmed_mean_plain(t, 2), (x,), 20),
+        None, 4.0 * (5 * 7 * D + 5 * D), (_bitonic_ops(7) + 3) * 5 * D))
+    # MeaMed: sync_filters' equivocated refresh [5, 5, D], f = 1; exact
+    x = stack(5, 5, 55)
+    err = exact(order_ops.cwise_meamed(x, 1),
+                order_ops.cwise_meamed_plain(x, 1))
+    rows["cwise_meamed"].append(_row(
+        f"cwise_meamed [5, 5, {D}] f=1", err,
+        cold_ms(lambda t: order_ops.cwise_meamed(t, 1), (x,), 100),
+        cold_ms(lambda t: order_ops.cwise_meamed_plain(t, 1), (x,), 20),
+        None, 4.0 * (5 * 5 * D + 5 * D), (_bitonic_ops(5) + 30) * 5 * D))
+    # Gram: MDA at the 5 servers over 7 gradients; float32 summation order,
+    # so entries are held within 1e-5 of the squared norms bounding them
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = 0.05 * torch.randn((5, 7, D), generator=g, device=dev)
+    got, want = gram_ops.gram(x), gram_ops.gram_plain(x)
+    torch.cuda.synchronize()
+    sq = torch.diagonal(want, dim1=-2, dim2=-1)
+    scale = sq[..., :, None] + sq[..., None, :]
+    err = (got - want).abs().max().item()
+    d2_err = (sqdists_from_gram(got) - sqdists_from_gram(want)).abs()
+    if not (torch.all((got - want).abs() <= 1e-5 * scale)
+            and torch.all(d2_err <= 1e-5 * scale)):
+        raise AssertionError(f"gram kernel off its plain version by {err}")
+    if not torch.equal(gram_ops.gram(x), got):
+        raise AssertionError("gram kernel is not deterministic")
+    rows["gram"].append(_row(
+        f"gram [5, 7, {D}]", err,
+        cold_ms(gram_ops.gram, (x,), 100),
+        cold_ms(gram_ops.gram_plain, (x,), 20),
+        cold_ms(lambda t: torch.bmm(t, t.transpose(1, 2)), (x,), 100),
+        4.0 * (5 * 7 * D + 5 * 49), 2.0 * 5 * 28 * D,
+        f", max|d2| err / scale {(d2_err / scale.clamp(min=1e-30)).max().item():.2g}"))
+    # subset diameters: C(7, 5) = 21 subsets for each of the 5 servers; exact
+    d2 = sqdists_from_gram(got)
+    masks = subset_masks(7, 2)
+    mask_t = torch.as_tensor(masks, device=dev)
+    err = exact(diam_ops.subset_diameters(d2, masks),
+                diam_ops.subset_diameters_plain(d2, mask_t))
+    rows["subset_diameters"].append(_row(
+        "subset_diameters [5, 7, 7] x 21 subsets", err,
+        cold_ms(lambda t: diam_ops.subset_diameters(t, masks), (d2,), 200),
+        cold_ms(lambda t: diam_ops.subset_diameters_plain(t, mask_t), (d2,),
+                50),
+        None, 4.0 * 5 * 49 + 8.0 * 21 + 4.0 * 5 * 21, 5.0 * 21 * 25))
+    return rows
+
+
+def _mixture_batches(rng, steps, n_w, batch, spec):
+    centres = spec.sep * rng.standard_normal((spec.n_classes, spec.dim))
+    y = rng.integers(0, spec.n_classes, (steps, n_w, batch))
+    x = centres[y] + spec.noise * rng.standard_normal(y.shape + (spec.dim,))
+    return (torch.from_numpy(x.astype(np.float32)),
+            torch.from_numpy(y.astype(np.int64)))
+
+
+def _quorum_tables(rng, cfg, steps):
+    def pick(n_recv, n_send, q, self_first=False):
+        rows = []
+        for r in range(n_recv):
+            others = [s for s in rng.permutation(n_send)
+                      if not (self_first and s == r)]
+            rows.append(([r] if self_first else []) + others)
+        return np.asarray(rows)[:, :q]
+
+    pull = np.stack([pick(cfg.n_workers, cfg.n_servers, cfg.q_servers)
+                     for _ in range(steps)])
+    push = np.stack([pick(cfg.n_servers, cfg.n_workers, cfg.q_workers)
+                     for _ in range(steps)])
+    gather = np.stack([pick(cfg.n_servers, cfg.n_servers, cfg.q_servers,
+                            True) for _ in range(steps // cfg.T)])
+    return pull, push, gather
+
+
+def train_reference_phase(dev):
+    """quickstart at mlp_h1024 for 2T + 3 steps on shared quorum tables and
+    numpy batches: the card's kernels against the CPU's plain versions."""
+    import dataclasses
+
+    from repro_torch.agg import registry
+    from repro_torch.core.quorum import TraceDelivery
+    from repro_torch.exp import presets
+    e = presets.get("quickstart", model=TRAIN_MODEL, steps=REF_STEPS)
+    cfg = e.to_config()
+    rng = np.random.default_rng(SEED)
+    tables = _quorum_tables(rng, cfg, REF_STEPS)
+    x, y = _mixture_batches(rng, REF_STEPS, cfg.n_workers, e.batch,
+                            e.mixture)
+    init, _, _ = e.build_problem()
+    mda = registry.get("mda")
+    out, sels = {}, {}
+    for key, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        sim = e.build_sim(TraceDelivery(*tables, T=cfg.T, device=d), d)
+        flat0 = sim.tree.flatten(init(torch.Generator().manual_seed(SEED)))
+        state = sim.state_from(flat0, torch.Generator(d).manual_seed(1))
+        picked = sels[key] = []
+
+        def record(d2, f, **kw):
+            w = mda.weights_from_d2(d2, f, **kw)
+            picked.append((w > 0).cpu())
+            return w
+
+        registry._REGISTRY["mda"] = dataclasses.replace(
+            mda, weights_from_d2=record)
+        try:
+            t0 = time.perf_counter()
+            state, _ = sim.run(state, [(x[i].to(d), y[i].to(d))
+                                       for i in range(REF_STEPS)])
+            params = state.params.cpu()
+            wall = time.perf_counter() - t0
+        finally:
+            registry._REGISTRY["mda"] = mda
+        out[key] = params
+        log(f"[train-ref] {key}: {REF_STEPS} steps in {wall:.1f} s")
+    if not torch.isfinite(out["card"]).all():
+        raise AssertionError("non-finite params on the card")
+    same = (len(sels["cpu"]) == len(sels["card"]) == REF_STEPS
+            and all(torch.equal(a, b) for a, b in zip(sels["cpu"],
+                                                      sels["card"])))
+    err = (out["card"] - out["cpu"]).abs().max().item()
+    log(f"[train-ref] quickstart {TRAIN_MODEL} (D = {out['cpu'].shape[1]}), "
+        f"{REF_STEPS} steps, 2 gathers: card kernels vs CPU plain versions "
+        f"max|params diff|={err:.3g} (max|param| "
+        f"{out['cpu'].abs().max().item():.3g}); every MDA selection matched "
+        f"({REF_STEPS} steps x {cfg.n_servers} servers): {same}")
+    if not same:
+        raise AssertionError("an MDA selection differs between the card and "
+                             "the CPU")
+    # float32 sums in other orders (cuBLAS vs the CPU's GEMMs, the Gram
+    # kernel's chunks), carried through 23 steps of training
+    torch.testing.assert_close(out["card"], out["cpu"], rtol=1e-3, atol=1e-4)
+    return err
+
+
+TRAIN_RUNS = (
+    ("quickstart", dict(model=TRAIN_MODEL, steps=150),
+     ("gram", "subset_diameters", "cwise_median")),
+    ("sync_filters", dict(model=TRAIN_MODEL, steps=100), ("cwise_meamed",)),
+    ("attack_gallery", dict(model=TRAIN_MODEL, data="mixture10_easy",
+                            steps=120, batch=25, gar="trimmed_mean"),
+     ("cwise_trimmed_mean",)),
+)
+
+
+def _counters():
+    from repro_torch.kernels.cwise_median import ops as order_ops
+    from repro_torch.kernels.mda_diameter import ops as diam_ops
+    from repro_torch.kernels.pairwise_sqdist import ops as gram_ops
+    return {"cwise_median": order_ops.cwise_median,
+            "cwise_trimmed_mean": order_ops.cwise_trimmed_mean,
+            "cwise_meamed": order_ops.cwise_meamed, "gram": gram_ops.gram,
+            "subset_diameters": diam_ops.subset_diameters}
+
+
+def train_phase(dev):
+    """The three fused training runs; each kernel's launches counted from 0
+    around the run that drives it."""
+    from repro_torch import exp
+    from repro_torch.core.attacks import ByzantineSpec
+    counters = _counters()
+    launches = {k: 0 for k in counters}
+    results = {}
+    for name, kw, needs in TRAIN_RUNS:
+        if name == "attack_gallery":
+            spec = exp.Experiment(name=name, byz=ByzantineSpec(
+                worker_attack="alie", n_byz_workers=2, equivocate=True), **kw)
+        else:
+            spec = exp.get(name, **kw)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters.values():
+            c.launches = 0
+        res = exp.run(spec, device=dev)
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        acc = res.final["acc"]
+        log(f"[train] {name} ({spec.variant}, gar {spec.gar}, "
+            f"{spec.n_workers}/{spec.f_workers} workers, "
+            f"{spec.n_servers}/{spec.f_servers} servers, T={spec.T}, "
+            f"{spec.steps} steps, {TRAIN_MODEL}): {spec.steps / res.wall_s:.2f}"
+            f" steps/s ({res.wall_s:.2f} s), final acc {acc:.4f}, peak "
+            f"device memory {peak_gb:.2f} GB, launches {got}"
+            + (f", final rejects {res.final['rejects']}"
+               if "rejects" in res.final else ""))
+        log(f"[train] {name} acc log " + json.dumps(
+            [(m["step"], round(m["acc"], 4)) for m in res.logs]))
+        if not np.isfinite(acc) or acc <= 0.2:
+            raise AssertionError(f"{name}: final accuracy {acc} is not "
+                                 f"finite and above 0.2 (twice chance)")
+        for k in needs:
+            if got[k] <= 0:
+                raise AssertionError(f"{k} kernel was not launched by the "
+                                     f"{name} run")
+        for k in launches:
+            launches[k] += got[k]
+        results[name] = dict(steps_s=spec.steps / res.wall_s, acc=acc,
+                             peak_gb=peak_gb, launches=got)
+    _profile(f"quickstart {TRAIN_MODEL}, 20 fused steps",
+             lambda: exp.run("quickstart", device=dev, model=TRAIN_MODEL,
+                             steps=20))
+    return launches, results
 
 
 def main() -> int:
@@ -343,22 +638,44 @@ def main() -> int:
         median = median_phase(dev)
         reference_phase(dev)
         launches, _ = serve_phase(dev)
+        train_rows = train_kernel_phase(dev, D_MLP_H1024)
+    # the training phases need autograd: outside inference mode
+    train_reference_phase(dev)
+    train_launches, _ = train_phase(dev)
+    launches["cwise_median"] += train_launches["cwise_median"]
+    launches.update({k: v for k, v in train_launches.items()
+                     if k != "cwise_median"})
 
-    main_flash = max(flash, key=lambda r: (r["S"], -r["window"]))
-    main_median = next(r for r in median if r["n"] == N_REPLICAS)
+    rows = dict(train_rows)
+    rows["flash_attention"] = flash
+    rows["cwise_median"] = [dict(r, nbytes=4.0 * (r["n"] + 1) * N_SLOTS
+                                 * 200064) for r in median] \
+        + train_rows["cwise_median"]
     kernels = []
-    for name, src, replaces, main_row, rows in (
+    for name, src, replaces in (
             ("flash_attention", "flash_attention/csrc/flash_fwd.cu",
-             "src/repro/kernels/flash_attention/kernel.py:28", main_flash,
-             flash),
+             "flash_attention/kernel.py:28"),
             ("cwise_median", "cwise_median/csrc/cwise_median.cu",
-             "src/repro/kernels/cwise_median/kernel.py:54", main_median,
-             median)):
+             "cwise_median/kernel.py:54"),
+            ("cwise_trimmed_mean", "cwise_median/csrc/cwise_median.cu",
+             "cwise_median/kernel.py:60"),
+            ("cwise_meamed", "cwise_median/csrc/cwise_median.cu",
+             "cwise_median/kernel.py:69"),
+            ("gram", "pairwise_sqdist/csrc/gram.cu",
+             "pairwise_sqdist/kernel.py:24"),
+            ("subset_diameters", "mda_diameter/csrc/mda_diameter.cu",
+             "mda_diameter/kernel.py:17")):
+        rs = rows[name]
+        # the row of the path's largest call (flash: S = 1000, causal)
+        main_row = (max(rs, key=lambda r: (r["S"], -r["window"]))
+                    if name == "flash_attention"
+                    else max(rs, key=lambda r: r["nbytes"]))
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{src}",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],

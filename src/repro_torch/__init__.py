@@ -1,8 +1,8 @@
 """repro_torch — the PyTorch/CUDA port of ``repro`` for NVIDIA Hopper.
 
 The port mirrors the JAX package's layout (``models/``, ``kernels/<pkg>/``,
-``agg/``, ``core/``, ``serve/``, ``launch/``) with the same module and
-function names. Plain tensor code is PyTorch; every Pallas TPU kernel on a
+``agg/``, ``core/``, ``exp/``, ``data/``, ``optim/``, ``configs/``,
+``serve/``, ``launch/``) with the same module and function names. Plain tensor code is PyTorch; every Pallas TPU kernel on a
 ported path is a hand-written CUDA C++ kernel for ``sm_90a`` under
 ``kernels/<pkg>/csrc/``, built with ``nvcc`` at first use.
 

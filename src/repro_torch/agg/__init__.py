@@ -1,19 +1,21 @@
-"""repro_torch.agg — the Aggregator API of ``repro.agg`` for the rules the
-port has so far (``median``, ``vote``):
+"""repro_torch.agg — the Aggregator API of ``repro.agg``, all nine rules:
 
     import repro_torch.agg as agg
 
-    agg.get("median")(x, f)                    # [n, ...] stack
-    agg.get("median")(x, f, mask=delivered)    # delivered subset
+    agg.get("mda")(x, f)                        # flat [n, ...] stack
+    agg.get("median")(x, f, mask=delivered)     # delivered subset
+    agg.tree_agg("mda", stack, f)               # [n, D] or [B, n, D] stack
 
-The median routes by device (:mod:`repro_torch.agg.dispatch`): the CUDA
-kernel for a GPU stack, its plain version for a CPU one.
+The kernels route by device (:mod:`repro_torch.agg.dispatch`): a CUDA stack
+of n <= 64 launches the kernel, a CPU stack runs its plain version.
 """
 from __future__ import annotations
 
-from . import dispatch, registry, rules
-from .dispatch import cwise_median
+from . import dispatch, registry, rules, tree
+from .dispatch import cwise_median, pairwise_sqdists, subset_diameters
 from .registry import Aggregator, get, names, register
+from .tree import tree_agg, tree_gram
 
 __all__ = ["Aggregator", "cwise_median", "dispatch", "get", "names",
-           "register", "registry", "rules"]
+           "pairwise_sqdists", "register", "registry", "rules",
+           "subset_diameters", "tree", "tree_agg", "tree_gram"]

@@ -30,3 +30,9 @@ def set_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the work queued on ``dev`` (no-op on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

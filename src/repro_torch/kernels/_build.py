@@ -25,6 +25,8 @@ BUILD_DIR = _HERE / "build"
 SOURCES = {
     "flash_attention": _HERE / "flash_attention" / "csrc" / "flash_fwd.cu",
     "cwise_median": _HERE / "cwise_median" / "csrc" / "cwise_median.cu",
+    "pairwise_sqdist": _HERE / "pairwise_sqdist" / "csrc" / "gram.cu",
+    "mda_diameter": _HERE / "mda_diameter" / "csrc" / "mda_diameter.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -61,7 +61,11 @@ def test_scan_covers_the_package():
     names = {p.relative_to(ROOT / "src").as_posix() for p in FILES[:-1]}
     for mod in ("repro_torch/models/layers.py", "repro_torch/serve/service.py",
                 "repro_torch/kernels/flash_attention/ops.py",
-                "repro_torch/kernels/cwise_median/ops.py"):
+                "repro_torch/kernels/cwise_median/ops.py",
+                "repro_torch/kernels/pairwise_sqdist/ops.py",
+                "repro_torch/kernels/mda_diameter/ops.py",
+                "repro_torch/core/simulator.py", "repro_torch/core/engine.py",
+                "repro_torch/exp/runners.py"):
         assert mod in names
     assert "jax" in {n for n in _imports(
         ROOT / "tests" / "test_torch_serve.py")}  # the scan sees imports

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: each against its plain PyTorch version at
-the serving path's shapes, and a reduced model run through the kernels
-against the same model on the CPU's plain path. Imports no JAX, so it runs
+shapes of the serving and training paths (the batched median, trimmed
+mean, MeaMed, Gram and subset diameters included), and a reduced model run
+through the kernels against the same model on the CPU's plain path. Imports no JAX, so it runs
 on a machine with a GPU and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -99,3 +100,91 @@ def test_reduced_model_on_kernels_matches_cpu_plain_path():
         out[d.type] = torch.stack(logits).cpu()
     assert torch.isfinite(out["cuda"]).all()
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-3)
+
+
+# -- the training slice's kernels ---------------------------------------------
+
+def _stack(shape, seed, nan_rows=0, integers=False):
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(-3, 4, size=shape) if integers
+         else rng.standard_normal(shape)).astype(np.float32)
+    if nan_rows:
+        x[..., x.shape[-2] - nan_rows:, ::7] = np.nan   # Byzantine NaN
+    return x
+
+
+@pytest.mark.parametrize("B,n", [(1, 4), (9, 4), (5, 5), (3, 7), (2, 64)])
+def test_batched_median_kernel_matches_plain(B, n):
+    """Exact, with NaN payloads; row b of a batch equals the unbatched
+    launch on stack b."""
+    dev = require_cuda()
+    x = torch.from_numpy(_stack((B, n, 5003), B + n, nan_rows=1)).to(dev)
+    before = median_ops.cwise_median.launches
+    got = median_ops.cwise_median(x)
+    torch.cuda.synchronize()
+    assert median_ops.cwise_median.launches == before + 1
+    torch.testing.assert_close(got, median_ops.cwise_median_plain(x),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got[-1], median_ops.cwise_median(x[-1]),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,f", [(3, 1), (5, 1), (7, 2), (8, 3), (64, 20)])
+@pytest.mark.parametrize("integers", [False, True])
+def test_trimmed_mean_and_meamed_kernels_match_plain(n, f, integers):
+    """Exact: the same sorted rows reduced in the same order, the same IEEE
+    division; integer stacks make every window tie (MeaMed's tie
+    contract)."""
+    dev = require_cuda()
+    x = torch.from_numpy(_stack((4, n, 3001), 10 * n + f, nan_rows=f,
+                                integers=integers)).to(dev)
+    for fn, plain in ((median_ops.cwise_trimmed_mean,
+                       median_ops.cwise_trimmed_mean_plain),
+                      (median_ops.cwise_meamed,
+                       median_ops.cwise_meamed_plain)):
+        before = fn.launches
+        got = fn(x, f)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        torch.testing.assert_close(got, plain(x, f), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,n,d", [(1, 3, 100), (5, 7, 200_003),
+                                   (2, 64, 5000)])
+def test_gram_kernel_matches_plain(B, n, d):
+    """float32 summation order: Gram entries within 1e-5 of the squared
+    norms they are bounded by; d2 likewise; and bit-identical from run to
+    run (no atomics)."""
+    from repro_torch.kernels.pairwise_sqdist import ops as gram_ops
+    dev = require_cuda()
+    x = torch.from_numpy(_stack((B, n, d), d)).to(dev)
+    before = gram_ops.gram.launches
+    g = gram_ops.gram(x)
+    torch.cuda.synchronize()
+    assert gram_ops.gram.launches == before + 1
+    want = gram_ops.gram_plain(x)
+    sq = torch.diagonal(want, dim1=-2, dim2=-1)
+    scale = (sq[..., :, None] + sq[..., None, :])
+    assert torch.all((g - want).abs() <= 1e-5 * scale)
+    d2 = gram_ops.pairwise_sqdists(x)
+    from repro_torch.kernels.pairwise_sqdist.ref import sqdists_from_gram
+    assert torch.all((d2 - sqdists_from_gram(want)).abs() <= 1e-5 * scale)
+    assert torch.equal(gram_ops.gram(x), g)
+
+
+@pytest.mark.parametrize("n,f,B", [(7, 2, 5), (5, 1, 1), (12, 5, 3)])
+def test_subset_diameter_kernel_matches_plain(n, f, B):
+    """Exact (a max does not depend on its order), NaN included."""
+    from repro_torch.agg.rules import subset_masks
+    from repro_torch.kernels.mda_diameter import ops as diam_ops
+    dev = require_cuda()
+    d2 = torch.from_numpy(_stack((B, n, n), n * f) ** 2).to(dev)
+    d2[0, 0, 1] = float("nan")
+    masks = subset_masks(n, f)
+    before = diam_ops.subset_diameters.launches
+    got = diam_ops.subset_diameters(d2, masks)
+    torch.cuda.synchronize()
+    assert diam_ops.subset_diameters.launches == before + 1
+    torch.testing.assert_close(
+        got, diam_ops.subset_diameters_plain(d2, masks), rtol=0, atol=0,
+        equal_nan=True)
