@@ -33,6 +33,23 @@
    at ``mlp_h1024`` — each with steps/s, final accuracy (finite, above 0.2),
    peak memory and its kernel launches; and a profiler window on
    ``quickstart`` for the device busy share.
+8. Flash backward phase: the dq and dkv kernels against the plain backward
+   on the card at the protocol run's shape (B 4, S 1024, 24 / 8 heads, hd
+   128, bf16, causal), a ragged windowed GQA case and a padded hd 32 case:
+   error and tolerance, two launches bit-equal, each kernel's time beside
+   its bound, the plain version's and the library's (the backward of
+   ``scaled_dot_product_attention``, a yardstick only).
+9. Protocol reference phase: ``lm/tfm_tiny`` in float32 (hd 32, padded in
+   the kernels) through the port's ``ProtocolEngine`` for 2T + 1 steps on
+   fixed quorum tables and numpy token batches, an ALIE worker: the card
+   against the CPU, params within the stated tolerance and every MDA
+   selection the same.
+10. Protocol train phase: phi4-mini-3.8b at full width, depth 2, through
+   ``python -m repro_torch.launch.train`` — G = 4 groups on the card (f_w =
+   1, f_ps = 0), ALIE on one worker, T = 5, 11 steps of 4 x 1024 Zipf tokens
+   per group, sgd: finite, falling losses, steps/s, peak memory (under 80 GB),
+   launches per kernel per step (the flash forward, dq and dkv among them)
+   and a profiler window; then ``exp.run("lm/tfm_tiny")`` on the card.
 
 Phases print on earlier lines; the line before the last holds the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -41,6 +58,7 @@ result line, when CUDA is absent or any check fails.
 """
 from __future__ import annotations
 
+import gc
 import json
 import shutil
 import subprocess
@@ -86,7 +104,7 @@ def cold_ms(fn, args, iters: int, warmup: int = 2) -> float:
     device time of a microsecond kernel."""
     nbytes = sum(t.numel() * t.element_size() for t in args)
     sets = [args] + [tuple(t.clone() for t in args)
-                     for _ in range(-(-3 * L2_BYTES // nbytes))]
+                     for _ in range(-(-3 * L2_BYTES // nbytes) - 1)]
     for i in range(warmup):
         fn(*sets[i % len(sets)])
     torch.cuda.synchronize()
@@ -611,6 +629,355 @@ def train_phase(dev):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# the zoo training slice: flash backward, protocol reference, protocol train
+# ---------------------------------------------------------------------------
+
+def sdpa_bwd_ms(q, k, v, do, lib: dict) -> float:
+    """Device time of the backward of ``F.scaled_dot_product_attention`` on
+    these inputs, timed as the kernels are (:func:`cold_ms`, graph replay,
+    cold L2): the forward and backward together, less the forward alone.
+    The backward runs on the stream of its forward, so capturing both in
+    one graph captures the backward too."""
+    def fwd(q, k, v, do):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        return leaves, F.scaled_dot_product_attention(*leaves,
+                                                      enable_gqa=True, **lib)
+
+    def fwd_bwd(q, k, v, do):
+        leaves, out = fwd(q, k, v, do)
+        return torch.autograd.grad(out, leaves, do)
+
+    args = tuple(t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    return cold_ms(fwd_bwd, args, 10) - cold_ms(fwd, args, 10)
+
+
+BWD_CASES = (
+    # label, B, Sq, Skv, H, kvH, hd, window, dtype
+    ("protocol shape", 4, 1024, 1024, 24, 8, 128, 0, torch.bfloat16),
+    ("ragged windowed GQA", 2, 1000, 1000, 24, 8, 128, 256, torch.bfloat16),
+    ("padded hd 32", 4, 64, 64, 4, 2, 32, 0, torch.float32),
+)
+
+
+def flash_bwd_phase(dev):
+    """The dq and dkv kernels against the plain backward, timed."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_bwd_from_delta, flash_delta)
+    rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+    for label, B, Sq, Skv, H, kvH, hd, window, dt in BWD_CASES:
+        g = torch.Generator(device=dev).manual_seed(Sq + hd + window)
+        q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dt)
+        k = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).to(dt)
+        v = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).to(dt)
+        do = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dt)
+        o, lse = ops.flash_attention(q, k, v, causal=True, window=window)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                      window=window)
+        again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                        window=window)
+        delta = flash_delta(o, do).contiguous()
+        want = flash_bwd_from_delta(q, k, v, do, lse, delta, causal=True,
+                                    window=window)
+        torch.cuda.synchronize()
+        # both sides accumulate in float32 and round once at the output:
+        # bf16 outputs may differ by one rounding step (2^-7 of the value),
+        # float32 ones by summation order
+        rtol, atol = (1e-4, 1e-5) if dt == torch.float32 else (2 ** -7, 1e-3)
+        errs = [(a.float() - w.float()).abs().max().item()
+                for a, w in zip(got, want)]
+        typical = [w.float().abs().median().item() for w in want]
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a.float(), w.float(), rtol=rtol,
+                                       atol=atol)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not same:
+            raise AssertionError(f"flash backward ({label}) is not "
+                                 "deterministic")
+        # the kernels' own operands: hd padded to 128, contiguous
+        pad = (lambda t: t if hd == 128 else F.pad(t, (0, 128 - hd)))
+        qp, kp, vp, dop = (pad(t).contiguous() for t in (q, k, v, do))
+        kw = dict(scale=hd ** -0.5, causal=True, window=window)
+        dq_ms = cold_ms(lambda *t: ops.flash_bwd_dq(*t, **kw),
+                        (qp, kp, vp, dop, lse, delta), 10)
+        dkv_ms = cold_ms(lambda *t: ops.flash_bwd_dkv(*t, **kw),
+                         (qp, kp, vp, dop, lse, delta), 10)
+        plain_ms = cold_ms(lambda *t: flash_bwd_from_delta(
+            *t, causal=True, window=window), (q, k, v, do, lse, delta), 3)
+        # the library's backward of the same attention (dq, dk, dv at once)
+        if window:
+            i = torch.arange(Sq, device=dev)
+            lib = dict(attn_mask=(i[None] <= i[:, None])
+                       & (i[None] > i[:, None] - window))
+        else:
+            lib = dict(is_causal=True)
+        library_ms = sdpa_bwd_ms(q, k, v, do, lib)
+        # the work these inputs need: visible (q, k) pairs, the true hd
+        i = np.arange(Sq)
+        lo = np.maximum(0, i - window + 1) if window else 0
+        pairs = int(np.sum(i + 1 - lo)) * B * H
+        es = torch.finfo(dt).bits // 8
+        qb, kvb = es * B * Sq * H * hd, es * B * Skv * kvH * hd
+        vec = 4.0 * B * H * Sq                           # lse or delta
+        for name, ms, n_prod, nbytes in (
+                ("flash_bwd_dq", dq_ms, 3, 4 * qb + 2 * kvb + 2 * vec),
+                ("flash_bwd_dkv", dkv_ms, 4, 2 * qb + 4 * kvb + 2 * vec)):
+            flops = 2.0 * hd * pairs * n_prod
+            b_ms, b_by = bound(nbytes, flops,
+                               BF16_FLOPS if dt == torch.bfloat16
+                               else F32_FLOPS)
+            rows[name].append(dict(label=label, max_abs_err=max(errs), ms=ms,
+                                   plain_ms=plain_ms, library_ms=library_ms,
+                                   bound_ms=b_ms, bound_by=b_by, flops=flops))
+            log(f"[bwd-kernel] {name} {label} [B {B}, S {Sq}/{Skv}, heads "
+                f"{H}/{kvH}, hd {hd}, window {window}, {str(dt)[6:]}]: "
+                f"max|dq,dk,dv - plain| {errs[0]:.3g}/{errs[1]:.3g}/"
+                f"{errs[2]:.3g} (tol {atol} + {rtol:.3g} x |plain|; median "
+                f"|plain| {typical[0]:.3g}/{typical[1]:.3g}/"
+                f"{typical[2]:.3g}), two launches bit-equal {same} | "
+                f"kernel {ms:.4f} ms, plain (whole backward) {plain_ms:.4f} "
+                f"ms, sdpa backward {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s")
+    return rows
+
+
+def _token_tables(rng, G, q_w, q_ps, T, steps):
+    def pick(q, self_first=False):
+        rows = []
+        for r in range(G):
+            others = [s for s in rng.permutation(G)
+                      if not (self_first and s == r)]
+            rows.append(([r] if self_first else []) + others)
+        return np.asarray(rows)[:, :q]
+    return (np.stack([pick(q_ps) for _ in range(steps)]),
+            np.stack([pick(q_w) for _ in range(steps)]),
+            np.stack([pick(q_ps, True) for _ in range(steps // T)]))
+
+
+def protocol_reference_phase(dev):
+    """lm/tfm_tiny (f32) through the ProtocolEngine: card vs CPU."""
+    import dataclasses
+
+    from repro_torch.agg import registry
+    from repro_torch.core import protocol
+    from repro_torch.core.attacks import ByzantineSpec
+    from repro_torch.core.quorum import TraceDelivery
+    from repro_torch.exp import presets
+    from repro_torch.models.registry import get_bundle
+    e = presets.get("lm/tfm_tiny")
+    pcfg = dataclasses.replace(e.to_protocol_config(), byz=ByzantineSpec(
+        worker_attack="alie", n_byz_workers=1))
+    T, G = pcfg.T, pcfg.n_groups
+    steps = 2 * T + 1
+    bundle = get_bundle("phi4-mini-3.8b", reduced=True, act_dtype="float32")
+    rng = np.random.default_rng(SEED)
+    tables = _token_tables(rng, G, pcfg.q_workers, pcfg.q_servers, T, steps)
+    spec = e.to_dict()
+    toks = rng.integers(0, bundle.cfg.vocab,
+                        (steps, G, spec["batch"], 65))
+    batches = {"tokens": torch.from_numpy(toks[..., :-1]),
+               "labels": torch.from_numpy(toks[..., 1:])}
+    init = protocol.make_init_fn(bundle, pcfg, "cpu")(SEED)
+    mda = registry.get("mda")
+    out, sels = {}, {}
+    for key, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        eng = protocol.ProtocolEngine(
+            bundle, pcfg, e.build_schedule(), with_attack=True,
+            delivery=TraceDelivery(*tables, T=T, device=d), device=d)
+        state = init._replace(params=init.params.clone().to(d),
+                              gen=torch.Generator(d).manual_seed(1))
+        picked = sels[key] = []
+
+        def record(d2, f, **kw):
+            w = mda.weights_from_d2(d2, f, **kw)
+            picked.append((w > 0).cpu())
+            return w
+
+        registry._REGISTRY["mda"] = dataclasses.replace(
+            mda, weights_from_d2=record)
+        try:
+            t0 = time.perf_counter()
+            state, _ = eng.run(state, {k: v.to(d) for k, v in
+                                       batches.items()})
+            out[key] = state.params.cpu()
+            wall = time.perf_counter() - t0
+        finally:
+            registry._REGISTRY["mda"] = mda
+        log(f"[protocol-ref] {key}: {steps} steps in {wall:.1f} s")
+    if not torch.isfinite(out["card"]).all():
+        raise AssertionError("non-finite params on the card")
+    same = (len(sels["cpu"]) == len(sels["card"]) == steps
+            and all(torch.equal(a, b) for a, b in zip(sels["cpu"],
+                                                      sels["card"])))
+    err = (out["card"] - out["cpu"]).abs().max().item()
+    log(f"[protocol-ref] lm/tfm_tiny f32 (P = {out['cpu'].shape[1]}, G = "
+        f"{G}, ALIE x1), {steps} steps, 2 gathers: card kernels vs CPU plain "
+        f"versions max|params diff|={err:.3g} (max|param| "
+        f"{out['cpu'].abs().max().item():.3g}); every MDA selection matched "
+        f"({steps} steps x {G} servers): {same}")
+    if not same:
+        raise AssertionError("an MDA selection differs between the card and "
+                             "the CPU")
+    # float32 sums in other orders (cuBLAS, the flash kernels' tiles, the
+    # Gram kernel's chunks), carried through 11 steps of training
+    torch.testing.assert_close(out["card"], out["cpu"], rtol=1e-3, atol=1e-4)
+    return err
+
+
+PROTO_STEPS = 11
+# sgd with inverse_linear(0.002, 0.005): the JAX launcher's lr0 of 0.02 suits
+# its reduced (d_model 128) model; at the full width of 3072 one step of it
+# overshoots, and the loss rises instead of falling
+PROTO_ARGV = ["--arch", "phi4-mini-3.8b", "--depth", "2", "--groups", "4",
+              "--T", "5", "--seq", "1024", "--batch-per-group", "4",
+              "--steps", str(PROTO_STEPS), "--lr", "0.002", "--worker-attack",
+              "alie", "--n-byz", "1", "--log-every", "1"]
+
+
+def _proto_counters():
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    c = _counters()
+    c.update({"flash_attention": flash_ops.flash_attention,
+              "flash_bwd_dq": flash_ops.flash_bwd_dq,
+              "flash_bwd_dkv": flash_ops.flash_bwd_dkv})
+    return c
+
+
+def protocol_kernel_rows(dev, G: int, P: int, chunk_bytes: int):
+    """The Gram and median kernels at the protocol run's shapes: MDA's one
+    Gram over the ``[G, P]`` gradient stack, the masked pull's and the DMC
+    gather's streamed chunk ``[G, G, c]`` (every server in each quorum at
+    f_ps = 0) and ``consolidate``'s chunk ``[G, c]``. A seeded stack of
+    that size stands in for the gradients."""
+    from repro_torch.kernels.cwise_median import ops as order_ops
+    from repro_torch.kernels.pairwise_sqdist import ops as gram_ops
+    from repro_torch.kernels.pairwise_sqdist.ref import sqdists_from_gram
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    x = 0.05 * torch.randn((G, P), generator=g, device=dev)
+    got, again = gram_ops.gram(x), gram_ops.gram(x)
+    want = gram_ops.gram_plain(x)
+    exact = torch.zeros((G, G), dtype=torch.float64, device=dev)
+    for c0 in range(0, P, 2**26):
+        xc = x[:, c0:c0 + 2**26].double()
+        exact += xc @ xc.T
+    del xc
+    torch.cuda.synchronize()
+    sq = torch.diagonal(exact)
+    scale = sq[:, None] + sq[None, :]
+    d2 = sqdists_from_gram(got).double()
+    errs = {name: ((got.double() - ref).abs() / scale).max().item()
+            for name, ref in (("plain", want.double()), ("float64", exact))}
+    errs["d2 float64"] = ((d2 - sqdists_from_gram(exact)).abs()
+                          / scale).max().item()
+    same = torch.equal(got, again)
+    log(f"[protocol-kernel] gram [{G}, {P}]: {gram_ops.chunking(1, P)[1]} "
+        f"chunks; max|kernel - ref| / (|xi|^2 + |xj|^2): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f" (tol 1e-5); two launches bit-equal {same}")
+    if not same or max(errs.values()) > 1e-5:
+        raise AssertionError(f"gram kernel at [{G}, {P}]: {errs}, "
+                             f"bit-equal {same}")
+    rows = {"gram": [_row(
+        f"protocol gram [{G}, {P}]", (got - want).abs().max().item(),
+        cold_ms(gram_ops.gram, (x,), 3), cold_ms(gram_ops.gram_plain, (x,), 2),
+        cold_ms(lambda t: t @ t.T, (x,), 3),
+        4.0 * (G * P + G * G), 2.0 * (G * (G + 1) // 2) * P)]}
+    del want
+    # the pull's and the gather's chunk (masked_pull), consolidate's chunk
+    rows["cwise_median"] = []
+    c = chunk_bytes // (G * G * 4)
+    perm = torch.stack([torch.roll(torch.arange(G, device=dev), -r)
+                        for r in range(G)])
+    for label, t in ((f"protocol pull/gather chunk [{G}, {G}, {c}]",
+                      x[:, :c][perm]),
+                     (f"protocol consolidate chunk [{G}, {4 * c}]",
+                      x[:, :4 * c].contiguous())):
+        got_m = order_ops.cwise_median(t)
+        want_m = order_ops.cwise_median_plain(t)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got_m, want_m, rtol=0, atol=0)
+        n, cols = t.shape[-2], t.shape[-1]
+        batch = t.numel() // (n * cols)
+        rows["cwise_median"].append(_row(
+            label, (got_m - want_m).abs().max().item(),
+            cold_ms(order_ops.cwise_median, (t,), 20),
+            cold_ms(order_ops.cwise_median_plain, (t,), 5),
+            cold_ms(lambda u: torch.quantile(u, 0.5, dim=-2), (t,), 5),
+            4.0 * (t.numel() + batch * cols), _bitonic_ops(n) * batch * cols))
+    return rows
+
+
+def protocol_train_phase(dev):
+    """phi4-mini-3.8b at full width, depth 2, G = 4, through the training
+    launcher (``launch/train.py``); launches counted from 0 around the
+    run."""
+    from repro_torch import exp
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.launch import train
+    counters = _proto_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    run = train.main(PROTO_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: c.launches for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [loss for _, loss in run.losses]
+    warm = run.step_s[1:]
+    log(f"[protocol] phi4-mini-3.8b depth 2 full width (P = "
+        f"{run.n_params:,}), G = 4, f_w = 1 (ALIE x1), T = 5, "
+        f"{PROTO_STEPS} steps of 4 x 1024 tokens per group: "
+        f"{PROTO_STEPS / sum(run.step_s):.3f} steps/s over all steps, "
+        f"{len(warm) / sum(warm):.3f} steps/s after the first "
+        f"(first {run.step_s[0]:.2f} s, then {np.mean(warm):.3f} s each), "
+        f"train.main wall {wall:.1f} s, peak device memory {peak_gb:.1f} GB")
+    log("[protocol] loss per step " + json.dumps(
+        [(i, round(x, 4)) for i, x in run.losses]))
+    log("[protocol] launches " + json.dumps(got) + " | per step "
+        + json.dumps({k: round(v / PROTO_STEPS, 2) for k, v in got.items()}))
+    if not np.all(np.isfinite(losses)) or len(losses) != PROTO_STEPS:
+        raise AssertionError(f"protocol losses not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"protocol loss did not fall: {losses}")
+    if peak_gb >= 80:
+        raise AssertionError(f"peak device memory {peak_gb:.1f} GB")
+    for k in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "gram",
+              "subset_diameters", "cwise_median"):
+        if got[k] < PROTO_STEPS:
+            raise AssertionError(f"{k} was launched {got[k]} times in "
+                                 f"{PROTO_STEPS} protocol steps")
+    extra = list(token_stream(SEED + 1, run.bundle.cfg.vocab, 4, 4, 1024, 2,
+                              device=dev))
+    state = run.state
+
+    def two_steps():
+        nonlocal state
+        for b in extra:
+            state = run.step(state, b)
+
+    busy = _profile("protocol phi4-mini-3.8b depth 2, 2 steps", two_steps)
+    G, P = run.state.params.shape
+    del run, state, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = protocol_kernel_rows(dev, G, P, ProtocolConfig.chunk_bytes)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = exp.run("lm/tfm_tiny", device=dev)
+    torch.cuda.synchronize()
+    log(f"[protocol] exp.run('lm/tfm_tiny') on the card: {res.summary()}; "
+        f"acc (negative eval loss) log "
+        + json.dumps([(m["step"], round(m["acc"], 4)) for m in res.logs]))
+    if not np.isfinite(res.final["acc"]):
+        raise AssertionError("lm/tfm_tiny: non-finite eval loss")
+    return got, rows, dict(peak_gb=peak_gb, busy=busy)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs an "
@@ -639,18 +1006,29 @@ def main() -> int:
         reference_phase(dev)
         launches, _ = serve_phase(dev)
         train_rows = train_kernel_phase(dev, D_MLP_H1024)
+    # the serving replicas are gone with serve_phase's frame: hand their
+    # memory back before the training phases
+    gc.collect()
+    torch.cuda.empty_cache()
     # the training phases need autograd: outside inference mode
     train_reference_phase(dev)
     train_launches, _ = train_phase(dev)
     launches["cwise_median"] += train_launches["cwise_median"]
     launches.update({k: v for k, v in train_launches.items()
                      if k != "cwise_median"})
+    bwd_rows = flash_bwd_phase(dev)
+    protocol_reference_phase(dev)
+    proto_launches, proto_rows, _ = protocol_train_phase(dev)
+    for k, v in proto_launches.items():
+        launches[k] = launches.get(k, 0) + v
 
     rows = dict(train_rows)
+    rows.update(bwd_rows)
     rows["flash_attention"] = flash
     rows["cwise_median"] = [dict(r, nbytes=4.0 * (r["n"] + 1) * N_SLOTS
                                  * 200064) for r in median] \
-        + train_rows["cwise_median"]
+        + train_rows["cwise_median"] + proto_rows["cwise_median"]
+    rows["gram"] = train_rows["gram"] + proto_rows["gram"]
     kernels = []
     for name, src, replaces in (
             ("flash_attention", "flash_attention/csrc/flash_fwd.cu",
@@ -664,11 +1042,18 @@ def main() -> int:
             ("gram", "pairwise_sqdist/csrc/gram.cu",
              "pairwise_sqdist/kernel.py:24"),
             ("subset_diameters", "mda_diameter/csrc/mda_diameter.cu",
-             "mda_diameter/kernel.py:17")):
+             "mda_diameter/kernel.py:17"),
+            ("flash_bwd_dq", "flash_attention/csrc/flash_bwd.cu",
+             "flash_attention/kernel.py:135"),
+            ("flash_bwd_dkv", "flash_attention/csrc/flash_bwd.cu",
+             "flash_attention/kernel.py:164")):
         rs = rows[name]
-        # the row of the path's largest call (flash: S = 1000, causal)
+        # the row of the path's largest call (flash: S = 1000, causal; the
+        # backward pair: the protocol run's shape)
         main_row = (max(rs, key=lambda r: (r["S"], -r["window"]))
                     if name == "flash_attention"
+                    else max(rs, key=lambda r: r["flops"])
+                    if name.startswith("flash_bwd")
                     else max(rs, key=lambda r: r["nbytes"]))
         kernels.append({
             "name": name, "route": "cuda",

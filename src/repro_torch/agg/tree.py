@@ -105,3 +105,18 @@ def tree_agg(rule, stack, f: int = 0, *, mask=None, **kw):
     return torch.matmul(w[..., None, :], stack.float())[..., 0, :].to(
         stack.dtype)
 
+
+def selection_weights(rule, d2: torch.Tensor, f: int = 0, *, mask=None,
+                      **kw) -> torch.Tensor:
+    """``[.., n, n]`` distances -> ``[.., n]`` aggregation weights of a
+    selection-based rule (MDA, Krum, ...): the entry point for call sites
+    that already own the distance matrix, as the protocol's per-server
+    quorum weights do (one batch of receivers, one kernel launch)."""
+    spec = rule if isinstance(rule, registry.Aggregator) else registry.get(rule)
+    if not spec.selection_based or spec.weights_from_d2 is None:
+        have = [n for n in registry.names()
+                if registry.get(n).selection_based]
+        raise ValueError(f"aggregator {spec.name!r} is not selection-based; "
+                         f"selection_weights needs one of {have}")
+    spec.validate(d2.shape[-1], f)
+    return spec.weights_from_d2(d2, f, mask=mask, **spec.filter_kwargs(**kw))

@@ -156,11 +156,12 @@ def _payloads(honest, fn, kw: dict, count: int, gen, tree):
 
 
 def _inject_stack(stack, fn, kw: dict, n_byz: int, gen, n_receivers,
-                  tree=None):
+                  tree=None, inplace: bool = False):
     """One stack ``[n, ...]`` -> ``[n, ...]`` (or ``[n_recv, n, ...]``) with
-    its last ``n_byz`` rows replaced by payloads. A new tensor: the input,
-    which may be a broadcast view shared by every replica, is never
-    written."""
+    its last ``n_byz`` rows replaced by payloads. A new tensor — the input,
+    which may be a broadcast view shared by every replica, is never written
+    — unless ``inplace``, where the payloads overwrite the stack's own last
+    rows (a stack the caller owns, too large to copy)."""
     n = stack.shape[0]
     h = n - n_byz
     honest = stack[:h]
@@ -168,6 +169,9 @@ def _inject_stack(stack, fn, kw: dict, n_byz: int, gen, n_receivers,
         kw = {"n": n, "f": n_byz, **kw}
     if n_receivers is None:
         pl = _payloads(honest, fn, kw, n_byz, gen, tree).to(stack.dtype)
+        if inplace:
+            stack[h:] = pl
+            return stack
         return torch.cat([honest, pl], dim=0)
     pl = _payloads(honest, fn, kw, n_receivers * n_byz, gen, tree)
     pl = pl.reshape((n_receivers, n_byz) + honest.shape[1:]).to(stack.dtype)
@@ -175,7 +179,8 @@ def _inject_stack(stack, fn, kw: dict, n_byz: int, gen, n_receivers,
                      dim=1)
 
 
-def _inject(stacks, attack, registry, kw, n_byz, gen, n_receivers, tree):
+def _inject(stacks, attack, registry, kw, n_byz, gen, n_receivers, tree,
+            inplace=False):
     def walk(t):
         if isinstance(t, dict):
             return {k: walk(v) for k, v in t.items()}
@@ -184,18 +189,20 @@ def _inject(stacks, attack, registry, kw, n_byz, gen, n_receivers, tree):
                 return t
             return t.expand((n_receivers,) + t.shape)
         return _inject_stack(t, registry[attack], kw, n_byz, gen,
-                             n_receivers, tree)
+                             n_receivers, tree, inplace)
 
     return walk(stacks)
 
 
 def inject_gradients(grads, spec: ByzantineSpec, gen, n_receivers=None,
-                     tree=None):
+                     tree=None, inplace: bool = False):
     """Replace the last ``n_byz_workers`` entries of the ``[n_w, ...]``
     gradient stack. With ``n_receivers`` (equivocation) returns
-    ``[n_recv, n_w, ...]``."""
+    ``[n_recv, n_w, ...]``; with ``inplace`` (no equivocation) the payloads
+    overwrite the given stack's rows."""
     return _inject(grads, spec.worker_attack, GRADIENT_ATTACKS,
-                   spec.kwargs(), spec.n_byz_workers, gen, n_receivers, tree)
+                   spec.kwargs(), spec.n_byz_workers, gen, n_receivers, tree,
+                   inplace)
 
 
 def inject_models(models, spec: ByzantineSpec, gen, n_receivers=None,

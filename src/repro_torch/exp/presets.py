@@ -1,9 +1,12 @@
-"""Named experiment presets — the eight single-host presets of
-``repro.exp.presets``, identical specs (``to_dict``/``spec_hash``).
+"""Named experiment presets of ``repro.exp.presets``, identical specs
+(``to_dict``/``spec_hash``): the eight single-host presets, the two serve
+presets and the three lm presets.
 
 :func:`get` applies field overrides with ``dataclasses.replace``
-(re-validating). The netsim, serve, elastic and lm presets of the JAX
-package need runners the port does not have yet (``ROADMAP.md``).
+(re-validating). The netsim and elastic presets need runners the port does
+not have yet (``ROADMAP.md``). Of the presets here, the serve presets need
+the checkpointer, and ``lm/moe_tiny`` and ``lm/rwkv_tiny`` the zoo port:
+they construct, and ``exp.run`` raises before any step.
 """
 from __future__ import annotations
 
@@ -75,3 +78,31 @@ register(Experiment(
     steps=100, batch=100, lip_horizon=32, l2=3e-2, decay=0.001,
     byz=ByzantineSpec(server_attack="reversed", n_byz_servers=1,
                       equivocate=True)))
+
+
+# serve presets: protocol-runner training that emits replica-stacked
+# checkpoints for the serving path (ckpt_dir comes from the caller at run
+# time). G=5 satisfies Table 1's n_ps >= 3f+2 for training. They run once the
+# checkpointer is ported (ROADMAP Queue 1 item 7); until then exp.run raises.
+_SERVE_COMMON = dict(
+    runner="protocol", n_workers=5, f_workers=1, n_servers=5, f_servers=1,
+    T=5, steps=10, batch=8, model="mlp_h32", data="mixture5_small",
+    metrics_every=5, eval_n=256, ckpt_every=5)
+register(Experiment(name="serve/ckpt_smoke", **_SERVE_COMMON))
+register(Experiment(
+    name="serve/ckpt_lie_server",
+    byz=ByzantineSpec(server_attack="lie", n_byz_servers=1, equivocate=True),
+    **_SERVE_COMMON))
+
+# lm presets: zoo architectures through the protocol — one per trainable
+# model family (dense transformer / MoE / RWKV6), reduced configs on the Zipf
+# token task. G=4 co-located groups satisfy Table 1 (n_w >= 3·1+1 workers,
+# n_ps >= 3·0+2 servers). The "acc" metric is the NEGATIVE eval loss (higher
+# is better). MoE and RWKV6 wait for the zoo port (ROADMAP Queue 1 item 8).
+_LM_COMMON = dict(
+    runner="protocol", n_workers=4, f_workers=1, n_servers=4, f_servers=0,
+    T=5, steps=12, batch=4, data="tokens_tiny", schedule="constant",
+    lr0=0.02, metrics_every=4, eval_n=64)
+register(Experiment(name="lm/tfm_tiny", model="tfm_tiny", **_LM_COMMON))
+register(Experiment(name="lm/moe_tiny", model="moe_tiny", **_LM_COMMON))
+register(Experiment(name="lm/rwkv_tiny", model="rwkv_tiny", **_LM_COMMON))

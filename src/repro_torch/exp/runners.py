@@ -3,9 +3,14 @@
   * ``stepwise`` — the per-step ``ByzSGDSimulator.run`` reference loop
     (host batch iterator, host metrics);
   * ``fused``    — :class:`repro_torch.core.engine.EpochEngine` (device batch
-    stream, epochs of T steps, device metric buffers, one host transfer).
+    stream, epochs of T steps, device metric buffers, one host transfer);
+  * ``protocol`` — the spec lowered to ``ProtocolConfig`` (G = n_workers =
+    n_servers co-located groups) and run through
+    :class:`repro_torch.core.protocol.ProtocolEngine` on one device: the MLP
+    problems on the mixture stream, the zoo archs on the token stream with
+    the negative eval loss as their ``acc``.
 
-Both return a uniform :class:`RunResult`, as ``repro.exp.run`` does. The run
+All return a uniform :class:`RunResult`, as ``repro.exp.run`` does. The run
 goes to the GPU unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
@@ -22,9 +27,10 @@ import torch
 from .. import device as _device
 from ..core.engine import EpochEngine
 from ..core.simulator import coordinatewise_diameter_sum, l2_diameter
-from ..data.pipeline import DeviceBatchStream, classification_stream
+from ..data.pipeline import (DeviceBatchStream, DeviceTokenStream,
+                             classification_stream)
 from . import presets
-from .spec import Experiment
+from .spec import DATA, NOT_PORTED, Experiment, is_arch_model
 
 
 def git_sha() -> str | None:
@@ -86,6 +92,8 @@ def run(experiment: Experiment | str, *, device=None,
     dev = _device.resolve(device)
     if e.runner == "stepwise":
         return _run_stepwise(e, dev)
+    if e.runner == "protocol":
+        return _run_protocol(e, dev)
     return _run_fused(e, dev)
 
 
@@ -162,3 +170,59 @@ def _run_fused(e: Experiment, dev: torch.device) -> RunResult:
     final = _final_metrics(e, sim, state, acc, (ex, ey), mbuf)
     return RunResult(e, logs, final, wall, provenance(e.spec_hash, dev),
                      state=state, buffers=mbuf)
+
+
+def _lm_acc(bundle):
+    """LM metric under the runners' uniform ``acc`` key: the NEGATIVE eval
+    loss (higher is better, like accuracy)."""
+
+    def acc(params, tokens, labels):
+        return -bundle.loss(params, {"tokens": tokens, "labels": labels})
+
+    return acc
+
+
+def _run_protocol(e: Experiment, dev: torch.device) -> RunResult:
+    from ..core.protocol import ProtocolEngine
+    pcfg = e.to_protocol_config()
+    if e.ckpt_every:
+        raise NotImplementedError(
+            f"experiment {e.name!r} sets ckpt_every={e.ckpt_every}: "
+            f"{NOT_PORTED['ckpt']} is not ported yet")
+    bundle = e.build_bundle()
+    G = pcfg.n_groups
+    if is_arch_model(e.model):
+        stream = DeviceTokenStream(e.seed, DATA[e.data], G, e.batch, dev)
+        acc = _lm_acc(bundle)
+    else:
+        acc = e.build_problem()[2]
+        stream = DeviceBatchStream(e.seed, e.mixture, G, e.batch, dev)
+    ex, ey = stream.eval_set(e.eval_n)
+    eng = ProtocolEngine(
+        bundle, pcfg, e.build_schedule(),
+        with_attack=bool(e.byz.worker_attack or e.byz.server_attack),
+        acc_fn=acc, eval_set=(ex, ey), track_delta=e.track_delta,
+        metrics_every=e.metrics_every, device=dev)
+    state = eng.init_state(e.seed)
+    t0 = time.time()
+    state, mbuf = eng.run(state, stream=stream, steps=e.steps,
+                          epoch_steps=e.epoch_steps)
+    _device.synchronize(dev)
+    wall = time.time() - t0
+
+    logs = []
+    for i in range(0, e.steps, e.metrics_every):
+        m = {"step": i, "acc": float(mbuf["acc"][i])}
+        if e.track_delta:
+            m["delta"] = float(mbuf["delta"][i])
+            m["l2_diam"] = float(mbuf["l2_diam"][i])
+        logs.append(m)
+    h = G - e.byz.n_byz_servers
+    final = {"acc": float(eng._acc(state))}
+    if e.track_delta:
+        final["delta"] = float(coordinatewise_diameter_sum(state.params, h))
+        final["l2_diam"] = float(l2_diameter(state.params, h))
+    prov = provenance(e.spec_hash, dev)
+    prov["mesh"] = {"rep": 1, "fsdp": 1, "model": 1}
+    prov["protocol_engine"] = pcfg.engine
+    return RunResult(e, logs, final, wall, prov, state=state, buffers=mbuf)

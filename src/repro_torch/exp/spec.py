@@ -3,11 +3,14 @@ fully serializable object that names a ByzSGD experiment.
 
 Same fields, defaults, ``to_dict``/``from_dict`` and ``spec_hash`` as the
 JAX package, so one preset hashes alike in both. What the port does not run
-yet fails at construction, naming its ``ROADMAP.md`` item: the ``netsim``,
-``protocol`` and ``elastic`` runners, trace delivery, membership plans,
-backend options (the port has one sort and no backend switch). A scenario
-name with uniform delivery names the cluster for a netsim run and changes
-nothing else, so it is accepted (the ``smoke`` preset carries one).
+yet fails at construction, naming its ``ROADMAP.md`` item: the ``netsim``
+and ``elastic`` runners, trace delivery, membership plans, backend options
+(the port has one sort and no backend switch). What a registered preset
+needs and the port lacks — the checkpointer (``ckpt_every``), the MoE and
+RWKV6 families — fails at run time, before any step, so the preset registry
+still builds every spec. A scenario name with uniform delivery names the
+cluster for a netsim run and changes nothing else, so it is accepted (the
+``smoke`` preset carries one).
 """
 from __future__ import annotations
 
@@ -21,15 +24,18 @@ from ..configs.paper_models import make_mlp_problem
 from ..core.attacks import GRADIENT_ATTACKS, MODEL_ATTACKS, ByzantineSpec
 from ..core.simulator import ByzSGDConfig
 from ..data.pipeline import MixtureSpec, TokenSpec
+from .. import optim as _optim
 from ..optim import schedules as _schedules
 
 # ---------------------------------------------------------------------------
 # named resources: models / data / lr schedules (copies of the JAX registry)
 # ---------------------------------------------------------------------------
 
-#: model registry. ``{"hidden", "depth"}`` entries are MLPs; ``{"arch", ...}``
-#: entries are zoo architectures, which train only through the protocol
-#: runner and arrive with the model-zoo slice (ROADMAP Queue 1 item 8).
+#: model registry. ``{"hidden", "depth"}`` entries are MLPs, trainable by
+#: every runner; ``{"arch", "reduced", ...overrides}`` entries are zoo
+#: architectures (lowered by ``models.registry.get_bundle``), which train
+#: through ``runner="protocol"`` only. Of the zoo families the dense
+#: transformer is ported; MoE and RWKV6 wait (ROADMAP Queue 1 item 8).
 MODELS: dict[str, dict[str, Any]] = {
     "mlp_h32": {"hidden": 32, "depth": 2},
     "mlp_h64": {"hidden": 64, "depth": 2},
@@ -69,7 +75,6 @@ SCHEDULES_WITH_DECAY = frozenset({"inverse_linear"})
 RUNNERS = ("stepwise", "fused", "netsim", "protocol", "elastic")
 DELIVERIES = ("uniform", "trace")
 PROTOCOL_ENGINES = ("naive", "sharded")
-OPTIMIZERS = ("adamw", "sgd")
 SCENARIOS = ("baseline_uniform", "heavy_tail_stragglers", "partitioned_dmc",
              "crash_storm", "byzantine_plus_slow", "membership_churn")
 
@@ -78,11 +83,9 @@ NOT_PORTED = {
     "netsim": "the netsim runner (ROADMAP Queue 1 item 6: a port-side copy "
               "of repro.netsim)",
     "trace": "trace delivery from a netsim scenario (ROADMAP Queue 1 item 6)",
-    "protocol": "the protocol runner (ROADMAP Queue 1 item 9)",
+    "ckpt": "the checkpointer (ROADMAP Queue 1 item 7)",
     "elastic": "the elastic runner and membership plans (ROADMAP Queue 1 "
                "item 10)",
-    "zoo": "zoo architectures and token data (ROADMAP Queue 1 item 8, the "
-           "model-zoo slice)",
 }
 
 
@@ -151,10 +154,11 @@ class Experiment:
         if self.runner not in RUNNERS:
             raise ValueError(f"unknown runner {self.runner!r}; "
                              f"choose from {RUNNERS}")
-        if self.runner in ("netsim", "protocol", "elastic"):
+        if self.runner in ("netsim", "elastic"):
             raise NotImplementedError(
                 f"runner={self.runner!r}: {NOT_PORTED[self.runner]} is not "
-                "ported yet; the port runs 'stepwise' and 'fused'")
+                "ported yet; the port runs 'stepwise', 'fused' and "
+                "'protocol'")
         if self.delivery not in DELIVERIES:
             raise ValueError(f"unknown delivery {self.delivery!r}; "
                              f"choose from {DELIVERIES}")
@@ -174,18 +178,30 @@ class Experiment:
                 raise ValueError(f"unknown {key} {val!r}; "
                                  f"registered: {sorted(reg)}")
         if is_arch_model(self.model):
-            raise ValueError(
-                f"model {self.model!r} is an arch-registry model and trains "
-                'through runner="protocol" only; got '
-                f"{self.runner!r} ({NOT_PORTED['zoo']})")
-        if isinstance(DATA[self.data], TokenSpec):
+            if self.runner != "protocol":
+                raise ValueError(
+                    f"model {self.model!r} is an arch-registry model and "
+                    'trains through runner="protocol" only (token batches '
+                    "and replica-stacked model states are protocol-engine "
+                    f"capabilities); got {self.runner!r}")
+            if not isinstance(DATA[self.data], TokenSpec):
+                raise ValueError(
+                    f"arch model {self.model!r} needs token data (a TokenSpec "
+                    f"DATA entry); {self.data!r} is "
+                    f"{type(DATA[self.data]).__name__}")
+            vocab = self.arch_config().vocab
+            if DATA[self.data].vocab != vocab:
+                raise ValueError(
+                    f"data {self.data!r} has vocab {DATA[self.data].vocab} "
+                    f"but model {self.model!r} has vocab {vocab}")
+        elif isinstance(DATA[self.data], TokenSpec):
             raise ValueError(
                 f"MLP model {self.model!r} needs mixture data (a MixtureSpec "
                 f"DATA entry); {self.data!r} is a TokenSpec")
-        if self.optimizer not in OPTIMIZERS:
+        if self.optimizer not in _optim.OPTIMIZERS:
             raise ValueError(f"unknown optimizer {self.optimizer!r}; "
-                             f"registered: {sorted(OPTIMIZERS)}")
-        if self.optimizer != "sgd":
+                             f"registered: {sorted(_optim.OPTIMIZERS)}")
+        if self.optimizer != "sgd" and self.runner != "protocol":
             raise ValueError(
                 f"optimizer={self.optimizer!r} needs the protocol/elastic "
                 "runner (the single-host simulator implements the paper's "
@@ -217,16 +233,26 @@ class Experiment:
         if not self.sort_network:
             raise ValueError("sort_network=False: the port has one sort (the "
                              "compare-exchange network of its kernels)")
-        if self.ckpt_every is not None or self.ckpt_dir is not None:
-            raise ValueError(
-                "ckpt_every/ckpt_dir are protocol/elastic-runner knobs "
-                f"({NOT_PORTED['protocol']}); got runner={self.runner!r}")
+        if self.ckpt_every is not None:
+            if self.runner != "protocol":
+                raise ValueError(
+                    'ckpt_every is a runner="protocol"/"elastic" knob (those '
+                    "engines own the replica-stacked ByzState that "
+                    f"checkpoints save); got runner={self.runner!r}")
+            if self.ckpt_every < 1:
+                raise ValueError(f"ckpt_every must be >= 1, "
+                                 f"got {self.ckpt_every}")
+        elif self.ckpt_dir is not None:
+            raise ValueError("ckpt_dir without ckpt_every does nothing; "
+                             "set ckpt_every to emit checkpoints")
         if self.protocol_engine not in PROTOCOL_ENGINES:
             raise ValueError(f"unknown protocol_engine "
                              f"{self.protocol_engine!r}; "
                              f"choose from {PROTOCOL_ENGINES}")
         # the Table-1 preconditions and registry checks of the lowering
         self.to_config()
+        if self.runner == "protocol":
+            self.to_protocol_config()
 
     # -- serialization -----------------------------------------------------
     def to_dict(self) -> dict[str, Any]:
@@ -281,21 +307,86 @@ class Experiment:
                 raise ValueError(f"lowering to ByzSGDConfig changed {key}")
         return cfg
 
+    def to_protocol_config(self):
+        """Lower to :class:`~repro_torch.core.protocol.ProtocolConfig`
+        (``runner="protocol"``), cross-validated like :meth:`to_config`: G
+        co-located worker+server groups need ``n_workers == n_servers``;
+        the quorums come from the ``ByzSGDConfig`` lowering, and the
+        ``variant`` picks the pull (async: masked ``pull_gar``; sync: the
+        protocol's §5 round-robin pull with its distance filter, not the
+        single-host sync filter variant)."""
+        from ..core.protocol import ProtocolConfig
+        if self.n_workers != self.n_servers:
+            raise ValueError(
+                f'runner="protocol" maps co-located worker+server groups '
+                f"onto failure domains and needs n_workers == n_servers "
+                f"(= G); got {self.n_workers} != {self.n_servers}")
+        cfg = self.to_config()
+        pcfg = ProtocolConfig.derive(
+            self.n_workers, T=self.T, engine=self.protocol_engine,
+            pull=("roundrobin" if self.variant == "sync" else "median"),
+            f_workers=self.f_workers, f_servers=self.f_servers,
+            q_workers=cfg.q_workers, q_servers=cfg.q_servers,
+            gar=self.gar, pull_gar=self.pull_gar,
+            gather_gar=self.gather_gar, optimizer=self.optimizer,
+            mda_exact_limit=self.mda_exact_limit, byz=self.byz)
+        for key, mine in (("n_groups", self.n_workers),
+                          ("f_workers", self.f_workers),
+                          ("f_servers", self.f_servers),
+                          ("q_workers", cfg.q_workers),
+                          ("q_servers", cfg.q_servers), ("T", self.T),
+                          ("gar", self.gar), ("pull_gar", self.pull_gar),
+                          ("gather_gar", self.gather_gar),
+                          ("optimizer", self.optimizer),
+                          ("byz", self.byz)):
+            if getattr(pcfg, key) != mine:
+                raise ValueError(f"lowering to ProtocolConfig changed {key}: "
+                                 f"{mine!r} -> {getattr(pcfg, key)!r}")
+        return pcfg
+
     # -- resource construction ---------------------------------------------
     @property
     def mixture(self) -> MixtureSpec:
         return DATA[self.data]
 
+    def arch_config(self):
+        """The named zoo arch's ``ArchConfig`` (registry overrides applied
+        on the reduced config), without building its model."""
+        from ..models.registry import get_config
+        m = MODELS[self.model]
+        cfg = get_config(m["arch"])
+        if m.get("reduced"):
+            cfg = cfg.reduced(**{k: v for k, v in m.items()
+                                 if k not in ("arch", "reduced")})
+        return cfg
+
     def build_problem(self):
         """(init_fn, loss_fn, accuracy_fn) of the named MLP on the named
-        mixture."""
+        mixture (arch models lower via :meth:`build_bundle`)."""
         if is_arch_model(self.model):
-            raise NotImplementedError(f"model {self.model!r}: "
-                                      f"{NOT_PORTED['zoo']}")
+            raise ValueError(
+                f"model {self.model!r} is an arch-registry model; it lowers "
+                "through build_bundle() (a ModelBundle), not the MLP "
+                "(init, loss, acc) problem triple")
         mix, m = self.mixture, MODELS[self.model]
         return make_mlp_problem(dim=mix.dim, hidden=m["hidden"],
                                 n_classes=mix.n_classes, depth=m["depth"],
                                 l2=self.l2)
+
+    def build_bundle(self):
+        """The protocol-ready bundle of the named model: the zoo
+        :class:`~repro_torch.models.registry.ModelBundle` for arch entries
+        (raises for a family not ported yet), or the MLP problem wrapped in
+        a :class:`~repro_torch.core.protocol.ProblemBundle`."""
+        m = MODELS[self.model]
+        if "arch" in m:
+            from ..models.registry import get_bundle
+            kw = {k: v for k, v in m.items() if k not in ("arch", "reduced")}
+            return get_bundle(m["arch"], reduced=m.get("reduced", False),
+                              **kw)
+        from ..core.protocol import ProblemBundle
+        init, loss, _ = self.build_problem()
+        return ProblemBundle(init=init, loss=loss)
 
     def build_schedule(self):
         return SCHEDULES[self.schedule](self.lr0, self.decay)

@@ -24,6 +24,7 @@ BUILD_DIR = _HERE / "build"
 #: kernel package -> its CUDA source
 SOURCES = {
     "flash_attention": _HERE / "flash_attention" / "csrc" / "flash_fwd.cu",
+    "flash_attention_bwd": _HERE / "flash_attention" / "csrc" / "flash_bwd.cu",
     "cwise_median": _HERE / "cwise_median" / "csrc" / "cwise_median.cu",
     "pairwise_sqdist": _HERE / "pairwise_sqdist" / "csrc" / "gram.cu",
     "mda_diameter": _HERE / "mda_diameter" / "csrc" / "mda_diameter.cu",

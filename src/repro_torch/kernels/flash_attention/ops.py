@@ -1,12 +1,23 @@
-"""Wrapper around the hand-written flash-attention forward kernel.
+"""Wrappers around the hand-written flash-attention kernels, forward and
+backward, and the ``torch.autograd.Function`` that pairs them.
 
-``flash_attention(q, k, v)`` returns ``(o, lse)`` as the Pallas forward
-``_flash_kernel`` does: the attention output and the per-row float32
-log-sum-exp of the scaled, masked scores (which the backward kernels of a
-later slice re-derive the probabilities from). On a CUDA tensor it launches
-``csrc/flash_fwd.cu``; on a CPU tensor it runs its plain version,
-:func:`~.ref.attention_ref` with ``return_lse``. It is a plain function for
-now; the ``torch.autograd.Function`` arrives with the backward kernels.
+* :func:`flash_attention` returns ``(o, lse)`` as the Pallas forward
+  ``_flash_kernel`` does: the attention output and the per-row float32
+  log-sum-exp of the scaled, masked scores. CUDA: ``csrc/flash_fwd.cu``.
+* :func:`flash_bwd_dq` and :func:`flash_bwd_dkv` are the two backward
+  kernels of ``csrc/flash_bwd.cu`` (``_flash_bwd_dq_kernel`` and
+  ``_flash_bwd_dkv_kernel``); :func:`flash_attention_bwd` computes
+  ``delta = rowsum(do * o)`` in plain PyTorch, as the JAX wrapper does
+  outside Pallas, and launches both.
+* :class:`FlashAttention` is ``ops.flash_attention``'s ``jax.custom_vjp``:
+  the forward saves ``o`` and ``lse``, the backward runs the pair.
+
+Each wrapper runs its kernel for a CUDA tensor and its plain version
+(:mod:`.ref`) for a CPU tensor; anything the kernel does not take raises.
+The kernels work on a head dim of 128; the public functions take any hd up
+to 128 by zero-padding q, k, v (and do) to 128, as the JAX wrapper pads to
+the TPU's lane width, keep ``scale = 1/sqrt(hd)`` of the true hd, and slice
+the outputs back.
 """
 from __future__ import annotations
 
@@ -14,64 +25,196 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
-from .ref import attention_ref
+from .ref import attention_ref, flash_bwd_from_delta, flash_delta
 
 _HD = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    fn = lib.flash_fwd
+def _lib(name: str, fn_name: str, argtypes) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, ctypes.c_float, I, I, P]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P]
+_DQ_ARGS = [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P]
+_DKV_ARGS = [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P]
+
+
+def _check(q, k, v, causal: bool, what: str, max_hd: int = _HD) -> None:
+    """Raise unless the CUDA kernels take these q/k/v."""
+    if not q.is_cuda:
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    B, Sq, H, hd = q.shape
+    Skv, kvH = k.shape[1], k.shape[2]
+    if not 1 <= hd <= max_hd or k.shape != (B, Skv, kvH, hd) \
+            or v.shape != k.shape:
+        raise ValueError(f"{what} kernel takes hd <= {max_hd} and matching "
+                         f"k/v; got q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if H % kvH:
+        raise ValueError(f"GQA needs H % kvH == 0 (H={H}, kvH={kvH})")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{what} kernel takes float32 or bfloat16 q/k/v of "
+                         f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if Sq < 1 or Skv < 1 or (causal and Sq > Skv):
+        raise ValueError(f"{what} kernel needs 1 <= Sq <= Skv when causal "
+                         f"(Sq={Sq}, Skv={Skv})")
+    if B * H > 65535:
+        raise ValueError(f"B*H={B * H} exceeds the kernel's grid (65535)")
+
+
+def _pad(x):
+    """[.., hd] -> contiguous [.., 128], zero-padded."""
+    if x.shape[-1] != _HD:
+        x = F.pad(x, (0, _HD - x.shape[-1]))
+    return x.contiguous()
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Flash-attention forward. q: [B, Sq, H, hd]; k, v: [B, Skv, kvH, hd]
     (GQA: H % kvH == 0). Returns ``(o [B, Sq, H, hd], lse [B, H, Sq] f32)``.
 
-    CUDA tensors launch the kernel (hd = 128, float32 or bfloat16, any
+    CUDA tensors launch the kernel (hd <= 128, float32 or bfloat16, any
     ragged S); anything it does not take raises. CPU tensors run the plain
     version, :func:`~.ref.attention_ref`."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              return_lse=True)
-    if not q.is_cuda:
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v, causal, "flash_attention")
     B, Sq, H, hd = q.shape
     Skv, kvH = k.shape[1], k.shape[2]
-    if hd != _HD or k.shape != (B, Skv, kvH, hd) or v.shape != k.shape:
-        raise ValueError(f"flash_attention kernel takes hd={_HD} and "
-                         f"matching k/v; got q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if H % kvH:
-        raise ValueError(f"GQA needs H % kvH == 0 (H={H}, kvH={kvH})")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention kernel takes float32 or bfloat16 "
-                         f"q/k/v of one dtype; got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
-    if Sq < 1 or Skv < 1 or (causal and Sq > Skv):
-        raise ValueError(f"flash_attention kernel needs 1 <= Sq <= Skv when "
-                         f"causal (Sq={Sq}, Skv={Skv})")
-    if B * H > 65535:
-        raise ValueError(f"B*H={B * H} exceeds the kernel's grid (65535)")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    o = torch.empty_like(q)
+    qp, kp, vp = _pad(q), _pad(k), _pad(v)
+    o = torch.empty_like(qp)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                       lse.data_ptr(), _DTYPES[q.dtype], B, H, kvH, Sq, Skv,
-                       1.0 / math.sqrt(hd), int(causal), int(window),
-                       _build.stream_ptr(q))
+    lib = _lib("flash_attention", "flash_fwd", _FWD_ARGS)
+    rc = lib.flash_fwd(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                       o.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype], B, H,
+                       kvH, Sq, Skv, 1.0 / math.sqrt(hd), int(causal),
+                       int(window), _build.stream_ptr(q))
     _build.check(lib, rc, "flash_fwd")
     flash_attention.launches += 1
-    return o, lse
+    return (o if hd == _HD else o[..., :hd]), lse
+
+
+def _bwd_args(q, k, v, do, lse, delta, causal, what):
+    """Checks of the backward kernels' operands (hd = 128, contiguous)."""
+    _check(q, k, v, causal, what, max_hd=_HD)
+    if q.shape[-1] != _HD:
+        raise ValueError(f"{what} kernel takes hd = {_HD} (the wrapper pads)")
+    B, Sq, H, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"{what}: do must match q; got {tuple(do.shape)} "
+                         f"{do.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, H, Sq) or t.dtype != torch.float32 \
+                or not t.is_cuda:
+            raise ValueError(f"{what}: {name} must be float32 [B, H, Sq] on "
+                             f"the card; got {tuple(t.shape)} {t.dtype}")
+    for t in (q, k, v, do, lse, delta):
+        if not t.is_contiguous():
+            raise ValueError(f"{what} kernel takes contiguous operands")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
+                 causal: bool = True, window: int = 0):
+    """dq of the backward: the dq kernel on CUDA tensors (hd = 128,
+    contiguous), the plain version on CPU tensors. q, do [B, Sq, H, hd];
+    k, v [B, Skv, kvH, hd]; lse, delta [B, H, Sq] float32."""
+    if q.device.type == "cpu":
+        return flash_bwd_from_delta(q, k, v, do, lse, delta, causal=causal,
+                                    window=window)[0]
+    _bwd_args(q, k, v, do, lse, delta, causal, "flash_bwd_dq")
+    B, Sq, H, _ = q.shape
+    Skv, kvH = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    lib = _lib("flash_attention_bwd", "flash_bwd_dq", _DQ_ARGS)
+    rc = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          dq.data_ptr(), _DTYPES[q.dtype], B, H, kvH, Sq,
+                          Skv, scale, int(causal), int(window),
+                          _build.stream_ptr(q))
+    _build.check(lib, rc, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
+                  causal: bool = True, window: int = 0):
+    """(dk, dv) of the backward, the GQA sum over the heads that share a kv
+    head included: the dkv kernel on CUDA tensors, the plain version on CPU
+    tensors. Operands as :func:`flash_bwd_dq`."""
+    if q.device.type == "cpu":
+        return flash_bwd_from_delta(q, k, v, do, lse, delta, causal=causal,
+                                    window=window)[1:]
+    _bwd_args(q, k, v, do, lse, delta, causal, "flash_bwd_dkv")
+    B, Sq, H, _ = q.shape
+    Skv, kvH = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _lib("flash_attention_bwd", "flash_bwd_dkv", _DKV_ARGS)
+    rc = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], B,
+                           H, kvH, Sq, Skv, scale, int(causal), int(window),
+                           _build.stream_ptr(q))
+    _build.check(lib, rc, "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0):
+    """Attention backward from the forward's ``o`` and ``lse``: ``delta``
+    in plain PyTorch, then the dq and dkv kernels (CUDA; any hd <= 128,
+    zero-padded) or their plain versions (CPU). Returns ``(dq, dk, dv)``
+    in the inputs' shapes and dtypes."""
+    hd = q.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    kw = dict(scale=scale, causal=causal, window=window)
+    delta = flash_delta(o, do).contiguous()
+    if q.device.type == "cpu":
+        return flash_bwd_from_delta(q, k, v, do, lse, delta, causal=causal,
+                                    window=window)
+    _check(q, k, v, causal, "flash_attention_bwd")
+    qp, kp, vp, dop = _pad(q), _pad(k), _pad(v), _pad(do.to(q.dtype))
+    lse = lse.contiguous()
+    dq = flash_bwd_dq(qp, kp, vp, dop, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv(qp, kp, vp, dop, lse, delta, **kw)
+    if hd != _HD:
+        dq, dk, dv = dq[..., :hd], dk[..., :hd], dv[..., :hd]
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: ``FlashAttention.apply(q, k, v,
+    causal, window) -> o``. The forward is :func:`flash_attention` and
+    saves ``o`` and ``lse``; the backward is :func:`flash_attention_bwd`.
+    The kernels on CUDA tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True, window: int = 0):
+        o, lse = flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 flash_attention.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0

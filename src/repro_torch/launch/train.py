@@ -1,0 +1,132 @@
+"""End-to-end ByzSGD training launcher (port of ``repro.launch.train``): the
+distributed protocol with its G groups co-located on one card, Byzantine
+attack injection, the DMC cadence and loss logging.
+
+  python -m repro_torch.launch.train --arch phi4-mini-3.8b --depth 2 \\
+      --groups 4 --T 5 --seq 1024 --batch-per-group 4 --steps 11 \\
+      --worker-attack alie --n-byz 1
+  # CPU smoke of a reduced arch
+  python -m repro_torch.launch.train --reduced --device cpu --steps 2 \\
+      --groups 4 --seq 32 --batch-per-group 2 --log-every 1
+
+Runs on the GPU; ``--device cpu`` is for smoke runs. Only ``--mesh 1x1`` is
+taken: a mesh over several cards needs the multi-GPU protocol port, and
+``--ckpt-dir`` the checkpointer port. ``--depth`` keeps the arch's width and
+cuts its depth (``get_bundle(..., depth=...)``).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass, field
+from typing import Any
+
+import torch
+
+from .. import device as devmod
+from ..core import protocol
+from ..core.attacks import ByzantineSpec
+from ..data.pipeline import token_stream
+from ..models.registry import get_bundle
+from ..optim.schedules import inverse_linear
+
+
+@dataclass
+class TrainRun:
+    """What a :func:`main` run leaves: the logged ``(step, loss)`` pairs,
+    wall seconds per step, the final state and the step function (a caller
+    may take more steps)."""
+    losses: list = field(default_factory=list)
+    step_s: list = field(default_factory=list)
+    n_params: int = 0
+    state: Any = None
+    step: Any = None
+    bundle: Any = None
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="phi4-mini-3.8b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--depth", type=int, default=None,
+                    help="override n_layers (the width stays)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--groups", type=int, default=None)
+    ap.add_argument("--mesh", default=None, help="only 1x1 on one card")
+    ap.add_argument("--batch-per-group", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--T", type=int, default=10)
+    ap.add_argument("--engine", default="sharded")
+    ap.add_argument("--lr", type=float, default=0.02)
+    ap.add_argument("--worker-attack", default=None)
+    ap.add_argument("--server-attack", default=None)
+    ap.add_argument("--n-byz", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="default: cuda (raises without a GPU)")
+    return ap
+
+
+def main(argv=None) -> TrainRun:
+    args = parser().parse_args(argv)
+    if args.mesh not in (None, "1x1"):
+        raise SystemExit(f"--mesh {args.mesh} needs the multi-GPU protocol "
+                         "port (ROADMAP.md, queue 1 item 9); one card takes "
+                         "--mesh 1x1")
+    if args.ckpt_dir:
+        raise SystemExit("--ckpt-dir needs the checkpointer port (ROADMAP.md,"
+                         " queue 1 item 7)")
+    dev = devmod.resolve(args.device)
+    G = args.groups or 1
+    bundle = get_bundle(args.arch, reduced=args.reduced, depth=args.depth)
+    byz = ByzantineSpec(worker_attack=args.worker_attack,
+                        server_attack=args.server_attack,
+                        n_byz_workers=args.n_byz if args.worker_attack else 0,
+                        n_byz_servers=args.n_byz if args.server_attack else 0)
+    f_w, f_ps = max((G - 1) // 3, 0), max((G - 2) // 3, 0)
+    pcfg = protocol.ProtocolConfig(
+        n_groups=G, f_workers=f_w, f_servers=f_ps, q_workers=G - f_w,
+        q_servers=max(G - f_ps, min(2 * f_ps + 2, G)), T=args.T,
+        engine=args.engine, byz=byz)
+
+    t0 = time.perf_counter()
+    state = protocol.make_init_fn(bundle, pcfg, dev)(0)
+    step = protocol.make_train_step(
+        bundle, pcfg, inverse_linear(args.lr, 0.005),
+        with_attack=bool(args.worker_attack or args.server_attack))
+    devmod.synchronize(dev)
+    run = TrainRun(n_params=state.params.shape[1], step=step, bundle=bundle)
+    print(f"[train] {bundle.cfg.name}: {bundle.cfg.n_layers} layers, "
+          f"d_model {bundle.cfg.d_model}, {run.n_params / 1e6:.1f}M params x "
+          f"{G} groups (f_w={f_w}, f_ps={f_ps}), init "
+          f"{time.perf_counter() - t0:.1f}s")
+
+    stream = token_stream(0, bundle.cfg.vocab, G,
+                          args.batch_per_group, args.seq, args.steps,
+                          device=dev)
+    t0 = time.perf_counter()
+    for i, batch in enumerate(stream):
+        ts = time.perf_counter()
+        state = step(state, batch)
+        devmod.synchronize(dev)
+        run.step_s.append(time.perf_counter() - ts)
+        if i % args.log_every == 0:
+            with torch.no_grad():
+                p0 = state.tree.unflatten(state.params[0])
+                loss = float(bundle.loss(p0, {k: v[0]
+                                              for k, v in batch.items()}))
+            run.losses.append((i, loss))
+            print(f"[train] step {i:5d} loss {loss:8.4f} "
+                  f"({time.perf_counter() - t0:.1f}s)")
+    p0 = protocol.consolidate(state.params, pcfg)
+    devmod.synchronize(dev)
+    print(f"[train] done: {args.steps} steps, {p0.numel() / 1e6:.1f}M params,"
+          f" {time.perf_counter() - t0:.1f}s")
+    run.state = state
+    return run
+
+
+if __name__ == "__main__":
+    main()

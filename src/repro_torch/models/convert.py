@@ -90,3 +90,35 @@ def sim_state_from_jax(jstate, cfg, device="cuda", seed: int = 0):
                              scalar(jstate.lip.idx, torch.int64)),
         anchor_eta=scalar(jstate.anchor_eta),
         anchor_gnorm=scalar(jstate.anchor_gnorm))
+
+
+def protocol_state_from_jax(jstate, device="cuda", seed: int = 0):
+    """The numpy leaves of a JAX protocol ``ByzState`` (e.g.
+    ``jax.tree.map(np.asarray, state)``) -> the port's ``ByzState``: the
+    replica-stacked params flattened in JAX leaf order into one ``[G, P]``
+    stack (with the :class:`~repro_torch.core.simulator.FlatTree` that
+    records the layout), the step counter on the host, a generator seeded
+    with ``seed`` in place of the JAX key (the two never draw alike), and
+    the optimizer state — ``()`` for sgd, AdamW's moments flattened like the
+    params."""
+    from ..core.protocol import ByzState
+    from ..core.simulator import FlatTree
+    from ..optim.adamw import AdamWState
+
+    tree = FlatTree.from_params(jstate.params, lead=1)
+
+    def flat(t):
+        def tensors(x):
+            if isinstance(x, dict):
+                return {k: tensors(v) for k, v in x.items()}
+            return _leaf(x, device, None)
+        return tree.flatten(tensors(t), lead=1)
+
+    opt = jstate.opt
+    if opt is not None and len(opt) == 3 and isinstance(opt[0], dict):
+        opt = AdamWState(flat(opt[0]), flat(opt[1]), int(np.asarray(opt[2])))
+    else:
+        opt = ()
+    return ByzState(params=flat(jstate.params), t=int(np.asarray(jstate.t)),
+                    gen=torch.Generator(device=device).manual_seed(seed),
+                    opt=opt, tree=tree)

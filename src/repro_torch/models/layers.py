@@ -21,8 +21,9 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ops import FlashAttention
 from ..kernels.flash_attention.ref import NEG, attention_ref
 
 
@@ -84,16 +85,16 @@ def blocked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     q: [B, Sq, H, hd]; k, v: [B, Skv, kvH, hd] (GQA: H % kvH == 0).
     window > 0 => sliding-window causal attention; cross => no causal mask.
 
-    On a CUDA tensor this is the hand-written flash-attention forward kernel
-    (:mod:`repro_torch.kernels.flash_attention`; its tiles are its own, so
-    ``q_block``/``kv_block`` do not apply). On a CPU tensor it is the plain
-    blocked path of the JAX package (``layers.py:149-207``), which never
-    materialises more than ``[B, H, q_block, kv_block]`` scores.
+    On a CUDA tensor this is the hand-written flash-attention kernels
+    through :class:`~repro_torch.kernels.flash_attention.ops.FlashAttention`
+    (forward, and the dq / dkv backward when a gradient is asked for; their
+    tiles are their own, so ``q_block``/``kv_block`` do not apply). On a CPU
+    tensor it is the plain blocked path of the JAX package
+    (``layers.py:149-207``), which never materialises more than
+    ``[B, H, q_block, kv_block]`` scores, differentiated by autograd.
     """
     if q.is_cuda:
-        out, _ = flash_attention(q, k, v, causal=causal and not cross,
-                                 window=window)
-        return out
+        return FlashAttention.apply(q, k, v, causal and not cross, window)
     B, Sq, H, hd = q.shape
     Skv, kvH = k.shape[1], k.shape[2]
     rep = H // kvH
@@ -273,19 +274,71 @@ def embed(p, tokens, dtype=torch.bfloat16):
     return F.embedding(tokens, p["table"]).to(dtype)
 
 
-def unembed(p, x):
-    """[B, S, D] x [V, D] -> float32 logits [B, S, V].
-
-    The JAX einsum keeps bf16 operands and asks for f32 output; a bare bf16
-    matmul would round the logits to bf16. On the GPU the product runs on
-    the bf16 operands with a float32 result (``out_dtype``), so the vocab
+def _logits_f32(x2, table):
+    """``[N, D] x [V, D] -> [N, V]`` float32, as the JAX einsum with bf16
+    operands and ``preferred_element_type=f32``: on the GPU the product runs
+    on the bf16 operands with a float32 result (``out_dtype``), so the vocab
     table is not copied; on the CPU the operands are widened (bf16 products
     are exact in f32, so both compute the same sums)."""
+    if x2.is_cuda and x2.dtype != torch.float32:
+        return torch.mm(x2, table.t(), out_dtype=torch.float32)
+    return x2.float() @ table.float().t()
+
+
+class _Logits(torch.autograd.Function):
+    """:func:`_logits_f32` with its gradient: the float32 cotangent is cast
+    to the operands' dtype and contracted with the other operand (the
+    backward of the JAX einsum with a float32 ``preferred_element_type``
+    returns cotangents in the operands' dtypes)."""
+
+    @staticmethod
+    def forward(ctx, x2, table):
+        ctx.save_for_backward(x2, table)
+        return _logits_f32(x2, table)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, table = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        return g @ table, g.t() @ x2
+
+
+def unembed(p, x):
+    """[B, S, D] x [V, D] -> float32 logits [B, S, V] (differentiable)."""
     table = p["table"].to(x.dtype)
     B, S, D = x.shape
-    x2 = x.reshape(B * S, D)
-    if x.is_cuda and x.dtype != torch.float32:
-        out = torch.mm(x2, table.t(), out_dtype=torch.float32)
-    else:
-        out = x2.float() @ table.float().t()
-    return out.reshape(B, S, -1)
+    return _Logits.apply(x.reshape(B * S, D), table).reshape(B, S, -1)
+
+
+def cross_entropy(logits, labels):
+    """logits [B, S, V] f32, labels [B, S] -> mean NLL."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - ll)
+
+
+def _chunk_nll(hc, table, lc):
+    """Summed NLL of one ``[B, c, D]`` chunk of hidden states."""
+    B, c, D = hc.shape
+    logits = _Logits.apply(hc.reshape(B * c, D), table)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc.reshape(B * c, 1).long())[:, 0]
+    return torch.sum(lse - ll)
+
+
+def cross_entropy_chunked(hidden, table_params, labels, chunk: int = 512):
+    """Sequence-chunked CE: [B, S, D] hidden x [V, D] table -> mean NLL
+    without ever materialising the [B, S, V] logits: each chunk of
+    ``chunk`` positions runs under ``torch.utils.checkpoint``, so its
+    logits are recomputed in the backward instead of kept (the JAX
+    package's ``jax.checkpoint`` per chunk). The chunks' sums add in order,
+    as the JAX ``lax.scan`` does."""
+    B, S, D = hidden.shape
+    table = table_params["table"].to(hidden.dtype)
+    chunk = min(chunk, S)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        part = checkpoint(_chunk_nll, hidden[:, c0:c0 + chunk], table,
+                          labels[:, c0:c0 + chunk], use_reentrant=False)
+        tot = tot + part
+    return tot / (B * S)

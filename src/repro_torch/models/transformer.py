@@ -1,7 +1,7 @@
-"""Dense decoder-only transformer, inference half (PyTorch port of
-``repro.models.transformer``: ``init``, ``init_caches``, ``prefill``,
-``decode_step``). Training (``forward`` with remat, ``loss``) arrives with
-the training slice.
+"""Dense decoder-only transformer (PyTorch port of
+``repro.models.transformer``): ``init``; the training half (``forward`` with
+remat per block, ``logits_fn``, ``loss``); the inference half
+(``init_caches``, ``prefill``, ``decode_step``).
 
 Params keep the JAX tree and layout: ``blocks`` leaves are stacked
 ``[L, ...]`` and matrices are ``[in, out]``. The layer ``scan`` is a Python
@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import ArchConfig
@@ -83,6 +84,62 @@ def layer(params, i: int):
         return {k: walk(v) for k, v in t.items()} if isinstance(t, dict) \
             else t[i]
     return walk(params["blocks"])
+
+
+# ---------------------------------------------------------------------------
+# training: forward with remat, logits, loss
+# ---------------------------------------------------------------------------
+
+def _block_train(blk, x, rope, cfg: ArchConfig, dtype):
+    norm = _norm(cfg)
+    q, k, v = L.attention_qkv(blk["attn"], norm(blk["ln_attn"], x),
+                              cfg.n_heads, cfg.n_kv_heads, cfg.hd, None,
+                              cfg.rope_theta, dtype=dtype, rope=rope)
+    attn = L.blocked_attention(q, k, v, causal=True,
+                               window=cfg.sliding_window, q_block=cfg.q_block,
+                               kv_block=cfg.kv_block)
+    x = x + L.attention_out(blk["attn"], attn, dtype)
+    return x + L.swiglu(blk["mlp"], norm(blk["ln_mlp"], x), dtype)
+
+
+def forward(params, tokens=None, *, cfg: ArchConfig, embeds=None,
+            positions=None, remat: bool = True):
+    """[B, S] tokens (or [B, S, D] embeds) -> [B, S, D] hidden states.
+
+    The JAX layer ``scan`` is a loop over the stacked blocks; with ``remat``
+    each block runs under ``torch.utils.checkpoint`` (``use_reentrant=
+    False``), so only its input is kept and its activations are recomputed
+    in the backward, as ``jax.checkpoint`` on the block body does."""
+    dtype = _dtype(cfg)
+    x = (L.embed(params["embed"], tokens, dtype) if embeds is None
+         else embeds.to(dtype))
+    B, S = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, dtype)
+    for i in range(cfg.n_layers):
+        blk = layer(params, i)
+        if remat:
+            x = checkpoint(_block_train, blk, x, rope, cfg, dtype,
+                           use_reentrant=False)
+        else:
+            x = _block_train(blk, x, rope, cfg, dtype)
+    return _norm(cfg)(params["ln_f"], x)
+
+
+def logits_fn(params, hidden, cfg: ArchConfig):
+    """[B, S, D] hidden -> [B, S, V] float32 logits."""
+    return _logits(params, hidden, cfg)
+
+
+def loss(params, batch, *, cfg: ArchConfig):
+    """Mean next-token NLL of ``batch`` (``tokens``, ``labels`` [B, S]),
+    the logits streamed by sequence chunks."""
+    hidden = forward(params, batch.get("tokens"), cfg=cfg,
+                     embeds=batch.get("embeds"),
+                     positions=batch.get("positions"))
+    table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return L.cross_entropy_chunked(hidden, table, batch["labels"])
 
 
 # ---------------------------------------------------------------------------

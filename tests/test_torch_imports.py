@@ -65,6 +65,8 @@ def test_scan_covers_the_package():
                 "repro_torch/kernels/pairwise_sqdist/ops.py",
                 "repro_torch/kernels/mda_diameter/ops.py",
                 "repro_torch/core/simulator.py", "repro_torch/core/engine.py",
+                "repro_torch/core/protocol.py",
+                "repro_torch/launch/train.py",
                 "repro_torch/exp/runners.py"):
         assert mod in names
     assert "jax" in {n for n in _imports(

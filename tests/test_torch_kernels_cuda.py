@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: each against its plain PyTorch version at
-shapes of the serving and training paths (the batched median, trimmed
-mean, MeaMed, Gram and subset diameters included), and a reduced model run
-through the kernels against the same model on the CPU's plain path. Imports no JAX, so it runs
+shapes of the serving and training paths (the flash backward pair, the
+batched median, trimmed mean, MeaMed, Gram and subset diameters included),
+gradients through the kernels' ``autograd.Function``, and a reduced model
+run through the kernels against the same model on the CPU's plain path. Imports no JAX, so it runs
 on a machine with a GPU and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -15,7 +16,8 @@ import torch
 from _torch_parity import CPU, require_cuda
 from repro_torch.kernels.cwise_median import ops as median_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     flash_bwd_ref)
 from repro_torch.models.registry import get_bundle
 from repro_torch.serve.replica import tree_map
 
@@ -57,8 +59,17 @@ def test_flash_kernel_f32_ragged_gqa_and_rows_independent():
     torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-4)
     o1, _ = flash_ops.flash_attention(q[1:2], k[1:2], v[1:2], causal=True)
     assert torch.equal(o1[0], o[1])
-    with pytest.raises(ValueError, match="hd=128"):
-        flash_ops.flash_attention(q[..., :64], k[..., :64], v[..., :64])
+    # hd < 128 is zero-padded to the kernel's 128 (scale of the true hd);
+    # hd > 128 raises
+    o64, lse64 = flash_ops.flash_attention(q[..., :64], k[..., :64],
+                                           v[..., :64], causal=True)
+    po64, plse64 = attention_ref(q[..., :64], k[..., :64], v[..., :64],
+                                 causal=True, return_lse=True)
+    torch.testing.assert_close(o64, po64, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(lse64, plse64, rtol=1e-5, atol=1e-4)
+    wide = torch.zeros((1, 8, 2, 160), device=dev)
+    with pytest.raises(ValueError, match="hd <= 128"):
+        flash_ops.flash_attention(wide, wide, wide)
 
 
 @pytest.mark.parametrize("n", [1, 3, 4, 5, 64])
@@ -188,3 +199,80 @@ def test_subset_diameter_kernel_matches_plain(n, f, B):
     torch.testing.assert_close(
         got, diam_ops.subset_diameters_plain(d2, masks), rtol=0, atol=0,
         equal_nan=True)
+
+
+# -- the flash backward pair (the zoo training slice) -------------------------
+
+@pytest.mark.parametrize("B,Sq,Skv,H,kvH,hd,window,dtype", [
+    (2, 256, 256, 24, 8, 128, 0, torch.bfloat16),
+    (2, 200, 333, 12, 4, 128, 64, torch.bfloat16),
+    (2, 77, 77, 4, 2, 32, 0, torch.float32),
+    (3, 65, 65, 8, 8, 64, 9, torch.float32)])
+def test_flash_backward_kernels_match_plain(B, Sq, Skv, H, kvH, hd, window,
+                                            dtype):
+    """dq, dk, dv of the dq and dkv kernels against the plain backward from
+    the same o / lse (causal; ragged, windowed, GQA, padded hd). f32:
+    summation order; bf16: a few bf16 steps of the grads (the plain version
+    rounds once per output too, from f32 sums in another order). Two
+    launches are bit-equal (no atomics)."""
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(Sq + hd)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).to(dtype)
+    do = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dtype)
+    o, lse = flash_ops.flash_attention(q, k, v, causal=True, window=window)
+    before = (flash_ops.flash_bwd_dq.launches,
+              flash_ops.flash_bwd_dkv.launches)
+    got = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                        window=window)
+    again = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                          window=window)
+    want = flash_bwd_ref(q, k, v, o, lse, do, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert (flash_ops.flash_bwd_dq.launches,
+            flash_ops.flash_bwd_dkv.launches) == (before[0] + 2,
+                                                  before[1] + 2)
+    tol = 3e-4 if dtype == torch.float32 else 3e-2
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol)
+
+
+def test_grads_reach_qkv_through_blocked_attention():
+    """On the card ``blocked_attention`` is the kernels'
+    ``autograd.Function``: q, k and v get the plain version's gradients
+    (hd 32, padded)."""
+    from repro_torch.models import layers as L
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    leaves = [torch.randn(s, generator=g, device=dev).requires_grad_()
+              for s in ((2, 40, 4, 32), (2, 40, 2, 32), (2, 40, 2, 32))]
+    out = L.blocked_attention(*leaves, causal=True)
+    assert out.requires_grad
+    do = torch.randn(out.shape, generator=g, device=dev)
+    grads = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(attention_ref(*ref_leaves, causal=True),
+                               ref_leaves, do)
+    for a, w in zip(grads, want):
+        assert a is not None and torch.count_nonzero(a) > 0
+        torch.testing.assert_close(a, w, rtol=3e-4, atol=3e-4)
+
+
+def test_backward_refuses_what_the_kernels_do_not_take():
+    """No fallback: a CUDA shape the backward kernels refuse raises."""
+    dev = require_cuda()
+    q = torch.zeros((1, 8, 2, 160), device=dev)
+    lse = torch.zeros((1, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="hd <= 128"):
+        flash_ops.flash_attention_bwd(q, q, q, q, lse, q)
+    q = torch.zeros((1, 8, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="hd = 128"):
+        flash_ops.flash_bwd_dq(q, q, q, q, lse, lse, scale=0.125)
+    q = torch.zeros((1, 9, 2, 128), device=dev)
+    k = torch.zeros((1, 8, 2, 128), device=dev)
+    with pytest.raises(ValueError, match="Sq <= Skv"):
+        flash_ops.flash_attention_bwd(q, k, k, q, torch.zeros(
+            (1, 2, 9), device=dev), q)
