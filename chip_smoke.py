@@ -738,7 +738,8 @@ def flash_bwd_phase(dev):
                 f"{typical[2]:.3g}), two launches bit-equal {same} | "
                 f"kernel {ms:.4f} ms, plain (whole backward) {plain_ms:.4f} "
                 f"ms, sdpa backward {library_ms:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s")
+                f"({b_by}), {flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{100 * b_ms / ms:.1f} % of the bound")
     return rows
 
 

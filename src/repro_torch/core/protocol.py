@@ -45,6 +45,7 @@ import torch
 
 from .. import agg
 from .. import optim as _optim
+from ..device import resolve
 from .attacks import ByzantineSpec, inject_gradients, inject_models
 from .quorum import UniformDelivery
 from .simulator import FlatTree, coordinatewise_diameter_sum, l2_diameter
@@ -301,7 +302,7 @@ def make_init_fn(bundle, pcfg: ProtocolConfig, device=None):
     seeded with ``seed``, cast to the bundle's ``param_dtype`` and
     replicated into the ``[G, P]`` stack (one copy, leaf by leaf), a fresh
     run generator (``seed + 1``) and the optimizer's per-replica state."""
-    dev = torch.device("cpu" if device is None else device)
+    dev = resolve(device)
     pdt = _dtype(bundle.cfg.param_dtype)
     opt = _optim.get(pcfg.optimizer)
 
@@ -495,7 +496,7 @@ class ProtocolEngine:
         self.bundle = bundle
         self.cfg = pcfg
         self.lr = lr_schedule
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve(device)
         self.with_attack = with_attack
         self.delivery = delivery or UniformDelivery(
             pcfg.n_groups, pcfg.n_groups, pcfg.q_workers, pcfg.q_servers)

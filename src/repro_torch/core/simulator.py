@@ -25,6 +25,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from .. import agg
+from ..device import resolve
 from .attacks import ByzantineSpec, inject_gradients, inject_models
 from .filters import (LipschitzHistory, lipschitz_coefficient,
                       lipschitz_cutoff, outliers_bound, outliers_pass)
@@ -199,7 +200,7 @@ class ByzSGDSimulator:
         self.init_fn = init_fn
         self.loss_fn = loss_fn
         self.lr = lr_schedule
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve(device)
         self.delivery = delivery or UniformDelivery.from_config(cfg)
         self.tree = FlatTree.from_params(
             init_fn(torch.Generator().manual_seed(0), device="cpu"))

@@ -14,6 +14,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..device import resolve
+
 
 @dataclass(frozen=True)
 class MixtureSpec:
@@ -61,7 +63,7 @@ class DeviceBatchStream:
 
     def __init__(self, seed: int, spec: MixtureSpec, n_workers: int,
                  batch_per_worker: int, device=None):
-        device = torch.device("cpu" if device is None else device)
+        device = resolve(device)
         self.spec = spec
         self.n_workers = n_workers
         self.batch_per_worker = batch_per_worker
@@ -144,7 +146,7 @@ class DeviceTokenStream:
 
     def __init__(self, seed: int, spec: TokenSpec, n_workers: int,
                  batch_per_worker: int, device=None):
-        device = torch.device("cpu" if device is None else device)
+        device = resolve(device)
         self.spec = spec
         self.n_workers = n_workers
         self.batch_per_worker = batch_per_worker

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` exposes a plain C interface (no PyTorch headers), so one
 ``nvcc`` run per source takes seconds rather than the minutes a PyTorch
 extension build takes. Libraries go to ``kernels/build/`` beside the
-sources (git-ignored), named by a hash of the source and the flags, so an
-edited source is rebuilt and a built one is reused. :func:`build` starts one
+sources (git-ignored), named by a hash of the flags and of every file in
+the source's ``csrc/`` directory, so an edited source or header is rebuilt
+and a built one is reused. :func:`build` starts one
 ``nvcc`` per missing library, all at once, and waits for them.
 """
 from __future__ import annotations
@@ -47,8 +48,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """The library of ``name``, named by a hash of the flags and of every
+    file in its source's ``csrc/`` directory (the headers it includes)."""
     src = SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(src.parent.iterdir()):
+        if f.is_file():
+            h.update(f.name.encode() + b"\0" + f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 

@@ -1,5 +1,5 @@
-"""The port stands alone: nothing under src/repro_torch/ or chip_smoke.py
-imports jax or any repro.* module (repro_torch.* is allowed), and the chip
+"""The port stands alone: nothing under src/repro_torch/, tools/ or
+chip_smoke.py imports jax or any repro.* module (repro_torch.* is allowed), and the chip
 smoke script refuses to run without a GPU."""
 import ast
 import os
@@ -11,8 +11,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imports(path: Path):
@@ -58,7 +58,8 @@ def test_kernels_import_nothing_above_them(path):
 
 
 def test_scan_covers_the_package():
-    names = {p.relative_to(ROOT / "src").as_posix() for p in FILES[:-1]}
+    names = {p.relative_to(ROOT / "src").as_posix() for p in FILES
+             if ROOT / "src" in p.parents}
     for mod in ("repro_torch/models/layers.py", "repro_torch/serve/service.py",
                 "repro_torch/kernels/flash_attention/ops.py",
                 "repro_torch/kernels/cwise_median/ops.py",

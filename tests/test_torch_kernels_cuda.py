@@ -206,6 +206,11 @@ def test_subset_diameter_kernel_matches_plain(n, f, B):
 @pytest.mark.parametrize("B,Sq,Skv,H,kvH,hd,window,dtype", [
     (2, 256, 256, 24, 8, 128, 0, torch.bfloat16),
     (2, 200, 333, 12, 4, 128, 64, torch.bfloat16),
+    # the protocol run's shape
+    (4, 1024, 1024, 24, 8, 128, 0, torch.bfloat16),
+    # 5 kv tiles and rep = 3 heads: step counts that are not a multiple of
+    # the tensor-core kernels' two-stage ring
+    (1, 320, 320, 6, 2, 128, 0, torch.bfloat16),
     (2, 77, 77, 4, 2, 32, 0, torch.float32),
     (3, 65, 65, 8, 8, 64, 9, torch.float32)])
 def test_flash_backward_kernels_match_plain(B, Sq, Skv, H, kvH, hd, window,
@@ -238,6 +243,30 @@ def test_flash_backward_kernels_match_plain(B, Sq, Skv, H, kvH, hd, window,
         assert a.dtype == w.dtype and a.shape == w.shape
         assert torch.equal(a, b)
         torch.testing.assert_close(a.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(200, 333), (256, 128)])
+def test_flash_backward_kernels_non_causal(Sq, Skv):
+    """bf16 without the causal mask (every key visible, Sq != Skv, ragged):
+    the tensor-core dq and dkv kernels against the plain backward, at the
+    causal test's tolerance; two launches bit-equal."""
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(Sq + Skv)
+    B, H, kvH, hd = 2, 8, 2, 128
+    q = torch.randn((B, Sq, H, hd), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).bfloat16()
+    do = torch.randn((B, Sq, H, hd), generator=g, device=dev).bfloat16()
+    o, lse = flash_ops.flash_attention(q, k, v, causal=False)
+    got = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    again = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    want = flash_bwd_ref(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), w.float(), rtol=3e-2,
+                                   atol=3e-2)
 
 
 def test_grads_reach_qkv_through_blocked_attention():

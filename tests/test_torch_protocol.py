@@ -185,7 +185,8 @@ def test_protocol_matches_the_ports_epoch_engine(steps, epoch_steps):
     ev = (batches[0][0, 0], batches[1][0, 0])
     lr = tsched.inverse_linear(0.2, 0.05)
     sim = tsim.ByzSGDSimulator(cfg, tinit, tloss, lr,
-                               delivery=TraceDelivery(*tables, T=T))
+                               delivery=TraceDelivery(*tables, T=T),
+                               device="cpu")
     flat0 = sim.tree.flatten(tinit(torch.Generator().manual_seed(0)))
     s_sim, m_sim = EpochEngine(
         sim, acc_fn=lambda p, *e: acc(sim.tree.unflatten(p), *e),
@@ -193,7 +194,7 @@ def test_protocol_matches_the_ports_epoch_engine(steps, epoch_steps):
                          epoch_steps=epoch_steps)
     eng = tproto.ProtocolEngine(tproto.ProblemBundle(tinit, tloss), tp, lr,
                                 delivery=TraceDelivery(*tables, T=T),
-                                acc_fn=acc, eval_set=ev)
+                                acc_fn=acc, eval_set=ev, device="cpu")
     s0 = tproto.ByzState(flat0.expand(G, -1).clone(), 0, torch.Generator(),
                          (), sim.tree)
     s_pro, m_pro = eng.run(s0, batches, epoch_steps=epoch_steps)
@@ -281,7 +282,7 @@ def test_token_stream_draws_the_jax_law():
     of 1.2 for both."""
     spec = tpipe.TokenSpec(vocab=512, seq=64, zipf=1.2)
     n_steps, G, b = 20, 4, 8
-    tb = tpipe.DeviceTokenStream(0, spec, G, b).next(n_steps)
+    tb = tpipe.DeviceTokenStream(0, spec, G, b, "cpu").next(n_steps)
     jspec = jpipe.TokenSpec(vocab=512, seq=64, zipf=1.2)
     jb = jpipe.DeviceTokenStream(0, jspec, G, b).next(n_steps)
     assert tb["tokens"].shape == tuple(jb["tokens"].shape)
@@ -299,8 +300,9 @@ def test_token_stream_draws_the_jax_law():
         slope = np.polyfit(np.log(ranks[:top]), np.log(freq[:top]), 1)[0]
         assert abs(-slope - spec.zipf) < 0.05
     # eval sets and the streamed sequence are deterministic per seed
-    a = tpipe.DeviceTokenStream(0, spec, G, b)
-    c = list(tpipe.token_stream(0, spec.vocab, G, b, spec.seq, 3))
+    a = tpipe.DeviceTokenStream(0, spec, G, b, "cpu")
+    c = list(tpipe.token_stream(0, spec.vocab, G, b, spec.seq, 3,
+                                 device="cpu"))
     got = a.next(3)
     assert all(torch.equal(got["tokens"][i], c[i]["tokens"])
                for i in range(3))

@@ -319,12 +319,47 @@ def test_device_stream_matches_stepwise_stream():
     """Any epoch lengths give the stepwise stream's batches; the eval set
     has its own seed."""
     spec = MixtureSpec(n_classes=5, dim=16, sep=2.5)
-    s = DeviceBatchStream(0, spec, 3, 4)
+    s = DeviceBatchStream(0, spec, 3, 4, "cpu")
     x1, y1 = s.next(2)
     x2, y2 = s.next(3)
-    host, eval_fn = classification_stream(0, spec, 3, 4, 5)
+    host, eval_fn = classification_stream(0, spec, 3, 4, 5, device="cpu")
     hx, hy = zip(*host)
     assert torch.equal(torch.cat([x1, x2]), torch.stack(hx))
     assert torch.equal(torch.cat([y1, y2]), torch.stack(hy))
     ex, ey = eval_fn(64)
     assert ex.shape == (64, 16) and torch.equal(ey, s.eval_set(64)[1])
+
+
+def _no_device_constructors():
+    """Each public constructor that takes ``device``, called without one."""
+    from repro_torch import exp
+    from repro_torch.core import protocol as tproto
+    from repro_torch.data.pipeline import DeviceTokenStream, TokenSpec
+    cfg = tsim.ByzSGDConfig(n_workers=4, f_workers=1, n_servers=4,
+                            f_servers=0, T=3)
+    init, loss, _ = tmodels.make_mlp_problem(DIM, HIDDEN, CLASSES)
+    lr = tsched.inverse_linear(0.2, 0.05)
+    pcfg = tproto.ProtocolConfig.derive(4, T=3)
+    bundle = tproto.ProblemBundle(init=init, loss=loss)
+    spec = MixtureSpec(n_classes=3, dim=DIM)
+    return {
+        "ByzSGDSimulator": lambda: tsim.ByzSGDSimulator(cfg, init, loss, lr),
+        "ProtocolEngine": lambda: tproto.ProtocolEngine(bundle, pcfg, lr),
+        "make_init_fn": lambda: tproto.make_init_fn(bundle, pcfg),
+        "DeviceBatchStream": lambda: DeviceBatchStream(0, spec, 3, 4),
+        "DeviceTokenStream": lambda: DeviceTokenStream(
+            0, TokenSpec(vocab=64, seq=8), 3, 4),
+        "Experiment.build_sim": lambda: exp.get("smoke").build_sim(),
+    }
+
+
+@pytest.mark.parametrize("name", ["ByzSGDSimulator", "ProtocolEngine",
+                                  "make_init_fn", "DeviceBatchStream",
+                                  "DeviceTokenStream",
+                                  "Experiment.build_sim"])
+def test_constructors_default_to_the_gpu(name, monkeypatch):
+    """Without a device the entry points take the GPU and raise when there
+    is none; the CPU is used only when the caller asks for it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _no_device_constructors()[name]()
