@@ -7,10 +7,12 @@
    CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per
    source, all at once).
 2. Kernel phase: each kernel against its plain PyTorch version on the card
-   at the serving path's shapes, with the stated tolerance, and the times of
-   the kernel, of the plain version and of one PyTorch library call as a
-   yardstick (each with its inputs cold in L2), beside the least time the
-   card could take (bound).
+   at the serving path's shapes (the flash forward also at the protocol
+   run's), with the stated tolerance, two launches of the flash forward
+   bit-equal, and the times of the kernel, of the plain version and of one
+   PyTorch library call as a yardstick (each with its inputs cold in L2),
+   beside the least time the card could take (bound) and the kernel's
+   ``ptxas`` registers and spill.
 3. Reference phase: a reduced model (hd 128, f32 activations) through the
    kernels on the card against the same model on the CPU's plain path.
 4. Serve phase: phi4-mini-3.8b at full width and depth, random bf16 weights
@@ -60,6 +62,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -86,6 +89,21 @@ N_REPLICAS, F_BYZ, N_SLOTS, N_REQUESTS, MAX_NEW = 4, 1, 4, 8, 16
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: mangled kernel name -> (registers, spill store bytes, spill load bytes),
+#: from this run's build (``_build.ptxas_usage``)
+PTXAS: dict[str, tuple[int, int, int]] = {}
+
+
+def ptxas_note(fragment: str) -> str:
+    """``ptxas`` registers and spill of the kernel whose mangled name holds
+    ``fragment``, as this run's build reported them."""
+    hits = [v for k, v in PTXAS.items() if fragment in k]
+    if not hits:
+        return f"; ptxas: no report for {fragment} (library not built here)"
+    regs, st, ld = hits[0]
+    return f"; ptxas {regs} registers, spill {st} B stores / {ld} B loads"
 
 
 def card_line() -> str:
@@ -137,15 +155,22 @@ def flash_phase(dev):
     from repro_torch.kernels.flash_attention.ref import attention_ref
     B, H, kvH, hd = N_REPLICAS, 24, 8, 128      # R*H = 96 rows, phi4 heads
     rows = []
-    for S, window in ((128, 0), (1000, 0), (1000, 256)):
+    # serving's prefills (S 128 and 1000, causal and windowed) and the
+    # protocol run's shape (S 1024)
+    for S, window in ((128, 0), (1000, 0), (1000, 256), (1024, 0)):
         g = torch.Generator(device=dev).manual_seed(S + window)
         q = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
         k = torch.randn((B, S, kvH, hd), generator=g, device=dev).bfloat16()
         v = torch.randn((B, S, kvH, hd), generator=g, device=dev).bfloat16()
         o, lse = ops.flash_attention(q, k, v, causal=True, window=window)
+        o2, lse2 = ops.flash_attention(q, k, v, causal=True, window=window)
         po, plse = attention_ref(q, k, v, causal=True, window=window,
                                  return_lse=True)
         torch.cuda.synchronize()
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        if not same:
+            raise AssertionError(f"flash forward S={S} window={window} is "
+                                 f"not deterministic")
         err = (o.float() - po.float()).abs().max().item()
         lse_err = (lse - plse).abs().max().item()
         # o: one bf16 step of the output, and the plain version's bf16
@@ -177,10 +202,12 @@ def flash_phase(dev):
             + 4.0 * B * H * S
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
         log(f"[kernel] flash_attention S={S} window={window} rows={B * H}: "
-            f"max|o-plain|={err:.3g} max|lse-plain|={lse_err:.3g} | "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-            f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"{flops / ms / 1e9:.1f} TFLOP/s")
+            f"max|o-plain|={err:.3g} max|lse-plain|={lse_err:.3g}, two "
+            f"launches bit-equal {same} | kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {b_ms:.4f} "
+            f"ms ({b_by}), {flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * b_ms / ms:.1f} % of the bound"
+            + ptxas_note("tc10fwd_kernel"))
         rows.append(dict(S=S, window=window, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=b_ms, bound_by=b_by))
@@ -211,7 +238,8 @@ def median_phase(dev):
         log(f"[kernel] cwise_median [{n}, {D}] f32: max|kernel-plain|={err} "
             f"| kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, quantile "
             f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-            f"{nbytes / ms / 1e6:.1f} GB/s")
+            f"{nbytes / ms / 1e6:.1f} GB/s, {100 * b_ms / ms:.1f} % of the "
+            f"bound")
         rows.append(dict(n=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=b_ms, bound_by=b_by))
     return rows
@@ -376,10 +404,21 @@ def _row(label, err, ms, plain_ms, library_ms, nbytes, ops, extra=""):
     lib = "—" if library_ms is None else f"{library_ms:.4f} ms"
     log(f"[train-kernel] {label}: max|kernel-plain|={err:.3g} | kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound "
-        f"{b_ms:.4f} ms ({b_by}), {nbytes / ms / 1e6:.1f} GB/s{extra}")
+        f"{b_ms:.4f} ms ({b_by}), {nbytes / ms / 1e6:.1f} GB/s, "
+        f"{100 * b_ms / ms:.1f} % of the bound{extra}")
     return dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
                 nbytes=nbytes)
+
+
+def gram_note(gram_ops, x) -> str:
+    """The Gram launch's plan for ``x`` and its kernel's ptxas figures."""
+    n, d = x.shape[-2:]
+    plan = gram_ops.launch_plan(x[..., 0, 0].numel(), n, d, x.data_ptr())
+    name = (f"gram_reg_kernelILi{n}ELi{plan.vec}E" if plan.path == "register"
+            else "gram_partial_kernel")
+    return (f"; {plan.path} kernel, {4 * plan.vec}-byte loads, "
+            f"{plan.n_chunks} chunks" + ptxas_note(name))
 
 
 def train_kernel_phase(dev, D: int):
@@ -458,7 +497,8 @@ def train_kernel_phase(dev, D: int):
         cold_ms(gram_ops.gram_plain, (x,), 20),
         cold_ms(lambda t: torch.bmm(t, t.transpose(1, 2)), (x,), 100),
         4.0 * (5 * 7 * D + 5 * 49), 2.0 * 5 * 28 * D,
-        f", max|d2| err / scale {(d2_err / scale.clamp(min=1e-30)).max().item():.2g}"))
+        f", max|d2| err / scale {(d2_err / scale.clamp(min=1e-30)).max().item():.2g}"
+        + gram_note(gram_ops, x)))
     # subset diameters: C(7, 5) = 21 subsets for each of the 5 servers; exact
     d2 = sqdists_from_gram(got)
     masks = subset_masks(7, 2)
@@ -883,7 +923,8 @@ def protocol_kernel_rows(dev, G: int, P: int, chunk_bytes: int):
         f"protocol gram [{G}, {P}]", (got - want).abs().max().item(),
         cold_ms(gram_ops.gram, (x,), 3), cold_ms(gram_ops.gram_plain, (x,), 2),
         cold_ms(lambda t: t @ t.T, (x,), 3),
-        4.0 * (G * P + G * G), 2.0 * (G * (G + 1) // 2) * P)]}
+        4.0 * (G * P + G * G), 2.0 * (G * (G + 1) // 2) * P,
+        gram_note(gram_ops, x))]}
     del want
     # the pull's and the gather's chunk (masked_pull), consolidate's chunk
     rows["cwise_median"] = []
@@ -997,9 +1038,13 @@ def main() -> int:
     log(f"[build] {len(reports)} kernel libraries built in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
+        for fn, (regs, st, ld) in _build.ptxas_usage(text).items():
+            log(f"[build] {name}: {fn}: {regs} registers, spill {st} B "
+                f"stores / {ld} B loads")
+            PTXAS[fn] = (regs, st, ld)
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if re.search(r"\(C\d+\)", line):   # ptxas advice, e.g. C7519
+                log(f"[build] {name}: {line.strip()[:300]}")
 
     with torch.inference_mode():
         flash = flash_phase(dev)
@@ -1049,8 +1094,8 @@ def main() -> int:
             ("flash_bwd_dkv", "flash_attention/csrc/flash_bwd.cu",
              "flash_attention/kernel.py:164")):
         rs = rows[name]
-        # the row of the path's largest call (flash: S = 1000, causal; the
-        # backward pair: the protocol run's shape)
+        # the row of the path's largest call (flash forward and backward:
+        # the protocol run's shape)
         main_row = (max(rs, key=lambda r: (r["S"], -r["window"]))
                     if name == "flash_attention"
                     else max(rs, key=lambda r: r["flops"])

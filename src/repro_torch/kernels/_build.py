@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -85,6 +86,21 @@ def build(names=None) -> dict[str, str]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def ptxas_usage(report: str) -> dict[str, tuple[int, int, int]]:
+    """Per kernel of a :func:`build` report (``ptxas -v``): its mangled
+    name -> (registers, bytes of spill stores, bytes of spill loads)."""
+    usage, fn, spill = {}, None, (0, 0)
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            fn, spill = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            usage[fn] = (int(m.group(1)), *spill)
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -42,6 +42,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
+// one plain arrival (a consumer releasing a stage)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
 // wait until the barrier's phase with this parity has completed; a phase
 // that has not completed after ~10^10 cycles (seconds) is a fault, and the
 // kernel traps (the launch then reports an error) rather than hang the card
@@ -173,6 +179,15 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[32], int kk,
     hi[r] = *reinterpret_cast<const uint32_t*>(&b);
     lo[r] = pack_bf16(x - __low2float(b), y - __high2float(b));
   }
+}
+
+// The same operand rounded once, hi = bf16(d) alone: the rounding of p that
+// the plain attention (and FlashAttention) applies before p v.
+__device__ __forceinline__ void acc_to_a_hi(const float (&d)[32], int kk,
+                                            uint32_t (&hi)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    hi[r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
 // ---- host: tensor maps ------------------------------------------------------

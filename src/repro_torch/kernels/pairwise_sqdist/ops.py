@@ -8,10 +8,13 @@ all of them). On a CUDA tensor it launches ``csrc/gram.cu``; on a CPU tensor
 it runs :func:`gram_plain`, which splits d into the kernel's chunks and adds
 the chunks' partial Grams (the sums inside a chunk run in another order, so
 the two agree to float32 summation order, not bit for bit).
+:func:`launch_plan` is the launch's whole shape: which kernel, the width of
+its loads and the chunks.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -19,8 +22,11 @@ from .. import _build
 from .ref import sqdists_from_gram
 
 MAX_N = 64
-TILE = 128            # columns of a staged tile (gram.cu TW)
-TARGET_BLOCKS = 1056  # 8 blocks on each of the H100's 132 SMs
+MAX_REG_N = 8         # largest n of the register kernel (gram.cu MAXN_REG)
+TILE = 128            # columns of a chunk's tiles (gram.cu TW)
+# 2 blocks on each of the H100's 132 SMs: at the training paths' shapes the
+# fastest of 132-2112 (tools/gram_target_blocks.py)
+TARGET_BLOCKS = 264
 
 
 def _lib() -> ctypes.CDLL:
@@ -28,7 +34,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.gram_f32
     if fn.argtypes is None:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, I, I, LL, LL, I, P]
+        fn.argtypes = [P, P, P, I, I, LL, LL, I, I, P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -40,6 +46,27 @@ def chunking(batch: int, d: int) -> tuple[int, int]:
     want = max(1, min(tiles, -(-TARGET_BLOCKS // batch)))
     chunk = -(-tiles // want) * TILE
     return chunk, -(-d // chunk)
+
+
+class GramPlan(NamedTuple):
+    """How :func:`gram` launches ``gram.cu`` for one stack shape."""
+    path: str      # "register" (n <= MAX_REG_N) or "general" (the rest)
+    vec: int       # floats per load on the register path: 4, 2 or 1
+    chunk: int     # columns per block, whole 128-column tiles
+    n_chunks: int
+
+
+def launch_plan(batch: int, n: int, d: int, ptr: int) -> GramPlan:
+    """The launch for ``batch`` stacks of ``n`` rows of width ``d`` whose
+    data starts at address ``ptr``: the register kernel for n <= 8, with
+    the widest load (16, 8 or 4 bytes) that divides every row's start (d
+    and ``ptr`` both aligned to it), else the general kernel; the chunks of
+    :func:`chunking`."""
+    chunk, n_chunks = chunking(batch, d)
+    if n > MAX_REG_N:
+        return GramPlan("general", 1, chunk, n_chunks)
+    vec = next(v for v in (4, 2, 1) if d % v == 0 and ptr % (4 * v) == 0)
+    return GramPlan("register", vec, chunk, n_chunks)
 
 
 def gram_plain(x):
@@ -70,14 +97,15 @@ def gram(x):
     n, d = x.shape[-2:]
     B = x.shape[0] if x.ndim == 3 else 1
     x = x.float().contiguous()
-    chunk, n_chunks = chunking(B, d)
+    plan = launch_plan(B, n, d, x.data_ptr())
+    chunk, n_chunks = plan.chunk, plan.n_chunks
     partial = torch.empty((B, n_chunks, n * (n + 1) // 2),
                           dtype=torch.float32, device=x.device)
     g = torch.empty(x.shape[:-2] + (n, n), dtype=torch.float32,
                     device=x.device)
     lib = _lib()
     rc = lib.gram_f32(x.data_ptr(), partial.data_ptr(), g.data_ptr(), B, n,
-                      d, chunk, n_chunks, _build.stream_ptr(x))
+                      d, chunk, n_chunks, plan.vec, _build.stream_ptr(x))
     _build.check(lib, rc, "gram_f32")
     gram.launches += 1
     return g

@@ -72,6 +72,56 @@ def test_flash_kernel_f32_ragged_gqa_and_rows_independent():
         flash_ops.flash_attention(wide, wide, wide)
 
 
+def _bf16_qkv(B, Sq, Skv, H, kvH, seed):
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).bfloat16()
+                 for shape in ((B, Sq, H, 128), (B, Skv, kvH, 128),
+                               (B, Skv, kvH, 128)))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,kvH,causal,window", [
+    (4, 1024, 1024, 24, 8, True, 0),      # the protocol run's shape
+    (3, 37, 101, 6, 2, True, 0),          # Sq < Skv: the causal offset
+    (2, 200, 333, 12, 4, True, 64),       # the offset and a window
+    # one row, and 128-row q tiles that are partial or whose second
+    # 64-row half is empty or partial
+    (2, 1, 1, 8, 2, True, 0), (2, 63, 63, 8, 2, True, 0),
+    (2, 65, 65, 8, 2, True, 0), (2, 129, 129, 8, 2, True, 0),
+    (2, 1, 300, 8, 2, True, 0), (2, 65, 300, 8, 2, True, 0),
+    (2, 200, 333, 8, 2, False, 0), (2, 256, 128, 8, 2, False, 0),
+    (4, 1000, 1000, 24, 8, True, 256)])
+def test_flash_forward_bf16_tensor_core_kernel(B, Sq, Skv, H, kvH, causal,
+                                               window):
+    """The bf16 forward (wgmma + TMA ring) against the plain version: o
+    within one bf16 step plus the plain version's rounding of p (1e-2),
+    lse within f32 summation order (1e-5 rel, 1e-4 abs); two launches
+    bit-equal (no atomics)."""
+    q, k, v = _bf16_qkv(B, Sq, Skv, H, kvH, Sq + Skv + window)
+    o, lse = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    po, plse = attention_ref(q, k, v, causal=causal, window=window,
+                             return_lse=True)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    torch.testing.assert_close(o.float(), po.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-4)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("S,window", [(1000, 0), (300, 64)])
+def test_flash_forward_bf16_rows_independent(S, window):
+    """Serving's token identity: each of R = 4 replicas' rows of a bf16
+    launch equals the same replica launched alone (R = 1), bit for bit."""
+    q, k, v = _bf16_qkv(4, S, S, 24, 8, S + window)
+    o, lse = flash_ops.flash_attention(q, k, v, causal=True, window=window)
+    for r in range(4):
+        o1, lse1 = flash_ops.flash_attention(q[r:r + 1], k[r:r + 1],
+                                             v[r:r + 1], causal=True,
+                                             window=window)
+        assert torch.equal(o1[0], o[r]) and torch.equal(lse1[0], lse[r])
+
+
 @pytest.mark.parametrize("n", [1, 3, 4, 5, 64])
 def test_median_kernel_matches_plain(n):
     """Exact: the same order statistic and the same f32 average. NaN rows
@@ -181,6 +231,62 @@ def test_gram_kernel_matches_plain(B, n, d):
     from repro_torch.kernels.pairwise_sqdist.ref import sqdists_from_gram
     assert torch.all((d2 - sqdists_from_gram(want)).abs() <= 1e-5 * scale)
     assert torch.equal(gram_ops.gram(x), g)
+
+
+def _gram_within_gate(x):
+    """The Gram kernel on ``x`` against its plain version within 1e-5 of
+    the squared norms bounding each entry, d2 likewise, and bit-equal
+    across two launches; returns the launch plan."""
+    from repro_torch.kernels.pairwise_sqdist import ops as gram_ops
+    from repro_torch.kernels.pairwise_sqdist.ref import sqdists_from_gram
+    before = gram_ops.gram.launches
+    g, again = gram_ops.gram(x), gram_ops.gram(x)
+    torch.cuda.synchronize()
+    assert gram_ops.gram.launches == before + 2
+    want = gram_ops.gram_plain(x)
+    sq = torch.diagonal(want, dim1=-2, dim2=-1)
+    scale = sq[..., :, None] + sq[..., None, :]
+    assert torch.all((g - want).abs() <= 1e-5 * scale)
+    assert torch.all((sqdists_from_gram(g) - sqdists_from_gram(want)).abs()
+                     <= 1e-5 * scale)
+    assert torch.equal(g, again)
+    n, d = x.shape[-2:]
+    return gram_ops.launch_plan(x[..., 0, 0].numel(), n, d, x.data_ptr())
+
+
+@pytest.mark.parametrize("n", [1, 4, 7, 8, 9, 64])
+@pytest.mark.parametrize("r", [0, 1, 2, 3])
+def test_gram_kernel_every_n_and_width(n, r):
+    """The register kernel (n <= 8) with 16-, 8- and 4-byte loads as d
+    mod 4 allows, and the general kernel (n > 8), against the plain
+    version."""
+    dev = require_cuda()
+    d = 3 * 4096 + 128 + r
+    plan = _gram_within_gate(torch.from_numpy(_stack((3, n, d), n + r)).to(dev))
+    assert plan.path == ("register" if n <= 8 else "general")
+    if n <= 8:
+        assert plan.vec == {0: 4, 2: 2}.get(r, 1)
+
+
+@pytest.mark.parametrize("offset,vec", [(1, 1), (2, 2), (3, 1)])
+def test_gram_kernel_view_off_a_16_byte_boundary(offset, vec):
+    """A contiguous view that starts 4, 8 or 12 bytes past a 16-byte
+    boundary takes the load width its start allows."""
+    dev = require_cuda()
+    n, d = 4, 8192
+    buf = torch.from_numpy(_stack((n * d + 4,), offset)).to(dev)
+    x = buf[offset:offset + n * d].view(n, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset
+    assert _gram_within_gate(x).vec == vec
+
+
+def test_gram_kernel_at_the_training_shape():
+    """MDA at the 5 servers over 7 gradients of mlp_h1024 (D = 1,093,642,
+    2 mod 4: 8-byte loads)."""
+    dev = require_cuda()
+    x = 0.05 * torch.from_numpy(_stack((5, 7, 1_093_642), 7)).to(dev)
+    plan = _gram_within_gate(x)
+    assert (plan.path, plan.vec) == ("register", 2)
 
 
 @pytest.mark.parametrize("n,f,B", [(7, 2, 5), (5, 1, 1), (12, 5, 3)])

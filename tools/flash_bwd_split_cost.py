@@ -44,8 +44,8 @@ def main() -> int:
     if len(lines) - len(kept) != 3:
         raise RuntimeError(f"{shipped.name}: expected three lo products")
     variant.write_text("".join(kept))
-    (variant.parent / "sm90.cuh").write_text(
-        (shipped.parent / "sm90.cuh").read_text())
+    for header in shipped.parent.glob("*.cuh"):
+        (variant.parent / header.name).write_text(header.read_text())
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
