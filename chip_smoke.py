@@ -5,7 +5,9 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    CUDA kernels from ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` per
-   source, all at once).
+   source, all at once); then counts the device work of one exact MDA
+   selection on the kernel's route (one launch, no copy) and on the route
+   it replaced, with ``torch.profiler``, before any CUDA graph runs.
 2. Kernel phase: each kernel against its plain PyTorch version on the card
    at the serving path's shapes (the flash forward also at the protocol
    run's), with the stated tolerance, two launches of the flash forward
@@ -22,9 +24,13 @@
    token-identical to an honest single replica, and both kernels must have
    been launched by that run.
 5. Training kernel phase: the batched median, the trimmed mean, MeaMed, the
-   Gram and the subset diameters against their plain versions at the
-   training path's shapes (the ``mlp_h1024`` model, D = 1,093,642), timed as
-   in 2.
+   Gram and the exact MDA selection against their plain versions at the
+   training path's shapes (the ``mlp_h1024`` model, D = 1,093,642; the
+   selection also at the protocol's ``[4, 3, 3]`` and at S = 125,970), timed
+   as in 2; for the selection also the host wall of one whole selection, in
+   turns with the route it replaced, and an empty kernel's time. The build
+   prints each MeaMed instance's ``ptxas`` stack frame (none allowed) and
+   SASS instruction count.
 6. Train reference phase: ``quickstart`` at ``mlp_h1024`` for 2T + 3 = 23
    steps on fixed quorum tables and numpy batches, on the card (kernels)
    and on the CPU (plain versions): params within the stated tolerance and
@@ -91,19 +97,56 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-#: mangled kernel name -> (registers, spill store bytes, spill load bytes),
-#: from this run's build (``_build.ptxas_usage``)
-PTXAS: dict[str, tuple[int, int, int]] = {}
+#: mangled kernel name -> ``_build.PtxasUsage`` (registers, spill, stack
+#: frame), from this run's build (``_build.ptxas_usage``)
+PTXAS: dict = {}
+
+
+def ptxas_text(u) -> str:
+    return (f"{u.registers} registers, spill {u.spill_stores} B stores / "
+            f"{u.spill_loads} B loads, {u.stack} B stack frame")
 
 
 def ptxas_note(fragment: str) -> str:
-    """``ptxas`` registers and spill of the kernel whose mangled name holds
-    ``fragment``, as this run's build reported them."""
+    """``ptxas`` registers, spill and stack frame of the kernel whose
+    mangled name holds ``fragment``, as this run's build reported them."""
     hits = [v for k, v in PTXAS.items() if fragment in k]
     if not hits:
         return f"; ptxas: no report for {fragment} (library not built here)"
-    regs, st, ld = hits[0]
-    return f"; ptxas {regs} registers, spill {st} B stores / {ld} B loads"
+    return "; ptxas " + ptxas_text(hits[0])
+
+
+def kernel_label(mangled: str) -> str:
+    """``_ZN..19meamed_exact_kernelILi5ELi2EE..`` -> ``meamed_exact_kernel<5,
+    2>``: the length-prefixed name that ends in ``_kernel``, with its
+    integer template arguments."""
+    for m in re.finditer(r"(?=(\d+))", mangled):      # every digit run's tail
+        end = m.start() + len(m.group(1))
+        name = mangled[end:end + int(m.group(1))]
+        if name.endswith("_kernel"):
+            args = re.match(r"I((?:Li\d+E)+)E", mangled[end + len(name):])
+            return name + (f"<{', '.join(re.findall(r'Li(\d+)E', args[1]))}>"
+                           if args else "")
+    return mangled
+
+
+def meamed_build_check(build) -> None:
+    """Each MeaMed kernel instance's ``ptxas`` registers and stack frame and
+    its SASS instruction count (``cuobjdump -sass``, where the toolkit has
+    it); fails if an instance has a stack frame (its column left the
+    registers)."""
+    inst = {k: v for k, v in PTXAS.items() if "meamed" in k}
+    if not inst:
+        log("[build] cwise_median: no ptxas report (library not built here)")
+        return
+    sass = build.sass_counts(build.lib_path("cwise_median"))
+    for k, u in sorted(inst.items(), key=lambda kv: kernel_label(kv[0])):
+        log(f"[build] MeaMed {kernel_label(k)}: {ptxas_text(u)}, "
+            + (f"{sass[k]} SASS instructions" if k in sass
+               else "SASS not counted (no cuobjdump)"))
+    framed = [kernel_label(k) for k, u in inst.items() if u.stack]
+    if framed:
+        raise AssertionError(f"MeaMed instances with a stack frame: {framed}")
 
 
 def card_line() -> str:
@@ -425,10 +468,10 @@ def train_kernel_phase(dev, D: int):
     """The five aggregation kernels of the training path against their
     plain versions at its shapes (quickstart: 9 workers pull 4 of 5 servers,
     5 servers take 7 of 9 gradients with f = 2; sync_filters: MeaMed over
-    the 5 equivocated servers)."""
-    from repro_torch.agg.rules import subset_masks
+    the 5 equivocated servers; the protocol: 4 servers take 3 gradients
+    with f = 1)."""
     from repro_torch.kernels.cwise_median import ops as order_ops
-    from repro_torch.kernels.mda_diameter import ops as diam_ops
+    from repro_torch.kernels.cwise_median.ref import _oddeven_pairs
     from repro_torch.kernels.pairwise_sqdist import ops as gram_ops
     from repro_torch.kernels.pairwise_sqdist.ref import sqdists_from_gram
     rows: dict[str, list] = {"cwise_median": [], "cwise_trimmed_mean": [],
@@ -471,11 +514,15 @@ def train_kernel_phase(dev, D: int):
     x = stack(5, 5, 55)
     err = exact(order_ops.cwise_meamed(x, 1),
                 order_ops.cwise_meamed_plain(x, 1))
+    plan = order_ops.meamed_plan(5, D, x.data_ptr())
     rows["cwise_meamed"].append(_row(
         f"cwise_meamed [5, 5, {D}] f=1", err,
         cold_ms(lambda t: order_ops.cwise_meamed(t, 1), (x,), 100),
         cold_ms(lambda t: order_ops.cwise_meamed_plain(t, 1), (x,), 20),
-        None, 4.0 * (5 * 5 * D + 5 * D), (_bitonic_ops(5) + 30) * 5 * D))
+        None, 4.0 * (5 * 5 * D + 5 * D),
+        (2 * len(_oddeven_pairs(5)) + 30) * 5 * D,
+        f"; {plan.path} kernel, {plan.wires} wires, {4 * plan.vec}-byte "
+        f"loads" + ptxas_note(f"meamed_exact_kernelILi5ELi{plan.vec}E")))
     # Gram: MDA at the 5 servers over 7 gradients; float32 summation order,
     # so entries are held within 1e-5 of the squared norms bounding them
     g = torch.Generator(device=dev).manual_seed(7)
@@ -499,19 +546,148 @@ def train_kernel_phase(dev, D: int):
         4.0 * (5 * 7 * D + 5 * 49), 2.0 * 5 * 28 * D,
         f", max|d2| err / scale {(d2_err / scale.clamp(min=1e-30)).max().item():.2g}"
         + gram_note(gram_ops, x)))
-    # subset diameters: C(7, 5) = 21 subsets for each of the 5 servers; exact
-    d2 = sqdists_from_gram(got)
-    masks = subset_masks(7, 2)
-    mask_t = torch.as_tensor(masks, device=dev)
-    err = exact(diam_ops.subset_diameters(d2, masks),
-                diam_ops.subset_diameters_plain(d2, mask_t))
-    rows["subset_diameters"].append(_row(
-        "subset_diameters [5, 7, 7] x 21 subsets", err,
-        cold_ms(lambda t: diam_ops.subset_diameters(t, masks), (d2,), 200),
-        cold_ms(lambda t: diam_ops.subset_diameters_plain(t, mask_t), (d2,),
-                50),
-        None, 4.0 * 5 * 49 + 8.0 * 21 + 4.0 * 5 * 21, 5.0 * 21 * 25))
+    # exact MDA selection (SELECT_CASES); quickstart's on this Gram's d2
+    for label, B, n, f, on_path in SELECT_CASES:
+        d2 = (sqdists_from_gram(got) if label == "quickstart servers"
+              else select_distances(dev, B, n))
+        rows["subset_diameters"].append(
+            select_row(dev, label, d2.contiguous(), f, on_path))
     return rows
+
+
+# the exact MDA selections timed: label, B, n, f, on the main path.
+# quickstart's 5 servers over 7 gradients, f = 2 (C(7, 5) = 21 subsets), the
+# protocol's 4 servers over q = 3, f = 1 (3), and one large S off the path
+# (C(20, 12) = 125,970)
+SELECT_CASES = (("quickstart servers", 5, 7, 2, True),
+                ("protocol quorum", 4, 3, 1, True),
+                ("large S, off the path", 1, 20, 8, False))
+#: label -> device work per selection of (the replaced route, the kernel)
+SELECT_OPS: dict[str, tuple[dict, dict]] = {}
+
+
+def select_distances(dev, B: int, n: int):
+    """Seeded ``[B, n, n]`` squared distances of 64-wide points."""
+    from repro_torch.kernels.pairwise_sqdist import ops as gram_ops
+    from repro_torch.kernels.pairwise_sqdist.ref import sqdists_from_gram
+    g = torch.Generator(device=dev).manual_seed(B * 100 + n)
+    return sqdists_from_gram(gram_ops.gram_plain(
+        torch.randn((B, n, 64), generator=g, device=dev))).contiguous()
+
+
+def _select_routes(d2, f: int):
+    """(the route the kernel replaced, the kernel's) for one selection: the
+    diameters kernel, then torch.argmin, the mask table copied to the card,
+    the gather, the cast and the division in ``rules``; the dispatch."""
+    from repro_torch.agg import dispatch, rules
+    return ((lambda: rules.mda_weights_from_d2(
+        d2, f, diameters_fn=dispatch.subset_diameters)),
+            (lambda: dispatch.mda_weights_from_d2(d2, f)))
+
+
+def select_launch_phase(dev) -> None:
+    """Device kernels, copies and memsets per exact MDA selection, on each
+    route, counted with torch.profiler. Run first, before any CUDA graph:
+    after graph replays, the profiler was seen to drop kernel records in
+    this process. Fails unless the kernel's route is one launch and no
+    copy."""
+    for label, B, n, f, _ in SELECT_CASES:
+        old, new = _select_routes(select_distances(dev, B, n), f)
+        SELECT_OPS[label] = device_ops(old), device_ops(new)
+        log(f"[select-launches] {label} [{B}, {n}, {n}] f={f}: per "
+            f"selection, replaced route {SELECT_OPS[label][0]}, kernel "
+            f"{SELECT_OPS[label][1]}")
+        if SELECT_OPS[label][1] != {"kernels": 1.0, "copies": 0.0,
+                                    "memsets": 0.0}:
+            raise AssertionError(f"selection {label}: "
+                                 f"{SELECT_OPS[label][1]} per selection, "
+                                 f"not one launch")
+
+
+def device_ops(fn, reps: int = 20) -> dict[str, float]:
+    """Device kernels, copies and memsets per call of ``fn``, counted by
+    torch.profiler over ``reps`` calls after a warm call. The profiler can
+    drop activity records; a window in which some device operation was not
+    seen a whole multiple of ``reps`` times is taken again, up to three
+    times."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        if seen and all(c % reps == 0 for c in seen.values()):
+            break
+    got = {"kernels": 0, "copies": 0, "memsets": 0}
+    for key, c in seen.items():
+        got["copies" if "Memcpy" in key else "memsets" if "Memset" in key
+            else "kernels"] += c
+    return {k: v / reps for k, v in got.items()}
+
+
+def host_us_in_turns(fns: dict, reps: int = 200) -> dict[str, float]:
+    """Host wall of one call of each of ``fns`` (ending in a synchronize),
+    in µs, timed in turns (a, b, b, a) and averaged."""
+    def one(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e6
+    for fn in fns.values():
+        one(fn)                                          # warm
+    names = list(fns)
+    walls = {k: [] for k in names}
+    for k in names + names[::-1]:
+        walls[k].append(one(fns[k]))
+    return {k: float(np.mean(v)) for k, v in walls.items()}
+
+
+def select_row(dev, label: str, d2, f: int, on_path: bool) -> dict:
+    """The selection kernel on ``d2`` ``[B, n, n]`` against its plain
+    version (diameters and weights exact), timed beside an empty kernel;
+    the host wall of one whole selection in turns with the route it
+    replaced, and each route's device work per selection
+    (:func:`select_launch_phase`)."""
+    from repro_torch.kernels.mda_diameter import ops as diam_ops
+    B, n = d2.shape[:2]
+    S, k = diam_ops.n_subsets(n, f), n - f
+    diam, w = diam_ops.mda_select(d2, f)
+    want_diam, want_w = diam_ops.mda_select_plain(d2, f)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(diam, want_diam, rtol=0, atol=0)
+    torch.testing.assert_close(w, want_w, rtol=0, atol=0)
+    err = max((diam - want_diam).abs().max().item(),
+              (w - want_w).abs().max().item())
+    old, new = _select_routes(d2, f)
+    if not torch.equal(old(), new()):
+        raise AssertionError(f"selection {label}: the kernel's weights differ "
+                             f"from the rules' route")
+    big = S > 10_000
+    ms = cold_ms(lambda t: diam_ops.mda_select(t, f), (d2,), 20 if big else 200)
+    plain_ms = cold_ms(lambda t: diam_ops.mda_select_plain(t, f), (d2,),
+                       5 if big else 50)
+    floor_ms = cold_ms(lambda t: torch.cuda._sleep(0), (d2,), 200)
+    walls = host_us_in_turns({"replaced route": old, "kernel": new},
+                             reps=20 if big else 200)
+    ops_old, ops_new = SELECT_OPS[label]
+    log(f"[train-kernel] selection {label} [{B}, {n}, {n}] f={f}: device "
+        f"work per selection, replaced route {ops_old}, kernel {ops_new}; "
+        f"host wall of one selection (in turns) replaced route "
+        f"{walls['replaced route']:.1f} µs, kernel {walls['kernel']:.1f} µs; "
+        f"an empty kernel {floor_ms:.4f} ms")
+    row = _row(f"mda_select [{B}, {n}, {n}] x {S} subsets ({label})", err, ms,
+               plain_ms, None, 4.0 * (B * n * n + B * S + B * n) + 8.0 * S,
+               float(B * S * k * k),
+               f"; empty-kernel floor {floor_ms:.4f} ms"
+               + ptxas_note("mda_select_kernel"))
+    return dict(row, main=on_path)
 
 
 def _mixture_batches(rng, steps, n_w, batch, spec):
@@ -1038,15 +1214,16 @@ def main() -> int:
     log(f"[build] {len(reports)} kernel libraries built in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in reports.items():
-        for fn, (regs, st, ld) in _build.ptxas_usage(text).items():
-            log(f"[build] {name}: {fn}: {regs} registers, spill {st} B "
-                f"stores / {ld} B loads")
-            PTXAS[fn] = (regs, st, ld)
+        for fn, usage in _build.ptxas_usage(text).items():
+            log(f"[build] {name}: {fn}: {ptxas_text(usage)}")
+            PTXAS[fn] = usage
         for line in text.splitlines():
             if re.search(r"\(C\d+\)", line):   # ptxas advice, e.g. C7519
                 log(f"[build] {name}: {line.strip()[:300]}")
+    meamed_build_check(_build)
 
     with torch.inference_mode():
+        select_launch_phase(dev)
         flash = flash_phase(dev)
         median = median_phase(dev)
         reference_phase(dev)
@@ -1094,13 +1271,14 @@ def main() -> int:
             ("flash_bwd_dkv", "flash_attention/csrc/flash_bwd.cu",
              "flash_attention/kernel.py:164")):
         rs = rows[name]
+        on_path = [r for r in rs if r.get("main", True)]
         # the row of the path's largest call (flash forward and backward:
         # the protocol run's shape)
         main_row = (max(rs, key=lambda r: (r["S"], -r["window"]))
                     if name == "flash_attention"
                     else max(rs, key=lambda r: r["flops"])
                     if name.startswith("flash_bwd")
-                    else max(rs, key=lambda r: r["nbytes"]))
+                    else max(on_path, key=lambda r: r["nbytes"]))
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{src}",

@@ -2,10 +2,10 @@
 version.
 
 Three kernel packages serve the rules: ``pairwise_sqdist`` (the Gram kernel,
-under every distance-based rule), ``mda_diameter`` (the subset-diameter scan
-of exact MDA) and ``cwise_median`` (median, trimmed mean and MeaMed over one
-sorting network). The route is the device of the tensor and the stack size,
-with no option and no fallback:
+under every distance-based rule), ``mda_diameter`` (exact MDA's selection:
+the subset diameters, their first argmin and the weights) and
+``cwise_median`` (median, trimmed mean and MeaMed). The route is the device
+of the tensor and the stack size, with no option and no fallback:
 
   * a CUDA stack with n <= 64 launches the kernel;
   * a CPU stack with n <= 64 runs the kernel wrapper's plain version;
@@ -110,7 +110,15 @@ def meamed(x: torch.Tensor, f: int, *, batched: bool = False) -> torch.Tensor:
 
 def mda_weights_from_d2(d2: torch.Tensor, f: int, *, mask=None,
                         exact_limit: int = 200_000) -> torch.Tensor:
-    """``rules.mda_weights_from_d2`` with the subset-diameter kernel."""
+    """``rules.mda_weights_from_d2``. On a CUDA tensor the exact selection
+    (no mask, f > 0, n <= 64, at most ``exact_limit`` subsets) is one launch
+    of the selection kernel, which returns the weights; every other route,
+    and every CPU tensor, runs the rules with the subset-diameter wrapper."""
+    n = d2.shape[-1]
+    if (d2.is_cuda and mask is None and 0 < f < n and n <= MAX_N
+            and rules.n_subsets(n, f) <= exact_limit):
+        w = diam_ops.mda_select(d2.reshape(-1, n, n), f)[1]
+        return w.reshape(d2.shape[:-1])
     return rules.mda_weights_from_d2(d2, f, mask=mask,
                                      exact_limit=exact_limit,
                                      diameters_fn=subset_diameters)

@@ -15,9 +15,7 @@ the plain mean.
 """
 from __future__ import annotations
 
-import itertools
 import math
-from functools import lru_cache
 
 import numpy as np
 import torch
@@ -27,6 +25,8 @@ import torch
 from ..kernels.cwise_median.ref import (  # noqa: F401
     _BIG, _oddeven_pairs, median_stack, sort_stack)
 from ..kernels.pairwise_sqdist.ref import sqdists_from_gram  # noqa: F401
+# the subset enumeration lives with the selection kernel
+from ..kernels.mda_diameter.ops import n_subsets, subset_masks  # noqa: F401
 
 _LATE = 1e30      # "selectable, but after all delivered" score
 
@@ -48,22 +48,6 @@ def pairwise_sqdists(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # MDA — Minimum-Diameter Averaging (the paper's worker-side GAR)
 # ---------------------------------------------------------------------------
-
-
-@lru_cache(maxsize=None)
-def subset_masks(n: int, f: int) -> np.ndarray:
-    """All C(n, n-f) subsets of size n-f as a static bool mask array
-    ``[S, n]``, in ``itertools.combinations`` order."""
-    if not 0 <= f < n:
-        raise ValueError(f"need 0 <= f < n, got n={n} f={f}")
-    masks = np.zeros((math.comb(n, n - f), n), dtype=bool)
-    for i, c in enumerate(itertools.combinations(range(n), n - f)):
-        masks[i, list(c)] = True
-    return masks
-
-
-def n_subsets(n: int, f: int) -> int:
-    return math.comb(n, n - f)
 
 
 def subset_diameters(d2: torch.Tensor, masks) -> torch.Tensor:

@@ -17,6 +17,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -88,19 +89,48 @@ def build(names=None) -> dict[str, str]:
     return reports
 
 
-def ptxas_usage(report: str) -> dict[str, tuple[int, int, int]]:
+class PtxasUsage(NamedTuple):
+    """One kernel's line of a ``ptxas -v`` report."""
+    registers: int
+    spill_stores: int     # bytes
+    spill_loads: int      # bytes
+    stack: int            # bytes of stack frame
+
+
+def ptxas_usage(report: str) -> dict[str, PtxasUsage]:
     """Per kernel of a :func:`build` report (``ptxas -v``): its mangled
-    name -> (registers, bytes of spill stores, bytes of spill loads)."""
-    usage, fn, spill = {}, None, (0, 0)
+    name -> registers, bytes of spill stores and loads, stack frame."""
+    usage, fn, frame = {}, None, (0, 0, 0)
     for line in report.splitlines():
         if m := re.search(r"Compiling entry function '([^']+)'", line):
-            fn, spill = m.group(1), (0, 0)
-        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                            r"loads", line):
-            spill = (int(m.group(1)), int(m.group(2)))
+            fn, frame = m.group(1), (0, 0, 0)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line):
+            frame = tuple(int(g) for g in m.groups())
         elif (m := re.search(r"Used (\d+) registers", line)) and fn:
-            usage[fn] = (int(m.group(1)), *spill)
+            usage[fn] = PtxasUsage(int(m.group(1)), frame[1], frame[2],
+                                   frame[0])
     return usage
+
+
+def sass_counts(path) -> dict[str, int]:
+    """Per kernel of the built library at ``path``: its mangled name -> the
+    number of SASS instructions ``cuobjdump -sass`` lists; empty when the
+    toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or str(Path(_nvcc()).parent
+                                             / "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if m := re.match(r"\s*Function : (\S+)", line):
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[fn] += 1
+    return counts
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -29,31 +29,42 @@
 //   trimmed mean: rows f .. n-f-1 added in order, divided by n - 2f;
 //   MeaMed: the best of the f+1 windows of n-f consecutive sorted rows by the
 //     larger endpoint distance to the median, ties broken by the smaller
-//     in-window distance sum, the window's running sum divided by n - f. The
-//     sorted column is copied to a per-thread local array for the scan, whose
-//     window ends sit at runtime offsets (the network itself stays in
-//     registers). __fmul_rn keeps the median's product out of any fused
-//     multiply-add, so the plain PyTorch version repeats it bit for bit.
+//     in-window distance sum, the window's running sum divided by n - f.
+//     __fmul_rn keeps the median's product out of any fused multiply-add, so
+//     the plain PyTorch version repeats it bit for bit.
+//
+// MeaMed has kernels of its own: its instructions, not memory, are what it
+// can lose time on. Window ends at runtime offsets would put the sorted
+// column in an array indexed at run time (select chains, or a stack frame),
+// and the padded network sorts n = 5 on 8 wires. For n <= 16,
+// meamed_exact_kernel<N> sorts on exactly N wires (Batcher's odd-even
+// network with every compare-exchange on a pad wire dropped: 9 for n = 5,
+// not 24), restores what the pads do to values above BIG, and runs the scan
+// instance of the runtime f, whose indices are all static; a thread takes two
+// columns with 8-byte loads where d and the stack's alignment allow
+// (ops.py `meamed_plan`). For 16 < n <= 64, meamed_padded_kernel<NP> keeps
+// the padded bitonic column and shifts it once by the runtime window length,
+// so its scan too indexes statically.
 //
 // Layout: x [B, n, d] float32 row-major, out [B, d] float32.
 
 #include <cuda_runtime.h>
 
+#include "column.cuh"
+
 namespace {
 
-constexpr float BIG = 3.4e38f;
+using ostat::BIG;
 constexpr int NT = 256;
+constexpr int MAX_EXACT_N = 16;   // ops.py MAX_EXACT_N
 
-enum Reduction { MEDIAN = 0, TRIMMED_MEAN = 1, MEAMED = 2 };
+enum Reduction { MEDIAN = 0, TRIMMED_MEAN = 1 };
 
-template <int NP, int RED>
-__global__ void __launch_bounds__(NT)
-order_stat_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
-                  int f, long long d) {
-  const long long col = (long long)blockIdx.x * NT + threadIdx.x;
-  if (col >= d) return;
-  const float* xb = x + (long long)blockIdx.y * n * d;
-  float r[NP];
+// Rows 0..n-1 of column `col` into r[0..NP), NaN mapped to BIG, the rest BIG.
+template <int NP>
+__device__ __forceinline__ void load_padded(const float* xb, int n,
+                                            long long d, long long col,
+                                            float* r) {
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
     float val = BIG;
@@ -63,28 +74,17 @@ order_stat_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
     }
     r[i] = val;
   }
-  // bitonic sorting network, ascending (kernel.py `bitonic_pairs`)
-#pragma unroll
-  for (int kk = 2; kk <= NP; kk <<= 1) {
-#pragma unroll
-    for (int j = kk >> 1; j > 0; j >>= 1) {
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        const int p = i ^ j;
-        if (p > i) {
-          const float a = r[i], b = r[p];
-          const float lo = fminf(a, b), hi = fmaxf(a, b);
-          if ((i & kk) == 0) {
-            r[i] = lo;
-            r[p] = hi;
-          } else {
-            r[i] = hi;
-            r[p] = lo;
-          }
-        }
-      }
-    }
-  }
+}
+
+template <int NP, int RED>
+__global__ void __launch_bounds__(NT)
+order_stat_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
+                  int f, long long d) {
+  const long long col = (long long)blockIdx.x * NT + threadIdx.x;
+  if (col >= d) return;
+  float r[NP];
+  load_padded<NP>(x + (long long)blockIdx.y * n * d, n, d, col, r);
+  ostat::sort_bitonic<NP>(r);
   float res;
   if (RED == MEDIAN) {
     const int lo_i = (n - 1) / 2, hi_i = n / 2;
@@ -95,7 +95,7 @@ order_stat_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
       if (i == hi_i) b = r[i];
     }
     res = (n & 1) ? b : 0.5f * (a + b);
-  } else if (RED == TRIMMED_MEAN) {
+  } else {
     float acc = 0.f;
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
@@ -103,40 +103,69 @@ order_stat_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
       else if (i > f && i < n - f) acc = acc + r[i];
     }
     res = acc / (float)(n - 2 * f);
-  } else {
-    float s[NP];
-#pragma unroll
-    for (int i = 0; i < NP; ++i) s[i] = r[i];
-    const int m = n - f;
-    const float med = __fmul_rn(0.5f, s[(n - 1) / 2] + s[n / 2]);
-    float win_sum = s[0], win_dsum = fabsf(s[0] - med);
-    for (int j = 1; j < m; ++j) {
-      win_sum = win_sum + s[j];
-      win_dsum = win_dsum + fabsf(s[j] - med);
-    }
-    float best_sum = win_sum, best_dsum = win_dsum;
-    float best_d = fmaxf(med - s[0], s[m - 1] - med);
-    for (int i = 1; i <= f; ++i) {
-      win_sum = (win_sum - s[i - 1]) + s[i + m - 1];
-      win_dsum = (win_dsum - fabsf(s[i - 1] - med)) + fabsf(s[i + m - 1] - med);
-      const float dd = fmaxf(med - s[i], s[i + m - 1] - med);
-      if (dd < best_d || (dd == best_d && win_dsum < best_dsum)) {
-        best_sum = win_sum;
-        best_dsum = win_dsum;
-      }
-      best_d = fminf(best_d, dd);
-    }
-    res = best_sum / (float)m;
   }
   out[(long long)blockIdx.y * d + col] = res;
+}
+
+// MeaMed on exactly N <= 16 rows: VEC consecutive columns a thread, each
+// row's VEC values in one 4- or 8-byte load (VEC = 2 needs d even and the
+// stack 8-byte aligned), a network on N wires, the scan for the runtime f.
+template <int N, int VEC>
+__global__ void __launch_bounds__(NT)
+meamed_exact_kernel(const float* __restrict__ x, float* __restrict__ out,
+                    int f, long long d) {
+  const long long col = ((long long)blockIdx.x * NT + threadIdx.x) * VEC;
+  if (col >= d) return;
+  const float* p = x + (long long)blockIdx.y * N * d + col;
+  float r[VEC][N];
+#pragma unroll
+  for (int i = 0; i < N; ++i, p += d) {
+    if constexpr (VEC == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      r[0][i] = v.x;
+      r[1][i] = v.y;
+    } else {
+      r[0][i] = *p;
+    }
+  }
+  float res[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (isnan(r[v][i])) r[v][i] = BIG;
+    ostat::sort_exact<N>(r[v]);
+    res[v] = ostat::meamed_scan_for<N>(r[v], f);
+  }
+  float* o = out + (long long)blockIdx.y * d + col;
+  if constexpr (VEC == 2)
+    *reinterpret_cast<float2*>(o) = make_float2(res[0], res[1]);
+  else
+    *o = res[0];
+}
+
+// MeaMed on 16 < n <= NP rows: the padded column and bitonic network,
+// with the static-index scan.
+template <int NP>
+__global__ void __launch_bounds__(NT)
+meamed_padded_kernel(const float* __restrict__ x, float* __restrict__ out,
+                     int n, int f, long long d) {
+  const long long col = (long long)blockIdx.x * NT + threadIdx.x;
+  if (col >= d) return;
+  float r[NP];
+  load_padded<NP>(x + (long long)blockIdx.y * n * d, n, d, col, r);
+  ostat::sort_bitonic<NP>(r);
+  out[(long long)blockIdx.y * d + col] = ostat::meamed_scan_padded<NP>(r, n, f);
+}
+
+dim3 grid_for(long long cols, int B) {
+  return dim3((unsigned)((cols + NT - 1) / NT), (unsigned)B);
 }
 
 template <int NP, int RED>
 int launch(const float* x, float* out, int B, int n, int f, long long d,
            cudaStream_t s) {
-  const long long blocks = (d + NT - 1) / NT;
-  const dim3 grid((unsigned)blocks, (unsigned)B);
-  order_stat_kernel<NP, RED><<<grid, NT, 0, s>>>(x, out, n, f, d);
+  order_stat_kernel<NP, RED><<<grid_for(d, B), NT, 0, s>>>(x, out, n, f, d);
   return (int)cudaGetLastError();
 }
 
@@ -145,9 +174,7 @@ int dispatch(const float* x, float* out, int B, int n, int f, long long d,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || B > 65535 || d < 1) return (int)cudaErrorInvalidValue;
-  int np = 1;
-  while (np < n) np <<= 1;
-  switch (np) {
+  switch (ostat::pow2_at_least(n)) {
     case 1: return launch<1, RED>(x, out, B, n, f, d, s);
     case 2: return launch<2, RED>(x, out, B, n, f, d, s);
     case 4: return launch<4, RED>(x, out, B, n, f, d, s);
@@ -157,6 +184,21 @@ int dispatch(const float* x, float* out, int B, int n, int f, long long d,
     case 64: return launch<64, RED>(x, out, B, n, f, d, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The exact kernel's instance for the runtime n (1 <= n <= 16).
+template <int N = 1>
+int launch_meamed_exact(const float* x, float* out, int B, int n, int f,
+                        long long d, int vec, cudaStream_t s) {
+  if constexpr (N < MAX_EXACT_N) {
+    if (n > N)
+      return launch_meamed_exact<N + 1>(x, out, B, n, f, d, vec, s);
+  }
+  if (vec == 2)
+    meamed_exact_kernel<N, 2><<<grid_for(d / 2, B), NT, 0, s>>>(x, out, f, d);
+  else
+    meamed_exact_kernel<N, 1><<<grid_for(d, B), NT, 0, s>>>(x, out, f, d);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -176,11 +218,23 @@ extern "C" int cwise_trimmed_mean_f32(const float* x, float* out, int B,
   return dispatch<TRIMMED_MEAN>(x, out, B, n, f, d, stream);
 }
 
-// 0 <= f < n
+// 0 <= f < n; vec (columns a thread) is 2 only for n <= 16, d even and x
+// 8-byte aligned (ops.py `meamed_plan`), else 1.
 extern "C" int cwise_meamed_f32(const float* x, float* out, int B, int n,
-                                int f, long long d, void* stream) {
-  if (f < 0 || f >= n) return (int)cudaErrorInvalidValue;
-  return dispatch<MEAMED>(x, out, B, n, f, d, stream);
+                                int f, long long d, int vec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f < 0 || f >= n || n < 1 || n > 64 || B < 1 || B > 65535 || d < 1 ||
+      (vec != 1 && vec != 2) ||
+      (vec == 2 && (n > MAX_EXACT_N || d % 2 != 0 ||
+                    reinterpret_cast<unsigned long long>(x) % 8 != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (n <= MAX_EXACT_N)
+    return launch_meamed_exact(x, out, B, n, f, d, vec, s);
+  if (n <= 32)
+    meamed_padded_kernel<32><<<grid_for(d, B), NT, 0, s>>>(x, out, n, f, d);
+  else
+    meamed_padded_kernel<64><<<grid_for(d, B), NT, 0, s>>>(x, out, n, f, d);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* repro_cuda_error_string(int e) {

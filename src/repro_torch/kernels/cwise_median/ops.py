@@ -1,5 +1,5 @@
 """Wrappers around the hand-written coordinate-wise order-statistic kernels:
-the median, the trimmed mean and MeaMed, one shared sorting network.
+the median, the trimmed mean and MeaMed over sorting networks.
 
 The kernel backends of the ``median``, ``trimmed_mean`` and ``meamed``
 aggregators; call sites reach them through :mod:`repro_torch.agg.dispatch`.
@@ -8,11 +8,13 @@ Each takes one stack ``[n <= 64, d]`` or a batch of stacks ``[B, n, d]``
 tensor the wrapper launches ``csrc/cwise_median.cu``; on a CPU tensor it runs
 its ``*_plain`` version, which applies the same :func:`_tile` contract and
 repeats the kernel's arithmetic in plain PyTorch, so the two agree bit for
-bit.
+bit. :func:`meamed_plan` is MeaMed's launch: which kernel and how many
+columns a thread takes.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -20,22 +22,41 @@ from .. import _build
 from .ref import _BIG, sort_stack
 
 MAX_N = 64
+MAX_EXACT_N = 16     # largest n of MeaMed's exact-n kernel (cwise_median.cu)
 
-_ENTRY = {"cwise_median_f32": False, "cwise_trimmed_mean_f32": True,
-          "cwise_meamed_f32": True}
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# entry -> its arguments: x, out, B, n, [f], d, [columns a thread], stream
+_ARGTYPES = {"cwise_median_f32": [_P, _P, _I, _I, _LL, _P],
+             "cwise_trimmed_mean_f32": [_P, _P, _I, _I, _I, _LL, _P],
+             "cwise_meamed_f32": [_P, _P, _I, _I, _I, _LL, _I, _P]}
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("cwise_median")
-    for name, takes_f in _ENTRY.items():
+    for name, argtypes in _ARGTYPES.items():
         fn = getattr(lib, name)
         if fn.argtypes is None:
-            fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                            ctypes.c_int]
-                           + ([ctypes.c_int] if takes_f else [])
-                           + [ctypes.c_longlong, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return lib
+
+
+class MeamedPlan(NamedTuple):
+    """How :func:`cwise_meamed` launches ``cwise_median.cu`` for a stack."""
+    path: str      # "exact" (n <= MAX_EXACT_N: a network on n wires) or
+    #                "padded" (rows padded to the next power of two)
+    wires: int     # wires of the sorting network
+    vec: int       # columns a thread: 2 (one 8-byte load a row) or 1
+
+
+def meamed_plan(n: int, d: int, ptr: int) -> MeamedPlan:
+    """MeaMed's launch for stacks of ``n`` rows of width ``d`` whose data
+    starts at address ``ptr``: the exact-n kernel for n <= 16, two columns a
+    thread when every row starts 8-byte aligned (d even, ``ptr`` aligned);
+    the padded kernel, one column a thread, past 16."""
+    if n > MAX_EXACT_N:
+        return MeamedPlan("padded", 1 << (n - 1).bit_length(), 1)
+    vec = 2 if d % 2 == 0 and ptr % 8 == 0 else 1
+    return MeamedPlan("exact", n, vec)
 
 
 def _tile(x):
@@ -121,7 +142,7 @@ def cwise_meamed_plain(x, f: int):
 def _launch(entry: str, wrapper, x, f: int | None):
     """Shared launch of one order-statistic kernel on ``[n, d]`` or
     ``[B, n, d]`` (a non-float32 stack is widened first, as the JAX wrapper
-    does)."""
+    does); MeaMed's as :func:`meamed_plan` says."""
     if not x.is_cuda:
         raise ValueError(f"{entry}: unsupported device {x.device}")
     if x.ndim not in (2, 3) or not 1 <= x.shape[-2] <= MAX_N \
@@ -138,7 +159,10 @@ def _launch(entry: str, wrapper, x, f: int | None):
     args = [x.data_ptr(), out.data_ptr(), B, n]
     if f is not None:
         args.append(f)
-    rc = getattr(lib, entry)(*args, d, _build.stream_ptr(x))
+    args.append(d)
+    if wrapper is cwise_meamed:
+        args.append(meamed_plan(n, d, x.data_ptr()).vec)
+    rc = getattr(lib, entry)(*args, _build.stream_ptr(x))
     _build.check(lib, rc, entry)
     wrapper.launches += 1
     return out

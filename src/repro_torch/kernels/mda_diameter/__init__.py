@@ -1,3 +1,3 @@
-"""Subset diameters for exact MDA selection: CUDA kernel
-(``csrc/mda_diameter.cu``), wrapper and plain version (``ops.py``); the
-test oracle is ``repro_torch.agg.rules.subset_diameters``."""
+"""Exact MDA selection (the subset diameters, their first argmin and the
+weights): CUDA kernel (``csrc/mda_diameter.cu``), wrappers and plain
+versions (``ops.py``); the test oracle is ``repro_torch.agg.rules``."""

@@ -1,17 +1,23 @@
-"""Wrapper around the hand-written subset-diameter kernel.
+"""Wrappers around the hand-written exact MDA selection kernel.
 
-The kernel backend of exact MDA selection, reached through
-:mod:`repro_torch.agg.dispatch`; the subset enumeration and the argmin stay
-in :mod:`repro_torch.agg.rules`. :func:`subset_diameters` takes the distances
-of one receiver ``[n, n]`` or of a batch ``[B, n, n]`` and the ``[S, n]``
-subset masks. On a CUDA tensor it launches ``csrc/mda_diameter.cu`` with the
-masks as uint64 bitmasks, built once per mask table and kept on the device;
-on a CPU tensor it runs :func:`subset_diameters_plain`. A max does not depend
-on its order, so the two agree exactly.
+The kernel backend of exact MDA, reached through
+:mod:`repro_torch.agg.dispatch`. :func:`mda_select` takes the distances of
+one receiver ``[n, n]`` or of a batch ``[B, n, n]`` and the number f of
+inputs to leave out, and returns the diameters of the C(n, n - f) subsets of
+:func:`subset_masks` and the averaging weights of the first minimum; on a
+CUDA tensor it is one launch of ``csrc/mda_diameter.cu``, with the masks as
+uint64 bitmasks, built once per mask table and kept on the device.
+:func:`subset_diameters` launches the same kernel for the diameters alone.
+On a CPU tensor each runs its ``*_plain`` version. A max does not depend on
+its order and the argmin follows ``torch.argmin``'s order, so the two agree
+exactly.
 """
 from __future__ import annotations
 
 import ctypes
+import itertools
+import math
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -26,12 +32,34 @@ NEG = -3.4e38      # the diameter of an empty subset, as the Pallas kernel
 _BITMASKS: dict[tuple, tuple] = {}
 
 
+@lru_cache(maxsize=None)
+def subset_masks(n: int, f: int) -> np.ndarray:
+    """All C(n, n-f) subsets of size n-f as a static bool mask array
+    ``[S, n]``, in ``itertools.combinations`` order."""
+    if not 0 <= f < n:
+        raise ValueError(f"need 0 <= f < n, got n={n} f={f}")
+    masks = np.zeros((math.comb(n, n - f), n), dtype=bool)
+    for i, c in enumerate(itertools.combinations(range(n), n - f)):
+        masks[i, list(c)] = True
+    return masks
+
+
+def n_subsets(n: int, f: int) -> int:
+    return math.comb(n, n - f)
+
+
+@lru_cache(maxsize=None)
+def _mask_table(n: int, f: int, device: str) -> torch.Tensor:
+    """:func:`subset_masks` as a bool tensor on ``device``, copied once."""
+    return torch.from_numpy(subset_masks(n, f)).to(device)
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("mda_diameter")
-    fn = lib.subset_diameters_f32
+    fn = lib.mda_select_f32
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, I, I, I, P]
+        fn.argtypes = [P, P, P, P, I, I, I, P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -66,36 +94,66 @@ def subset_diameters_plain(d2, masks):
     return torch.amax(vals, dim=(-2, -1))
 
 
-def subset_diameters(d2, masks):
-    """Subset diameters of ``[n, n]`` -> ``[S]`` or ``[B, n, n]`` ->
-    ``[B, S]``: the kernel on a CUDA tensor, :func:`subset_diameters_plain`
-    on a CPU one. ``masks`` is the host table ``[S, n]`` of
-    ``agg.rules.subset_masks``."""
-    if d2.device.type == "cpu":
-        return subset_diameters_plain(d2, masks)
+def mda_select_plain(d2, f: int):
+    """``[.., n, n]`` -> (diameters ``[.., S]``, weights ``[.., n]``): the
+    diameters of :func:`subset_masks` ``(n, f)``, their first minimum
+    (``torch.argmin``: the first NaN, else the lowest index among equal
+    minima) and its mask over n - f as float32 weights."""
+    n = d2.shape[-1]
+    masks = _mask_table(n, f, str(d2.device))
+    diam = subset_diameters_plain(d2, masks)
+    best = torch.argmin(diam, dim=-1)
+    return diam, masks[best].float() / (n - f)
+
+
+def _launch(d2, masks, weights: bool):
+    """One launch of the kernel on ``[n, n]`` or ``[B, n, n]``: the
+    diameters, and the weights too when ``weights``."""
     if not d2.is_cuda:
-        raise ValueError(f"subset_diameters: unsupported device {d2.device}")
+        raise ValueError(f"mda_diameter: unsupported device {d2.device}")
     n = d2.shape[-1]
     if d2.ndim not in (2, 3) or d2.shape[-2] != n or not 1 <= n <= MAX_N \
             or (d2.ndim == 3 and not 1 <= d2.shape[0] <= 65535):
-        raise ValueError(f"subset_diameters kernel takes [n <= {MAX_N}, n] "
+        raise ValueError(f"the mda_diameter kernel takes [n <= {MAX_N}, n] "
                          f"or [B, n, n] distances; got {tuple(d2.shape)}")
-    bits = bitmasks(masks, d2.device)
     if np.shape(masks)[1] != n:
         raise ValueError(f"masks are over {np.shape(masks)[1]} inputs, "
                          f"distances over {n}")
+    bits = bitmasks(masks, d2.device)
     S = bits.shape[0]
     B = d2.shape[0] if d2.ndim == 3 else 1
     d2 = d2.float().contiguous()
-    out = torch.empty(d2.shape[:-2] + (S,), dtype=torch.float32,
-                      device=d2.device)
+    diam = torch.empty(d2.shape[:-2] + (S,), dtype=torch.float32,
+                       device=d2.device)
+    w = (torch.empty(d2.shape[:-1], dtype=torch.float32, device=d2.device)
+         if weights else None)
     lib = _lib()
-    rc = lib.subset_diameters_f32(d2.data_ptr(), bits.data_ptr(),
-                                  out.data_ptr(), B, n, S,
-                                  _build.stream_ptr(d2))
-    _build.check(lib, rc, "subset_diameters_f32")
+    rc = lib.mda_select_f32(d2.data_ptr(), bits.data_ptr(), diam.data_ptr(),
+                            None if w is None else w.data_ptr(), B, n, S,
+                            _build.stream_ptr(d2))
+    _build.check(lib, rc, "mda_select_f32")
     subset_diameters.launches += 1
-    return out
+    return diam, w
 
 
+def mda_select(d2, f: int):
+    """Exact MDA selection of ``[n, n]`` or ``[B, n, n]`` distances ->
+    (diameters ``[.., S]``, weights ``[.., n]``) as :func:`mda_select_plain`:
+    one kernel launch on a CUDA tensor, the plain version on a CPU one."""
+    if d2.device.type == "cpu":
+        return mda_select_plain(d2, f)
+    return _launch(d2, subset_masks(d2.shape[-1], f), weights=True)
+
+
+def subset_diameters(d2, masks):
+    """Subset diameters of ``[n, n]`` -> ``[S]`` or ``[B, n, n]`` ->
+    ``[B, S]``: the kernel (no weights) on a CUDA tensor,
+    :func:`subset_diameters_plain` on a CPU one. ``masks`` is a host table
+    ``[S, n]`` such as :func:`subset_masks`'s."""
+    if d2.device.type == "cpu":
+        return subset_diameters_plain(d2, masks)
+    return _launch(d2, masks, weights=False)[0]
+
+
+# launches of the kernel, by either wrapper
 subset_diameters.launches = 0

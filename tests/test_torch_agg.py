@@ -221,8 +221,14 @@ def test_tree_agg_flat_stack_matches_jax_pytree(name):
         rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("n", [2, 3, 5, 7, 8, 16])
-@pytest.mark.parametrize("f", [0, 1, 2])
+# every n of MeaMed's exact-n kernel with f = 0, 1 and (n - 1) // 2, and the
+# grid of n in {2, 3, 5, 7, 8, 16} by f in {0, 1, 2}
+_ORDER_STAT_CASES = sorted(
+    {(f, n) for n in range(1, 17) for f in (0, 1, (n - 1) // 2) if n > 2 * f}
+    | {(f, n) for n in (2, 3, 5, 7, 8, 16) for f in (0, 1, 2)})
+
+
+@pytest.mark.parametrize("f,n", _ORDER_STAT_CASES)
 def test_trimmed_mean_and_meamed_plain_match_pallas_kernels(n, f):
     """The kernels' plain versions (the port's CPU route) vs the Pallas
     kernels in interpret mode, f NaN payload rows included. The plain

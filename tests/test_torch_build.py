@@ -43,16 +43,18 @@ def test_shared_header_rebuilds_both_flash_libraries(tmp_path, monkeypatch):
 
 
 def test_ptxas_usage_reads_registers_and_spill_per_kernel():
-    """``ptxas -v``'s report, as ``build`` returns it, per kernel."""
+    """``ptxas -v``'s report, as ``build`` returns it, per kernel: registers,
+    spill stores and loads, stack frame."""
     report = "\n".join([
         "ptxas info    : Compiling entry function '_Z3fwdv' for 'sm_90a'",
         "ptxas info    : Function properties for _Z3fwdv",
-        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "    64 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
         "ptxas info    : Used 168 registers, used 1 barriers",
         "ptxas info    : Compiling entry function '_Z4gramv' for 'sm_90a'",
         "ptxas info    : Function properties for _Z4gramv",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 64 registers, used 1 barriers, 480 bytes smem"])
-    assert _build.ptxas_usage(report) == {"_Z3fwdv": (168, 8, 4),
-                                          "_Z4gramv": (64, 0, 0)}
+    usage = _build.ptxas_usage(report)
+    assert usage == {"_Z3fwdv": (168, 8, 4, 64), "_Z4gramv": (64, 0, 0, 0)}
+    assert usage["_Z3fwdv"].stack == 64
     assert _build.ptxas_usage("") == {}

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: each against its plain PyTorch version at
 shapes of the serving and training paths (the flash backward pair, the
-batched median, trimmed mean, MeaMed, Gram and subset diameters included),
+batched median, trimmed mean, MeaMed on both its paths, Gram and the exact
+MDA selection included),
 gradients through the kernels' ``autograd.Function``, and a reduced model
 run through the kernels against the same model on the CPU's plain path. Imports no JAX, so it runs
 on a machine with a GPU and PyTorch alone:
@@ -305,6 +306,130 @@ def test_subset_diameter_kernel_matches_plain(n, f, B):
     torch.testing.assert_close(
         got, diam_ops.subset_diameters_plain(d2, masks), rtol=0, atol=0,
         equal_nan=True)
+
+
+def _select_distances(B, n, kind, seed):
+    """``[B, n, n]`` squared distances: of random points, of integer points
+    on a line (tied diameters), or random with NaN entries."""
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(0, 4, size=(B, n, 1)) if kind == "ties"
+         else rng.standard_normal((B, n, 6))).astype(np.float32)
+    d2 = ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1)
+    if kind == "nan":
+        d2[::2, 1, n - 1] = np.nan
+        d2[-1, 0, 0] = np.nan
+    return torch.from_numpy(d2.astype(np.float32))
+
+
+@pytest.mark.parametrize("B,n,f", [(1, 7, 2), (5, 7, 2), (300, 5, 2),
+                                   (4, 3, 1), (5, 9, 3), (1, 20, 8)])
+@pytest.mark.parametrize("kind", ["random", "ties", "nan"])
+def test_mda_select_kernel_matches_plain(B, n, f, kind):
+    """One launch gives the diameters and the weights of the first minimum
+    exactly as the plain version (torch.argmin on the card), ties and NaN
+    included; (1, 20, 8) is S = 125,970. The diameters-only wrapper and the
+    dispatch's route give the same."""
+    from repro_torch.agg import dispatch
+    from repro_torch.kernels.mda_diameter import ops as diam_ops
+    dev = require_cuda()
+    d2 = _select_distances(B, n, kind, B + n + f).to(dev)
+    before = diam_ops.subset_diameters.launches
+    diam, w = diam_ops.mda_select(d2, f)
+    torch.cuda.synchronize()
+    assert diam_ops.subset_diameters.launches == before + 1
+    want_diam, want_w = diam_ops.mda_select_plain(d2, f)
+    torch.testing.assert_close(diam, want_diam, rtol=0, atol=0,
+                               equal_nan=True)
+    torch.testing.assert_close(w, want_w, rtol=0, atol=0)
+    torch.testing.assert_close(
+        diam_ops.subset_diameters(d2, diam_ops.subset_masks(n, f)), diam,
+        rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(dispatch.mda_weights_from_d2(d2, f), w)
+    assert torch.equal(dispatch.mda_weights_from_d2(d2[0], f), w[0])
+
+
+def _meamed_exact(x, f):
+    """MeaMed's kernel against its plain version with atol 0; returns the
+    launch plan."""
+    before = median_ops.cwise_meamed.launches
+    got = median_ops.cwise_meamed(x, f)
+    torch.cuda.synchronize()
+    assert median_ops.cwise_meamed.launches == before + 1
+    # NaN where both give NaN (inf - inf in the median or a window sum)
+    torch.testing.assert_close(got, median_ops.cwise_meamed_plain(x, f),
+                               rtol=0, atol=0, equal_nan=True)
+    return median_ops.meamed_plan(x.shape[-2], x.shape[-1], x.data_ptr())
+
+
+def _with_specials(x, seed):
+    """+inf, -inf and values above _BIG (they sort after the pads) in a few
+    entries of ``x``."""
+    u = np.random.default_rng(seed).random(x.shape)
+    x[u < 0.03] = np.inf
+    x[(u >= 0.03) & (u < 0.05)] = -np.inf
+    x[(u >= 0.05) & (u < 0.07)] = np.float32(3.4028e38)
+    return x
+
+
+@pytest.mark.parametrize("n", range(1, 17))
+@pytest.mark.parametrize("d", [3000, 3001])
+def test_meamed_exact_kernel_every_n_and_f(n, d):
+    """The exact-n kernel for every f < n: two columns a thread with 8-byte
+    loads (even d) and the scalar path (odd d), on normal stacks with NaN
+    payloads, +-inf and values above _BIG, and on integer stacks."""
+    dev = require_cuda()
+    for f in range(n):
+        for integers in (False, True):
+            x = _stack((3, n, d), 100 * n + f, nan_rows=min(f, n - 1),
+                       integers=integers)
+            if not integers:
+                x = _with_specials(x, n + f)
+            plan = _meamed_exact(torch.from_numpy(x).to(dev), f)
+            assert (plan.path, plan.wires, plan.vec) == ("exact", n,
+                                                         2 if d % 2 == 0
+                                                         else 1)
+
+
+@pytest.mark.parametrize("n", [17, 33, 64])
+def test_meamed_padded_kernel(n):
+    """The padded kernel past 16 rows, with its shifted static-index scan,
+    for f from 0 to n - 1."""
+    dev = require_cuda()
+    for f in sorted({0, 1, n // 3, (n - 1) // 2, n - 1}):
+        for integers in (False, True):
+            x = _stack((2, n, 2049), n + f, nan_rows=min(f, 3),
+                       integers=integers)
+            if not integers:
+                x = _with_specials(x, n + f)
+            plan = _meamed_exact(torch.from_numpy(x).to(dev), f)
+            assert (plan.path, plan.vec) == ("padded", 1)
+
+
+def test_meamed_kernel_view_off_an_8_byte_boundary():
+    """A contiguous view that starts 4 bytes past an 8-byte boundary takes
+    the scalar path, even with d even."""
+    dev = require_cuda()
+    n, d = 5, 4096
+    buf = torch.from_numpy(_stack((n * d + 1,), 3)).to(dev)
+    x = buf[1:].view(n, d)
+    assert x.is_contiguous() and x.data_ptr() % 8 == 4
+    assert _meamed_exact(x, 1).vec == 1
+    assert _meamed_exact(buf[:n * d].view(n, d), 1).vec == 2
+
+
+def test_meamed_kernel_opposite_side_ties():
+    """Windows that tie on the larger endpoint distance from opposite sides
+    of the median (equal distances below and above it), broken by the
+    in-window distance sum: every 5-row column over {-2, ..., 2}."""
+    dev = require_cuda()
+    vals = np.arange(-2, 3, dtype=np.float32)
+    cols = np.stack(np.meshgrid(*[vals] * 5, indexing="ij"), 0).reshape(5, -1)
+    x = torch.from_numpy(np.ascontiguousarray(cols)).to(dev)
+    for f in range(5):
+        _meamed_exact(x, f)
+    x7 = torch.from_numpy(_stack((7, 50_000), 9, integers=True)).to(dev)
+    for f in range(7):
+        _meamed_exact(x7, f)
 
 
 # -- the flash backward pair (the zoo training slice) -------------------------
