@@ -58,6 +58,17 @@
    per group, sgd: finite, falling losses, steps/s, peak memory (under 80 GB),
    launches per kernel per step (the flash forward, dq and dkv among them)
    and a profiler window; then ``exp.run("lm/tfm_tiny")`` on the card.
+11. Netsim phase: the realized ``crash_storm`` trace of
+   ``repro_torch.netsim`` (9/2 workers, 5/1 servers, T = 5, the payload of
+   ``mlp_h1024``), whose starved quorums repeat a sender (the count of such
+   rows is printed, and must not be 0): its first 23 steps through the
+   stepwise simulator at ``mlp_h1024`` on the card and on the CPU, params
+   within the stated tolerance and every MDA selection the same, exact ties
+   included. Then ``netsim/byzantine_plus_slow`` at ``mlp_h1024`` for 150
+   fused steps over its trace (steps/s, virtual ms, shortfalls, mean pull
+   staleness, final accuracy above 0.2, peak memory, kernel launches, a
+   profiler window), and ``lm/tfm_tiny`` through the protocol over the
+   ``membership_churn`` trace at G = 5 (finite losses).
 
 Phases print on earlier lines; the line before the last holds the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -716,20 +727,16 @@ def _quorum_tables(rng, cfg, steps):
     return pull, push, gather
 
 
-def train_reference_phase(dev):
-    """quickstart at mlp_h1024 for 2T + 3 steps on shared quorum tables and
-    numpy batches: the card's kernels against the CPU's plain versions."""
+def _card_and_cpu(dev, e, tables, x, y, tag: str):
+    """The stepwise simulator of ``e`` over ``tables`` and the batches
+    ``(x, y)`` on the CPU (plain versions) and on the card (kernels), from
+    one model: (final params per side, MDA selections per side)."""
     import dataclasses
 
     from repro_torch.agg import registry
     from repro_torch.core.quorum import TraceDelivery
-    from repro_torch.exp import presets
-    e = presets.get("quickstart", model=TRAIN_MODEL, steps=REF_STEPS)
     cfg = e.to_config()
-    rng = np.random.default_rng(SEED)
-    tables = _quorum_tables(rng, cfg, REF_STEPS)
-    x, y = _mixture_batches(rng, REF_STEPS, cfg.n_workers, e.batch,
-                            e.mixture)
+    steps = x.shape[0]
     init, _, _ = e.build_problem()
     mda = registry.get("mda")
     out, sels = {}, {}
@@ -749,13 +756,27 @@ def train_reference_phase(dev):
         try:
             t0 = time.perf_counter()
             state, _ = sim.run(state, [(x[i].to(d), y[i].to(d))
-                                       for i in range(REF_STEPS)])
+                                       for i in range(steps)])
             params = state.params.cpu()
             wall = time.perf_counter() - t0
         finally:
             registry._REGISTRY["mda"] = mda
         out[key] = params
-        log(f"[train-ref] {key}: {REF_STEPS} steps in {wall:.1f} s")
+        log(f"[{tag}] {key}: {steps} steps in {wall:.1f} s")
+    return out, sels
+
+
+def train_reference_phase(dev):
+    """quickstart at mlp_h1024 for 2T + 3 steps on shared quorum tables and
+    numpy batches: the card's kernels against the CPU's plain versions."""
+    from repro_torch.exp import presets
+    e = presets.get("quickstart", model=TRAIN_MODEL, steps=REF_STEPS)
+    cfg = e.to_config()
+    rng = np.random.default_rng(SEED)
+    tables = _quorum_tables(rng, cfg, REF_STEPS)
+    x, y = _mixture_batches(rng, REF_STEPS, cfg.n_workers, e.batch,
+                            e.mixture)
+    out, sels = _card_and_cpu(dev, e, tables, x, y, "train-ref")
     if not torch.isfinite(out["card"]).all():
         raise AssertionError("non-finite params on the card")
     same = (len(sels["cpu"]) == len(sels["card"]) == REF_STEPS
@@ -839,9 +860,10 @@ def train_phase(dev):
             launches[k] += got[k]
         results[name] = dict(steps_s=spec.steps / res.wall_s, acc=acc,
                              peak_gb=peak_gb, launches=got)
-    _profile(f"quickstart {TRAIN_MODEL}, 20 fused steps",
-             lambda: exp.run("quickstart", device=dev, model=TRAIN_MODEL,
-                             steps=20))
+    results["busy"] = _profile(
+        f"quickstart {TRAIN_MODEL}, 20 fused steps",
+        lambda: exp.run("quickstart", device=dev, model=TRAIN_MODEL,
+                        steps=20))
     return launches, results
 
 
@@ -1196,6 +1218,138 @@ def protocol_train_phase(dev):
 
 
 
+# ---------------------------------------------------------------------------
+# the netsim slice: trace-delivered training over realized quorums
+# ---------------------------------------------------------------------------
+
+NETSIM_STEPS = 150
+NETSIM_RUN = dict(model=TRAIN_MODEL, data="mixture10", model_d=D_MLP_H1024,
+                  steps=NETSIM_STEPS, batch=25, eval_n=2048)
+# the protocol over a trace that repeats senders: the lm preset at G = 5
+CHURN_RUN = dict(delivery="trace", scenario="membership_churn", n_workers=5,
+                 f_workers=1, n_servers=5, f_servers=1)
+
+
+def _repeat_rows(idx) -> int:
+    """Quorum rows ``[.., q]`` in which some sender repeats."""
+    rows = np.asarray(idx).reshape(-1, np.shape(idx)[-1])
+    return int(sum(len(set(r.tolist())) < rows.shape[1] for r in rows))
+
+
+def netsim_reference_phase(dev):
+    """The first REF_STEPS steps of crash_storm's realized trace (9/2
+    workers, 5/1 servers, T = 5, the payload of mlp_h1024) through the
+    stepwise simulator at mlp_h1024 on numpy batches: the card's kernels
+    against the CPU's plain versions, ties between the copies of a
+    repeated sender included."""
+    from repro_torch.exp import presets
+    from repro_torch.netsim import ClusterSim
+    e = presets.get("netsim/crash_storm", runner="stepwise",
+                    **dict(NETSIM_RUN, steps=presets.get(
+                        "netsim/crash_storm").steps))
+    t0 = time.perf_counter()
+    trace = ClusterSim(e.to_scenario()).run()
+    sim_s = time.perf_counter() - t0
+    cfg = e.to_config()
+    tables = (trace.pull_idx[:REF_STEPS], trace.push_idx[:REF_STEPS],
+              trace.gather_idx[:REF_STEPS // cfg.T])
+    reps = {k: _repeat_rows(t) for k, t in zip(("pull", "push", "gather"),
+                                               tables)}
+    log(f"[netsim-ref] crash_storm trace ({cfg.n_workers}/{cfg.f_workers} "
+        f"workers, {cfg.n_servers}/{cfg.f_servers} servers, T={cfg.T}, d = "
+        f"{D_MLP_H1024}, {trace.scenario.steps} steps simulated in "
+        f"{sim_s:.2f} s on the host, {trace.shortfalls} shortfalls): rows "
+        f"with a repeated sender in the first {REF_STEPS} steps {reps}")
+    if not sum(reps.values()):
+        raise AssertionError("the crash_storm window repeats no sender")
+    rng = np.random.default_rng(SEED + 2)
+    x, y = _mixture_batches(rng, REF_STEPS, cfg.n_workers, e.batch,
+                            e.mixture)
+    out, sels = _card_and_cpu(dev, e, tables, x, y, "netsim-ref")
+    if not torch.isfinite(out["card"]).all():
+        raise AssertionError("non-finite params on the card")
+    same = (len(sels["cpu"]) == len(sels["card"]) == REF_STEPS
+            and all(torch.equal(a, b) for a, b in zip(sels["cpu"],
+                                                      sels["card"])))
+    err = (out["card"] - out["cpu"]).abs().max().item()
+    log(f"[netsim-ref] crash_storm {TRAIN_MODEL} (D = "
+        f"{out['cpu'].shape[1]}), {REF_STEPS} steps, "
+        f"{REF_STEPS // cfg.T} gathers: card kernels vs CPU plain versions "
+        f"max|params diff|={err:.3g} (max|param| "
+        f"{out['cpu'].abs().max().item():.3g}); every MDA selection matched "
+        f"({REF_STEPS} steps x {cfg.n_servers} servers): {same}")
+    if not same:
+        raise AssertionError("an MDA selection differs between the card and "
+                             "the CPU on the crash_storm trace")
+    # as train_reference_phase: float32 sums in other orders over 23 steps
+    torch.testing.assert_close(out["card"], out["cpu"], rtol=1e-3, atol=1e-4)
+    return err
+
+
+def netsim_train_phase(dev, quickstart_busy: float):
+    """netsim/byzantine_plus_slow at mlp_h1024 for NETSIM_STEPS fused steps
+    over its realized trace, then lm/tfm_tiny through the protocol over the
+    membership_churn trace; each run's launches counted from 0 around
+    it."""
+    from repro_torch import exp
+    spec = exp.get("netsim/byzantine_plus_slow", **NETSIM_RUN)
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.launches = 0
+    res = exp.run(spec, device=dev)
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    ns, acc = res.netsim, res.final["acc"]
+    log(f"[netsim] {spec.name} ({spec.variant}, gar {spec.gar}, "
+        f"{spec.n_workers}/{spec.f_workers} workers (ALIE x"
+        f"{spec.byz.n_byz_workers}, slow), {spec.n_servers}/"
+        f"{spec.f_servers} servers, T={spec.T}, {NETSIM_STEPS} steps, "
+        f"{TRAIN_MODEL}, batch {spec.batch}): "
+        f"{NETSIM_STEPS / res.wall_s:.2f} steps/s ({res.wall_s:.2f} s), "
+        f"virtual {ns['virtual_ms']:.1f} ms (mean step "
+        f"{ns['mean_step_ms']:.3f} ms, p95 {ns['p95_step_ms']:.3f} ms), "
+        f"shortfalls {ns['shortfalls']}, mean pull staleness "
+        f"{ns['mean_pull_staleness_ms']:.4f} ms, events {ns['events']}, "
+        f"final acc {acc:.4f}, peak device memory {peak_gb:.2f} GB, "
+        f"launches {got}")
+    log(f"[netsim] {spec.name} acc log " + json.dumps(
+        [(m["step"], round(m["acc"], 4)) for m in res.logs]))
+    if not np.isfinite(acc) or acc <= 0.2:
+        raise AssertionError(f"{spec.name}: final accuracy {acc} is not "
+                             f"finite and above 0.2 (twice chance)")
+    for k in ("cwise_median", "gram", "subset_diameters"):
+        if got[k] <= 0:
+            raise AssertionError(f"{k} kernel was not launched by the "
+                                 f"{spec.name} run")
+    busy = _profile(f"{spec.name} {TRAIN_MODEL}, 20 fused steps",
+                    lambda: exp.run(spec.replace(steps=20), device=dev))
+    log(f"[netsim] device busy share {100 * busy:.1f}% of wall, against "
+        f"quickstart's {100 * quickstart_busy:.1f}% in this run")
+    pcounters = _proto_counters()
+    for c in pcounters.values():
+        c.launches = 0
+    res2 = exp.run("lm/tfm_tiny", device=dev, **CHURN_RUN)
+    torch.cuda.synchronize()
+    got2 = {k: c.launches for k, c in pcounters.items()}
+    accs = [m["acc"] for m in res2.logs] + [res2.final["acc"]]
+    log(f"[netsim] exp.run('lm/tfm_tiny', {CHURN_RUN}) on the card: "
+        f"{res2.summary()}; acc (negative eval loss) log "
+        + json.dumps([(m["step"], round(m["acc"], 4)) for m in res2.logs])
+        + f"; launches {got2}")
+    if not np.all(np.isfinite(accs)):
+        raise AssertionError(f"lm/tfm_tiny over membership_churn: "
+                             f"non-finite eval losses {accs}")
+    if res2.netsim["shortfalls"] <= 0:
+        raise AssertionError("the membership_churn trace starved no quorum")
+    for k, v in got2.items():
+        got[k] = got.get(k, 0) + v
+    return got, dict(steps_s=NETSIM_STEPS / res.wall_s, acc=acc,
+                     peak_gb=peak_gb, busy=busy)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs an "
@@ -1235,7 +1389,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the training phases need autograd: outside inference mode
     train_reference_phase(dev)
-    train_launches, _ = train_phase(dev)
+    train_launches, train_results = train_phase(dev)
     launches["cwise_median"] += train_launches["cwise_median"]
     launches.update({k: v for k, v in train_launches.items()
                      if k != "cwise_median"})
@@ -1243,6 +1397,12 @@ def main() -> int:
     protocol_reference_phase(dev)
     proto_launches, proto_rows, _ = protocol_train_phase(dev)
     for k, v in proto_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    netsim_reference_phase(dev)
+    netsim_launches, _ = netsim_train_phase(dev, train_results["busy"])
+    for k, v in netsim_launches.items():
         launches[k] = launches.get(k, 0) + v
 
     rows = dict(train_rows)

@@ -13,10 +13,10 @@ from __future__ import annotations
 
 from . import dispatch, registry, rules, tree
 from .dispatch import cwise_median, pairwise_sqdists, subset_diameters
-from .registry import Aggregator, get, names, register
+from .registry import Aggregator, get, names, register, specs
 from .tree import selection_weights, tree_agg, tree_gram
 
 __all__ = ["Aggregator", "cwise_median", "dispatch", "get", "names",
            "pairwise_sqdists", "register", "registry", "rules",
-           "selection_weights", "subset_diameters", "tree", "tree_agg",
-           "tree_gram"]
+           "selection_weights", "specs", "subset_diameters", "tree",
+           "tree_agg", "tree_gram"]

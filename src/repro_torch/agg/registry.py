@@ -25,7 +25,10 @@ class Aggregator:
 
     Calling the spec aggregates a flat stack: ``spec(x, f, mask=..., ...)``.
     ``batches`` says that ``fn`` also takes ``batched=True`` with a
-    ``[B, n, ...]`` stack (one launch for B receivers).
+    ``[B, n, ...]`` stack (one launch for B receivers). ``backends`` names
+    the routes of ``fn`` (:mod:`.dispatch`): ``torch``, the plain PyTorch
+    version (a CPU stack, or past the kernels' n), and ``cuda (...)``, the
+    kernel packages a CUDA stack launches.
     """
     name: str
     fn: Callable                     # reference callable, natural arity
@@ -40,11 +43,19 @@ class Aggregator:
     weights_from_d2: Callable | None = None  # (d2, f, *, mask=None, **kw)
     tunables: frozenset[str] = frozenset()  # extra kwargs the rule accepts
     batches: bool = False
+    backends: tuple[str, ...] = ("torch",)
 
     @property
     def supports_masked_delivery(self) -> bool:
         return self.masked_fn is not None or (
             self.selection_based and self.weights_from_d2 is not None)
+
+    @property
+    def is_sanitizer(self) -> bool:
+        """Whether the rule launders Byzantine influence: a nonzero
+        breakdown point (``n >= k*f + c`` with ``k >= 2``). ``mean`` is
+        not one."""
+        return self.requires[0] >= 2
 
     def validate(self, n: int, f: int) -> None:
         """Uniform f-bounds check from the spec's mechanical requirement."""
@@ -121,6 +132,16 @@ def names() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def specs() -> tuple[Aggregator, ...]:
+    return tuple(_REGISTRY[n] for n in names())
+
+
+#: the routes of the dispatch-level rules: the kernel packages under each
+_CUDA_GRAM = "cuda (pairwise_sqdist)"
+_CUDA_MDA = "cuda (pairwise_sqdist + mda_diameter)"
+_CUDA_ORDER = "cuda (cwise_median)"
+
+
 # ---------------------------------------------------------------------------
 # built-in rules
 # ---------------------------------------------------------------------------
@@ -132,25 +153,29 @@ register(Aggregator(
     variance_threshold=rules.mda_variance_threshold,
     selection_based=True, tree_mode="selection",
     weights_from_d2=dispatch.mda_weights_from_d2,
-    tunables=frozenset({"exact_limit"}), batches=True))
+    tunables=frozenset({"exact_limit"}), batches=True,
+    backends=("torch", _CUDA_MDA)))
 
 register(Aggregator(
     name="median", fn=dispatch.median, takes_f=False,
     breakdown="n >= 2f+1", requires=(2, 1),
     doc="coordinate-wise median (server-model DMC rule)",
-    masked_fn=rules.masked_coordinate_median, batches=True))
+    masked_fn=rules.masked_coordinate_median, batches=True,
+    backends=("torch", _CUDA_ORDER)))
 
 register(Aggregator(
     name="meamed", fn=dispatch.meamed, takes_f=True,
     breakdown="n >= 2f+1", requires=(2, 1),
     doc="mean-around-median (sync worker gather rule)",
-    masked_fn=rules.masked_meamed, batches=True))
+    masked_fn=rules.masked_meamed, batches=True,
+    backends=("torch", _CUDA_ORDER)))
 
 register(Aggregator(
     name="trimmed_mean", fn=dispatch.trimmed_mean, takes_f=True,
     breakdown="n >= 2f+1", requires=(2, 1),
     doc="coordinate-wise trimmed mean (baseline)",
-    masked_fn=rules.masked_trimmed_mean, batches=True))
+    masked_fn=rules.masked_trimmed_mean, batches=True,
+    backends=("torch", _CUDA_ORDER)))
 
 register(Aggregator(
     name="krum", fn=dispatch.krum, takes_f=True,
@@ -158,7 +183,8 @@ register(Aggregator(
     doc="Krum (Blanchard et al. 2017) — single best-scored vector",
     variance_threshold=rules.krum_variance_threshold,
     selection_based=True, tree_mode="selection",
-    weights_from_d2=rules.krum_weights_from_d2, batches=True))
+    weights_from_d2=rules.krum_weights_from_d2, batches=True,
+    backends=("torch", _CUDA_GRAM)))
 
 register(Aggregator(
     name="multi_krum", fn=dispatch.multi_krum, takes_f=True,
@@ -167,7 +193,8 @@ register(Aggregator(
     variance_threshold=rules.krum_variance_threshold,
     selection_based=True, tree_mode="selection",
     weights_from_d2=rules.multi_krum_weights_from_d2,
-    tunables=frozenset({"m"}), batches=True))
+    tunables=frozenset({"m"}), batches=True,
+    backends=("torch", _CUDA_GRAM)))
 
 register(Aggregator(
     name="bulyan", fn=rules.bulyan, takes_f=True,
@@ -187,3 +214,28 @@ register(Aggregator(
     breakdown="none (f = 0 only)", requires=(0, 1),
     doc="plain averaging (the paper's non-resilient strawman)",
     masked_fn=rules.masked_mean))
+
+
+# ---------------------------------------------------------------------------
+# registry-derived documentation (``python -m repro_torch.agg``)
+# ---------------------------------------------------------------------------
+
+
+def markdown_table(n: int = 18, f: int = 2) -> str:
+    """The aggregator table, derived from the registry as the JAX package
+    derives its own; the ``backends`` column names the port's routes."""
+    head = ("| rule | breakdown point | variance threshold (n=%d, f=%d) | "
+            "backends | masked delivery | pytree |" % (n, f))
+    sep = "|---|---|---|---|---|---|"
+    out = [head, sep]
+    for s in specs():
+        if s.variance_threshold is None:
+            vt = "—"
+        else:
+            v = s.variance_threshold(n, f)
+            vt = "inf" if v == float("inf") else f"{v:.3f}"
+        out.append(
+            f"| `{s.name}` | {s.breakdown} | {vt} | {', '.join(s.backends)} | "
+            f"{'yes' if s.supports_masked_delivery else 'concrete-only'} | "
+            f"{s.tree_mode or '—'} |")
+    return "\n".join(out)

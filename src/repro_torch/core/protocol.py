@@ -170,6 +170,16 @@ def _rebuild(tree: FlatTree, leaves: list) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _rule_batched(spec, stack: torch.Tensor, f: int) -> torch.Tensor:
+    """The coordinate-wise ``spec`` over each receiver's ``[n, c]`` stack of
+    ``[B, n, c]``: one launch for all B where the rule batches. The count n
+    is a delivered quorum's, not a declared one, so it is not validated
+    against f (the configuration's quorums were, in ``ProtocolConfig``)."""
+    if spec.batches:
+        return spec._call_unmasked(stack, f, batched=True)
+    return torch.stack([spec._call_unmasked(x, f) for x in stack])
+
+
 def masked_pull(params: torch.Tensor, masks: torch.Tensor,
                 cfg: ProtocolConfig, rule=None, out=None) -> torch.Tensor:
     """Per-receiver masked aggregation over the replica axis.
@@ -178,27 +188,44 @@ def masked_pull(params: torch.Tensor, masks: torch.Tensor,
     P]`` (written into ``out`` when given, which may be ``params`` itself)
     — receiver g's aggregate of its delivered replicas under ``rule``
     (default ``cfg.pull_gar``, the paper's Median; the DMC gather passes
-    ``cfg.gather_gar``). The stack streams by column chunks: each chunk
-    gathers every receiver's delivered rows ``[G_recv, q, c]`` (at most
-    ``cfg.chunk_bytes``) and aggregates all receivers in one launch; the
-    rules are coordinate-wise, so the rule over the delivered rows is the
-    masked rule. Every receiver's quorum has the same size (the delivery
-    tables are ``[G_recv, q]``)."""
+    ``cfg.gather_gar``). The stack streams by column chunks of at most
+    ``cfg.chunk_bytes``; the rules are coordinate-wise, so the rule over the
+    delivered rows is the masked rule.
+
+    A mask's count may differ per receiver, as the JAX ``masked_pull``
+    allows: a trace repeats a sender to fill a quorum that faults starved,
+    so that receiver delivers one replica fewer. The receivers are grouped
+    by count, one launch of the rule per count per chunk; every group's rows
+    of a chunk are gathered before any output of that chunk is written, so
+    ``out`` may alias ``params``. With one count the route is one gather and
+    one launch per chunk."""
     spec = agg.get(rule or cfg.pull_gar)
     G_recv = masks.shape[0]
     P = params.shape[1]
     counts = masks.sum(dim=1).tolist()
-    if len(set(counts)) != 1:
-        raise ValueError(f"masked_pull takes quorums of one size; got "
-                         f"{counts}")
-    q = counts[0]
+    if min(counts) < 1:
+        raise ValueError(f"masked_pull needs a delivered replica per "
+                         f"receiver; got counts {counts}")
     if out is None:
         out = torch.empty((G_recv, P), dtype=params.dtype,
                           device=params.device)
-    idx = torch.argsort((~masks).to(torch.int8), dim=1, stable=True)[:, :q]
-    for c0, c1 in _chunks(P, G_recv * q, 4, cfg.chunk_bytes):
-        stack = params[:, c0:c1][idx].float()            # [G_recv, q, c]
-        out[:, c0:c1] = agg.tree_agg(spec, stack, cfg.f_servers)
+    order = torch.argsort((~masks).to(torch.int8), dim=1, stable=True)
+    if len(set(counts)) == 1:
+        groups = [(None, order[:, :counts[0]])]
+    else:
+        groups = []
+        for q in sorted(set(counts)):
+            rows = [g for g, c in enumerate(counts) if c == q]
+            r = torch.as_tensor(rows, device=masks.device)
+            groups.append((r, order[r, :q]))
+    for c0, c1 in _chunks(P, sum(counts), 4, cfg.chunk_bytes):
+        stacks = [params[:, c0:c1][idx].float() for _, idx in groups]
+        for (rows, _), stack in zip(groups, stacks):   # [G_q, q, c]
+            res = _rule_batched(spec, stack, cfg.f_servers)
+            if rows is None:
+                out[:, c0:c1] = res
+            else:
+                out[rows, c0:c1] = res.to(out.dtype)
     return out
 
 
@@ -209,14 +236,23 @@ def quorum_weights(d2: torch.Tensor, quorum_idx: torch.Tensor, f: int,
     d2 ``[G, G]`` squared distances; quorum_idx ``[G_recv, q]`` delivered
     worker indices per server. Each server's ``[q, q]`` block of d2 goes
     through the rule's ``weights_from_d2`` (rows sum to 1), all servers in
-    one batch, and the weights scatter back to ``[G_recv, G_send]``."""
+    one batch, and the weights scatter back to ``[G_recv, G_send]``.
+
+    A sender repeated in a row (a trace's padded quorum) takes the weight of
+    its last occurrence, as the JAX ``.at[idx].set(w)`` does: every
+    occurrence is given that weight before the scatter, so the scatter's
+    write order (undefined on CUDA for repeated indices) cannot matter."""
     G = d2.shape[0]
     idx = quorum_idx.long()
     sub = d2[idx[:, :, None], idx[:, None, :]]              # [G_recv, q, q]
     w = agg.selection_weights(cfg.gar, sub, f,
-                              exact_limit=cfg.mda_exact_limit)
+                              exact_limit=cfg.mda_exact_limit).float()
+    q = idx.shape[1]
+    pos = torch.arange(q, device=idx.device)
+    same = idx[:, :, None] == idx[:, None, :]               # [G_recv, q, q]
+    last = torch.where(same, pos, -1).amax(dim=2)           # [G_recv, q]
     return torch.zeros((idx.shape[0], G), dtype=torch.float32,
-                       device=d2.device).scatter_(1, idx, w.float())
+                       device=d2.device).scatter_(1, idx, w.gather(1, last))
 
 
 def aggregate_gradients(grads: torch.Tensor, weights: torch.Tensor,

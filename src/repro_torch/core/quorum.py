@@ -5,10 +5,10 @@ Which q-of-n messages a receiver delivers each step (the paper's Assumption
 
   * :class:`UniformDelivery` — uniform sampling over configurations from a
     ``torch.Generator`` (rho = 1/C(n, q));
-  * :class:`TraceDelivery` — int index tables replayed step by step (a
-    test's fixed quorums: the vehicle of every parity test against the JAX
-    simulator; a realized netsim schedule, with its staleness, once netsim is
-    ported).
+  * :class:`TraceDelivery` — int index tables replayed step by step: a
+    realized :mod:`repro_torch.netsim` schedule with its staleness (latency
+    tails, stragglers, crashes, partitions; a quorum that faults starved
+    repeats a sender), or a test's fixed quorums.
 
 ``t`` is the host step counter (the port's simulator keeps it on the host).
 """
@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..device import resolve
 
 
 def receiver_quorum_indices(gen: torch.Generator, n_recv: int, n_send: int,
@@ -60,6 +62,11 @@ class UniformDelivery:
                                        self.q_servers, include_self=True,
                                        device=device)
 
+    def staleness(self, t: int):
+        """Uniform sampling has no notion of time."""
+        del t
+        return None
+
 
 class TraceDelivery:
     """Replay quorum index tables: ``pull [steps, n_w, q_ps]``,
@@ -68,10 +75,16 @@ class TraceDelivery:
     Steps beyond the trace wrap around (t mod trace length). The gather table
     is indexed by round r = t/T - 1: the simulator enters the gather after
     the scatter step that brings the counter to a multiple of T. The tables
-    are staged on ``device`` once.
+    are staged on ``device`` once (the GPU unless ``"cpu"`` is asked); the
+    per-step mean staleness of the ``*_stale`` tables (virtual ms) is kept
+    on the host, so :meth:`staleness` does no device work.
     """
 
-    def __init__(self, pull_idx, push_idx, gather_idx, T: int, device=None):
+    def __init__(self, pull_idx, push_idx, gather_idx, T: int,
+                 pull_stale=None, push_stale=None, gather_stale=None,
+                 device=None):
+        device = resolve(device)
+
         def stage(a):
             return torch.as_tensor(np.asarray(a), dtype=torch.int64,
                                    device=device)
@@ -85,6 +98,16 @@ class TraceDelivery:
         self.steps = int(self.pull.shape[0])
         self.n_gathers = int(self.gather.shape[0])
 
+        def mean_per_step(a):
+            if a is None:
+                return None
+            a = np.asarray(a, np.float32)
+            return a.reshape(a.shape[0], -1).mean(axis=1)
+
+        self._pull_stale_ms = mean_per_step(pull_stale)
+        self._push_stale_ms = mean_per_step(push_stale)
+        self._gather_stale_ms = mean_per_step(gather_stale)
+
     def pull_indices(self, gen, t: int, device=None):
         del gen, device
         return self.pull[t % self.steps]
@@ -97,6 +120,20 @@ class TraceDelivery:
         del gen, device
         r = t // self.T - 1
         return self.gather[r % self.n_gathers]
+
+    def staleness(self, t: int):
+        """Mean delivery staleness (virtual ms) of the 0-based scatter step
+        ``t`` just run, with the gather's on the step that ends a round;
+        None without staleness tables."""
+        if self._pull_stale_ms is None:
+            return None
+        k = int(t) % self.steps
+        out = {"staleness_pull_ms": float(self._pull_stale_ms[k]),
+               "staleness_push_ms": float(self._push_stale_ms[k])}
+        if (int(t) + 1) % self.T == 0 and self._gather_stale_ms is not None:
+            r = ((int(t) + 1) // self.T - 1) % self.n_gathers
+            out["staleness_gather_ms"] = float(self._gather_stale_ms[r])
+        return out
 
 
 def validate_counts(n_w: int, f_w: int, n_ps: int, f_ps: int,

@@ -406,5 +406,8 @@ class ByzSGDSimulator:
                 m["step"] = i
                 if "rejects" in diag:
                     m["rejects"] = int(diag["rejects"].sum())
+                stal = self.delivery.staleness(i)
+                if stal:
+                    m.update(stal)
                 logs.append(m)
         return state, logs

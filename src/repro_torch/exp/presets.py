@@ -1,12 +1,15 @@
 """Named experiment presets of ``repro.exp.presets``, identical specs
-(``to_dict``/``spec_hash``): the eight single-host presets, the two serve
-presets and the three lm presets.
+(``to_dict``/``spec_hash``): the eight single-host presets, the six netsim
+presets, the two serve presets and the three lm presets.
 
 :func:`get` applies field overrides with ``dataclasses.replace``
-(re-validating). The netsim and elastic presets need runners the port does
-not have yet (``ROADMAP.md``). Of the presets here, the serve presets need
-the checkpointer, and ``lm/moe_tiny`` and ``lm/rwkv_tiny`` the zoo port:
-they construct, and ``exp.run`` raises before any step.
+(re-validating). The ``netsim/*`` presets name their scenario and the
+matching threat model, with ``runner="netsim"``: :func:`repro_torch.exp.run`
+simulates the cluster and trains over the realized trace. The elastic
+presets need a runner the port does not have yet (``ROADMAP.md``). Of the
+presets here, the serve presets need the checkpointer, and ``lm/moe_tiny``
+and ``lm/rwkv_tiny`` the zoo port: they construct, and ``exp.run`` raises
+before any step. ``python -m repro_torch.exp`` prints the tables below.
 """
 from __future__ import annotations
 
@@ -36,6 +39,10 @@ def get(name: str, **overrides) -> Experiment:
 
 def names() -> tuple[str, ...]:
     return tuple(sorted(_PRESETS))
+
+
+def specs() -> tuple[Experiment, ...]:
+    return tuple(_PRESETS[n] for n in names())
 
 
 # the smoke spec: small enough to run in seconds, shaped to exercise a gather
@@ -80,6 +87,21 @@ register(Experiment(
                       equivocate=True)))
 
 
+# netsim presets: one per scenario factory, trained over the realized trace
+_NETSIM_COMMON = dict(
+    runner="netsim", T=5, steps=30, batch=16, model="mlp_h32",
+    data="mixture5_small", metrics_every=10, eval_n=512)
+for _scen in ("baseline_uniform", "heavy_tail_stragglers", "partitioned_dmc",
+              "crash_storm", "membership_churn"):
+    register(Experiment(name=f"netsim/{_scen}", scenario=_scen,
+                        **_NETSIM_COMMON))
+# the compound adversary: netsim makes the Byzantine workers slow, the
+# simulator's injection makes them malicious (the factory's defaults)
+register(Experiment(
+    name="netsim/byzantine_plus_slow", scenario="byzantine_plus_slow",
+    byz=ByzantineSpec(worker_attack="alie", n_byz_workers=2, equivocate=True),
+    **_NETSIM_COMMON))
+
 # serve presets: protocol-runner training that emits replica-stacked
 # checkpoints for the serving path (ckpt_dir comes from the caller at run
 # time). G=5 satisfies Table 1's n_ps >= 3f+2 for training. They run once the
@@ -106,3 +128,80 @@ _LM_COMMON = dict(
 register(Experiment(name="lm/tfm_tiny", model="tfm_tiny", **_LM_COMMON))
 register(Experiment(name="lm/moe_tiny", model="moe_tiny", **_LM_COMMON))
 register(Experiment(name="lm/rwkv_tiny", model="rwkv_tiny", **_LM_COMMON))
+
+
+# ---------------------------------------------------------------------------
+# registry-derived documentation (``python -m repro_torch.exp``)
+# ---------------------------------------------------------------------------
+
+
+def runners_table() -> str:
+    """The "Runners" table of the port's own engines: one card, no mesh,
+    eager steps (no ``lax.scan``). The reference's rows but ``elastic``
+    (ROADMAP Queue 1 item 10); the collective-volume column is what the
+    protocol's exchange would carry across cards
+    (``repro_torch.core.protocol.collective_volume_bytes``)."""
+    rows = [
+        ("stepwise", "per-step eager loop (`ByzSGDSimulator.run`), host "
+         "metrics", "uniform or trace",
+         "one card, replica-stacked `[n_ps, D]`", "—"),
+        ("fused", "eager epochs of T steps (`EpochEngine`), device metric "
+         "buffers, one host transfer", "uniform or trace",
+         "one card, replica-stacked `[n_ps, D]`", "—"),
+        ("netsim", "fused epochs over the realized netsim trace "
+         "(+ cluster accounting in the result)", "trace",
+         "one card, replica-stacked `[n_ps, D]`", "—"),
+        ("protocol", "eager epochs (`ProtocolEngine`), the G groups "
+         "co-located on one card", "uniform or trace",
+         "one card, flat `[G, P]` stack, column-chunked passes",
+         "none on one card (2(G−1)·P would cross cards)"),
+    ]
+    out = ["| runner | loop | delivery | state layout | "
+           "per-step collective volume |",
+           "|---|---|---|---|---|"]
+    for name, loop, deliv, layout, vol in rows:
+        out.append(f"| `{name}` | {loop} | {deliv} | {layout} | {vol} |")
+    return "\n".join(out)
+
+
+def models_table() -> str:
+    """The "Models" table, one row per ``spec.MODELS`` entry, as the JAX
+    package prints it. Zoo archs train only on the protocol runner; their
+    "acc" metric is the NEGATIVE eval loss, so higher is better
+    everywhere."""
+    from ..models.registry import get_config
+    from .spec import MODELS, is_arch_model
+    out = ["| model | definition | family | runners | `acc` metric |",
+           "|---|---|---|---|---|"]
+    for name in sorted(MODELS):
+        m = MODELS[name]
+        if is_arch_model(name):
+            defn = f"zoo `{m['arch']}`"
+            if m.get("reduced"):
+                defn += " (reduced)"
+            fam, runners = get_config(m["arch"]).family, "`protocol`"
+            metric = "negative eval loss (higher is better)"
+        else:
+            defn = f"MLP (hidden {m['hidden']}, depth {m['depth']})"
+            fam, runners = "mlp", "all"
+            metric = "eval accuracy"
+        out.append(f"| `{name}` | {defn} | {fam} | {runners} | {metric} |")
+    return "\n".join(out)
+
+
+def markdown_table() -> str:
+    """The preset table, one row per registered preset."""
+    head = ("| preset | runner | variant | cluster (n_w/f_w, n_ps/f_ps, T) | "
+            "gar | attack | steps |")
+    out = [head, "|---|---|---|---|---|---|---|"]
+    for e in specs():
+        atk = "—"
+        if e.byz.worker_attack:
+            atk = f"{e.byz.worker_attack} ×{e.byz.n_byz_workers} (workers)"
+        elif e.byz.server_attack:
+            atk = f"{e.byz.server_attack} ×{e.byz.n_byz_servers} (servers)"
+        out.append(
+            f"| `{e.name}` | {e.runner} | {e.variant} | "
+            f"{e.n_workers}/{e.f_workers}, {e.n_servers}/{e.f_servers}, "
+            f"T={e.T} | `{e.gar}` | {atk} | {e.steps} |")
+    return "\n".join(out)

@@ -4,17 +4,24 @@
     (host batch iterator, host metrics);
   * ``fused``    — :class:`repro_torch.core.engine.EpochEngine` (device batch
     stream, epochs of T steps, device metric buffers, one host transfer);
+  * ``netsim``   — a trace-driven run: the named netsim scenario is simulated
+    first (host numpy), its realized quorums and staleness replay through
+    ``TraceDelivery`` (tables staged on the run's device) in the fused
+    runner, and the cluster's accounting rides along in the result;
   * ``protocol`` — the spec lowered to ``ProtocolConfig`` (G = n_workers =
     n_servers co-located groups) and run through
     :class:`repro_torch.core.protocol.ProtocolEngine` on one device: the MLP
     problems on the mixture stream, the zoo archs on the token stream with
     the negative eval loss as their ``acc``.
 
-All return a uniform :class:`RunResult`, as ``repro.exp.run`` does. The run
+Delivery is orthogonal to the runner: a ``delivery="trace"`` experiment
+trains stepwise, fused or through the protocol over the realized trace. All
+return a uniform :class:`RunResult`, as ``repro.exp.run`` does. The run
 goes to the GPU unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import time
@@ -56,28 +63,36 @@ def provenance(spec_hash: str | None, dev: torch.device) -> dict[str, Any]:
 @dataclass
 class RunResult:
     """Uniform result of :func:`run`: strided ``logs``, ``final`` metrics,
-    ``wall_s`` and ``provenance`` serialize via :meth:`to_dict`; ``state``
-    (the final ``SimState``) and ``buffers`` (the fused runner's dense
-    per-step metric buffers) are runtime attachments."""
+    ``wall_s``, ``provenance`` and (trace-delivered runs) the ``netsim``
+    cluster accounting serialize via :meth:`to_dict`; ``state`` (the final
+    ``SimState``) and ``buffers`` (the fused runner's dense per-step metric
+    buffers) are runtime attachments."""
     experiment: Experiment
     logs: list[dict]
     final: dict
     wall_s: float
     provenance: dict
+    netsim: dict | None = None
     state: Any = field(default=None, repr=False, compare=False)
     buffers: dict | None = field(default=None, repr=False, compare=False)
 
     def to_dict(self) -> dict[str, Any]:
-        return {"experiment": self.experiment.to_dict(), "logs": self.logs,
-                "final": self.final, "wall_s": self.wall_s,
-                "provenance": self.provenance}
+        out = {"experiment": self.experiment.to_dict(), "logs": self.logs,
+               "final": self.final, "wall_s": self.wall_s,
+               "provenance": self.provenance}
+        if self.netsim is not None:
+            out["netsim"] = self.netsim
+        return out
 
     def summary(self) -> str:
         e = self.experiment
-        return "  ".join([f"[{e.name}] runner={e.runner}",
-                          f"steps={e.steps}",
-                          f"final acc {self.final.get('acc', float('nan')):.3f}",
-                          f"wall {self.wall_s:.1f}s", f"spec {e.spec_hash}"])
+        bits = [f"[{e.name}] runner={e.runner}", f"steps={e.steps}",
+                f"final acc {self.final.get('acc', float('nan')):.3f}",
+                f"wall {self.wall_s:.1f}s", f"spec {e.spec_hash}"]
+        if self.netsim is not None:
+            bits.append(f"virtual {self.netsim['virtual_ms']:.0f}ms "
+                        f"(shortfalls {self.netsim['shortfalls']})")
+        return "  ".join(bits)
 
 
 def run(experiment: Experiment | str, *, device=None,
@@ -90,11 +105,35 @@ def run(experiment: Experiment | str, *, device=None,
     else:
         e = experiment.replace(**overrides) if overrides else experiment
     dev = _device.resolve(device)
+    # runner="netsim" is fused + trace with the cluster accounting attached
+    # (delivery normalized at construction)
+    delivery, info = (_trace_delivery(e, dev) if e.delivery == "trace"
+                      else (None, None))
     if e.runner == "stepwise":
-        return _run_stepwise(e, dev)
+        return _run_stepwise(e, dev, delivery, info)
     if e.runner == "protocol":
-        return _run_protocol(e, dev)
-    return _run_fused(e, dev)
+        return _run_protocol(e, dev, delivery, info)
+    return _run_fused(e, dev, delivery, info)
+
+
+def _trace_delivery(e: Experiment, dev: torch.device):
+    """Simulate the named scenario; return (TraceDelivery on ``dev``,
+    netsim dict)."""
+    from ..netsim import ClusterSim
+    sc = e.to_scenario()
+    trace = ClusterSim(sc).run()
+    step_ms = np.diff(np.maximum.accumulate(trace.step_done_ms), prepend=0.0)
+    info = {
+        "scenario": sc.name, "steps": int(sc.steps),
+        "virtual_ms": float(trace.step_done_ms[-1]),
+        "mean_step_ms": float(step_ms.mean()),
+        "p95_step_ms": float(np.percentile(step_ms, 95)),
+        "mean_pull_staleness_ms": float(trace.pull_stale.mean()),
+        "events": int(trace.events), "shortfalls": int(trace.shortfalls),
+        "totals": trace.ledger.totals(),
+        "summary": trace.ledger.summary(sc),
+    }
+    return trace.to_delivery(dev), info
 
 
 def _accuracy(sim, acc):
@@ -116,8 +155,9 @@ def _final_metrics(e: Experiment, sim, state, acc_flat, eval_set,
     return final
 
 
-def _run_stepwise(e: Experiment, dev: torch.device) -> RunResult:
-    sim = e.build_sim(device=dev)
+def _run_stepwise(e: Experiment, dev: torch.device, delivery=None,
+                  netsim=None) -> RunResult:
+    sim = e.build_sim(delivery, device=dev)
     h = sim.cfg.h_servers
     acc = _accuracy(sim, e.build_problem()[2])
     state = sim.init_state(e.seed)
@@ -140,11 +180,12 @@ def _run_stepwise(e: Experiment, dev: torch.device) -> RunResult:
     wall = time.time() - t0
     final = _final_metrics(e, sim, state, acc, (ex, ey))
     return RunResult(e, logs, final, wall, provenance(e.spec_hash, dev),
-                     state=state)
+                     netsim=netsim, state=state)
 
 
-def _run_fused(e: Experiment, dev: torch.device) -> RunResult:
-    sim = e.build_sim(device=dev)
+def _run_fused(e: Experiment, dev: torch.device, delivery=None,
+               netsim=None) -> RunResult:
+    sim = e.build_sim(delivery, device=dev)
     acc = _accuracy(sim, e.build_problem()[2])
     state = sim.init_state(e.seed)
     stream = DeviceBatchStream(e.seed, e.mixture, sim.cfg.n_workers, e.batch,
@@ -166,10 +207,13 @@ def _run_fused(e: Experiment, dev: torch.device) -> RunResult:
             m["l2_diam"] = float(mbuf["l2_diam"][i])
         if "rejects" in mbuf:
             m["rejects"] = int(np.asarray(mbuf["rejects"][i]).sum())
+        stal = sim.delivery.staleness(i)
+        if stal:
+            m.update(stal)
         logs.append(m)
     final = _final_metrics(e, sim, state, acc, (ex, ey), mbuf)
     return RunResult(e, logs, final, wall, provenance(e.spec_hash, dev),
-                     state=state, buffers=mbuf)
+                     netsim=netsim, state=state, buffers=mbuf)
 
 
 def _lm_acc(bundle):
@@ -182,7 +226,8 @@ def _lm_acc(bundle):
     return acc
 
 
-def _run_protocol(e: Experiment, dev: torch.device) -> RunResult:
+def _run_protocol(e: Experiment, dev: torch.device, delivery=None,
+                  netsim=None) -> RunResult:
     from ..core.protocol import ProtocolEngine
     pcfg = e.to_protocol_config()
     if e.ckpt_every:
@@ -199,7 +244,7 @@ def _run_protocol(e: Experiment, dev: torch.device) -> RunResult:
         stream = DeviceBatchStream(e.seed, e.mixture, G, e.batch, dev)
     ex, ey = stream.eval_set(e.eval_n)
     eng = ProtocolEngine(
-        bundle, pcfg, e.build_schedule(),
+        bundle, pcfg, e.build_schedule(), delivery=delivery,
         with_attack=bool(e.byz.worker_attack or e.byz.server_attack),
         acc_fn=acc, eval_set=(ex, ey), track_delta=e.track_delta,
         metrics_every=e.metrics_every, device=dev)
@@ -216,6 +261,9 @@ def _run_protocol(e: Experiment, dev: torch.device) -> RunResult:
         if e.track_delta:
             m["delta"] = float(mbuf["delta"][i])
             m["l2_diam"] = float(mbuf["l2_diam"][i])
+        stal = eng.delivery.staleness(i)
+        if stal:
+            m.update(stal)
         logs.append(m)
     h = G - e.byz.n_byz_servers
     final = {"acc": float(eng._acc(state))}
@@ -225,4 +273,17 @@ def _run_protocol(e: Experiment, dev: torch.device) -> RunResult:
     prov = provenance(e.spec_hash, dev)
     prov["mesh"] = {"rep": 1, "fsdp": 1, "model": 1}
     prov["protocol_engine"] = pcfg.engine
-    return RunResult(e, logs, final, wall, prov, state=state, buffers=mbuf)
+    return RunResult(e, logs, final, wall, prov, netsim=netsim, state=state,
+                     buffers=mbuf)
+
+
+def write_result(res: RunResult, out_dir: str = "results/benchmarks",
+                 name: str | None = None) -> str:
+    """Write a RunResult verbatim as JSON; returns the path."""
+    os.makedirs(out_dir, exist_ok=True)
+    base = name or f"exp_{res.experiment.name.replace('/', '_')}" \
+                   f"_{res.experiment.runner}"
+    path = os.path.join(out_dir, base + ".json")
+    with open(path, "w") as fh:
+        json.dump(res.to_dict(), fh, indent=1, default=float)
+    return path

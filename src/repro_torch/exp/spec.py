@@ -1,16 +1,22 @@
 """The :class:`Experiment` spec of ``repro.exp.spec`` — one frozen,
 fully serializable object that names a ByzSGD experiment.
 
-Same fields, defaults, ``to_dict``/``from_dict`` and ``spec_hash`` as the
-JAX package, so one preset hashes alike in both. What the port does not run
-yet fails at construction, naming its ``ROADMAP.md`` item: the ``netsim``
-and ``elastic`` runners, trace delivery, membership plans, backend options
-(the port has one sort and no backend switch). What a registered preset
-needs and the port lacks — the checkpointer (``ckpt_every``), the MoE and
-RWKV6 families — fails at run time, before any step, so the preset registry
-still builds every spec. A scenario name with uniform delivery names the
-cluster for a netsim run and changes nothing else, so it is accepted (the
-``smoke`` preset carries one).
+Same fields, defaults, normalisations, ``to_dict``/``from_dict`` and
+``spec_hash`` as the JAX package, so one preset hashes alike in both. The
+delivery is ``"uniform"`` (Assumption 7) or ``"trace"`` (a realized
+:mod:`repro_torch.netsim` schedule of the named ``scenario``, for every
+runner here); ``runner="netsim"`` is the fused runner over the trace, and
+forces ``delivery="trace"``. ``Experiment`` lowers to the internal carriers
+— :meth:`to_config` (``ByzSGDConfig``), :meth:`to_protocol_config` and
+:meth:`to_scenario` (netsim ``Scenario``) — and each lowering checks that
+it kept every shared field.
+
+What the port does not run yet fails at construction, naming its
+``ROADMAP.md`` item: the ``elastic`` runner, membership plans, backend
+options (the port has one sort and no backend switch). What a registered
+preset needs and the port lacks — the checkpointer (``ckpt_every``), the MoE
+and RWKV6 families — fails at run time, before any step, so the preset
+registry still builds every spec.
 """
 from __future__ import annotations
 
@@ -75,14 +81,9 @@ SCHEDULES_WITH_DECAY = frozenset({"inverse_linear"})
 RUNNERS = ("stepwise", "fused", "netsim", "protocol", "elastic")
 DELIVERIES = ("uniform", "trace")
 PROTOCOL_ENGINES = ("naive", "sharded")
-SCENARIOS = ("baseline_uniform", "heavy_tail_stragglers", "partitioned_dmc",
-             "crash_storm", "byzantine_plus_slow", "membership_churn")
 
 #: what the port does not run yet -> its ROADMAP.md item
 NOT_PORTED = {
-    "netsim": "the netsim runner (ROADMAP Queue 1 item 6: a port-side copy "
-              "of repro.netsim)",
-    "trace": "trace delivery from a netsim scenario (ROADMAP Queue 1 item 6)",
     "ckpt": "the checkpointer (ROADMAP Queue 1 item 7)",
     "elastic": "the elastic runner and membership plans (ROADMAP Queue 1 "
                "item 10)",
@@ -154,23 +155,34 @@ class Experiment:
         if self.runner not in RUNNERS:
             raise ValueError(f"unknown runner {self.runner!r}; "
                              f"choose from {RUNNERS}")
-        if self.runner in ("netsim", "elastic"):
-            raise NotImplementedError(
-                f"runner={self.runner!r}: {NOT_PORTED[self.runner]} is not "
-                "ported yet; the port runs 'stepwise', 'fused' and "
-                "'protocol'")
         if self.delivery not in DELIVERIES:
             raise ValueError(f"unknown delivery {self.delivery!r}; "
                              f"choose from {DELIVERIES}")
-        if self.delivery == "trace":
-            raise NotImplementedError(f"delivery='trace': {NOT_PORTED['trace']}"
-                                      " is not ported yet")
+        if self.runner == "netsim" and self.delivery != "trace":
+            object.__setattr__(self, "delivery", "trace")
+        if self.runner == "elastic" and self.delivery == "trace":
+            raise ValueError(
+                'runner="elastic" needs delivery="uniform": trace delivery '
+                "tables are staged at the launch fleet width and cannot "
+                "follow a membership change (a scenario still drives the "
+                'elastic run — its realized crash windows become the '
+                "membership plan)")
+        if self.runner == "elastic":
+            raise NotImplementedError(
+                f"runner='elastic': {NOT_PORTED['elastic']} is not ported "
+                "yet; the port runs 'stepwise', 'fused', 'netsim' and "
+                "'protocol'")
         if self.membership_plan is not None:
             raise NotImplementedError(
                 f"membership_plan: {NOT_PORTED['elastic']} are not ported yet")
-        if self.scenario is not None and self.scenario not in SCENARIOS:
-            raise ValueError(f"unknown netsim scenario {self.scenario!r}; "
-                             f"have {sorted(SCENARIOS)}")
+        if self.delivery == "trace" and self.scenario is None:
+            raise ValueError('delivery="trace" needs a netsim scenario '
+                             "name (Experiment.scenario)")
+        if self.scenario is not None:
+            from ..netsim import scenarios as _scen
+            if self.scenario not in _scen.SCENARIOS:
+                raise ValueError(f"unknown netsim scenario {self.scenario!r}; "
+                                 f"have {sorted(_scen.SCENARIOS)}")
         for reg, key in ((MODELS, "model"), (DATA, "data"),
                          (SCHEDULES, "schedule")):
             val = getattr(self, key)
@@ -344,6 +356,36 @@ class Experiment:
                                  f"{mine!r} -> {getattr(pcfg, key)!r}")
         return pcfg
 
+    def to_scenario(self, **overrides):
+        """Lower to the netsim ``Scenario`` (via its factory registry),
+        cross-validated: shape, schedule, GAR and threat-model fields must
+        survive the factory unchanged. ``overrides`` are forwarded to the
+        factory (e.g. ``model_d=…`` for payload sizing)."""
+        from ..netsim import scenarios as _scen
+        if self.scenario is None:
+            raise ValueError(f"experiment {self.name!r} names no netsim "
+                             "scenario")
+        kw = dict(n_workers=self.n_workers, f_workers=self.f_workers,
+                  n_servers=self.n_servers, f_servers=self.f_servers,
+                  q_workers=self.q_workers, q_servers=self.q_servers,
+                  T=self.T, steps=self.steps, seed=self.seed, gar=self.gar,
+                  variant=self.variant,
+                  worker_attack=self.byz.worker_attack,
+                  server_attack=self.byz.server_attack,
+                  n_byz_workers=self.byz.n_byz_workers,
+                  n_byz_servers=self.byz.n_byz_servers)
+        if self.model_d is not None:
+            kw["model_d"] = self.model_d
+        kw.update(overrides)
+        sc = _scen.build(self.scenario, **kw)
+        for key in ("n_workers", "f_workers", "n_servers", "f_servers", "T",
+                    "gar", "variant", "worker_attack", "server_attack",
+                    "n_byz_workers", "n_byz_servers"):
+            if getattr(sc, key) != kw[key]:
+                raise ValueError(f"lowering to Scenario changed {key}: "
+                                 f"{kw[key]!r} -> {getattr(sc, key)!r}")
+        return sc
+
     # -- resource construction ---------------------------------------------
     @property
     def mixture(self) -> MixtureSpec:
@@ -393,7 +435,8 @@ class Experiment:
 
     def build_sim(self, delivery=None, device=None):
         """A ready :class:`~repro_torch.core.simulator.ByzSGDSimulator` on
-        ``device``."""
+        ``device`` (delivery defaults to ``UniformDelivery``; pass a
+        ``TraceDelivery`` for trace-driven runs)."""
         from ..core.simulator import ByzSGDSimulator
         init, loss, _ = self.build_problem()
         return ByzSGDSimulator(self.to_config(), init, loss,

@@ -6,8 +6,9 @@ and of ``l2_diameter``; call sites reach it through
 or a batch ``[B, n, d]`` (the servers of one simulator step: one launch for
 all of them). On a CUDA tensor it launches ``csrc/gram.cu``; on a CPU tensor
 it runs :func:`gram_plain`, which splits d into the kernel's chunks and adds
-the chunks' partial Grams (the sums inside a chunk run in another order, so
-the two agree to float32 summation order, not bit for bit).
+the chunks' partial sums pair by pair (the sums inside a chunk run in
+another order, so the two agree to float32 summation order, not bit for
+bit; in both, equal rows give equal entries).
 :func:`launch_plan` is the launch's whole shape: which kernel, the width of
 its loads and the chunks.
 """
@@ -70,15 +71,28 @@ def launch_plan(batch: int, n: int, d: int, ptr: int) -> GramPlan:
 
 
 def gram_plain(x):
-    """``[.., n, d] -> [.., n, n]`` float32: the partial Gram of each of the
-    kernel's chunks, then their sum."""
+    """``[.., n, d] -> [.., n, n]`` float32: for each pair of rows, their
+    products summed within each of the kernel's chunks, then over the
+    chunks; the upper triangle, mirrored. Every entry depends on its two
+    rows alone, in one fixed order, so equal rows give equal entries and
+    exactly zero distance, as in the kernel: a quorum that repeats a sender
+    ties MDA's subset diameters exactly (a batched matmul does not: its
+    blocking sums the entries of equal rows in different orders)."""
     x = x.float()
     n, d = x.shape[-2:]
     batch = x[..., 0, 0].numel()
-    chunk, n_chunks = chunking(batch, d)
-    xp = torch.nn.functional.pad(x, (0, n_chunks * chunk - d))
-    xc = xp.reshape(x.shape[:-1] + (n_chunks, chunk)).movedim(-2, -3)
-    return (xc @ xc.mT).sum(dim=-3)
+    chunk, _ = chunking(batch, d)
+    full = d // chunk * chunk
+    g = x.new_empty(x.shape[:-2] + (n, n))
+    for i in range(n):
+        for j in range(i, n):
+            prod = x[..., i, :] * x[..., j, :]
+            parts = [prod[..., :full].reshape(
+                prod.shape[:-1] + (full // chunk, chunk)).sum(-1)]
+            if full < d:
+                parts.append(prod[..., full:].sum(-1, keepdim=True))
+            g[..., i, j] = g[..., j, i] = torch.cat(parts, -1).sum(-1)
+    return g
 
 
 def gram(x):

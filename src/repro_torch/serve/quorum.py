@@ -127,3 +127,26 @@ class DivergenceDetector:
         self.strikes[i] = 0
         self.flagged[i] = False
         self.probation[i] = self.cfg.probation
+
+
+def markdown_table() -> str:
+    """The quorum-read table (``python -m repro_torch.serve`` prints it),
+    derived from the :mod:`repro_torch.agg` registry specs."""
+    rows = [
+        ("median", "coordinate-wise median over replica logits, then argmax",
+         "exact while <= f of n replicas are corrupt (n >= 2f+1)",
+         "one [B, V] logit stack per replica"),
+        ("vote", "plurality vote over per-replica argmax token ids",
+         "exact while >= f+1 honest replicas agree on the top token",
+         "one token id per replica"),
+    ]
+    out = ["| read rule | consolidation | guarantee | read payload |",
+           "|---|---|---|---|"]
+    for name, how, guarantee, payload in rows:
+        spec = agg.get(name)
+        out.append(f"| `{name}` (breakdown {spec.breakdown}) | {how} | "
+                   f"{guarantee} | {payload} |")
+    out.append("| divergence detector | RMS distance to the quorum answer vs "
+               "the active-set envelope | ejects a persistent outlier after "
+               "`patience` reads, never below 2f+1 active | — |")
+    return "\n".join(out)

@@ -318,6 +318,25 @@ def test_gram_plain_matches_pallas_kernel(n, d):
     assert chunk % gram_ops.TILE == 0 and (n_chunks - 1) * chunk < d
 
 
+@pytest.mark.parametrize("B,n,d", [(1, 7, 1306), (5, 7, 50_000),
+                                   (2, 9, 300)])
+def test_gram_plain_equal_rows_give_equal_entries(B, n, d):
+    """A quorum that repeats a sender stacks equal rows: their Gram entries
+    are bit-equal, their distance exactly 0 and the Gram symmetric, so
+    MDA's subset diameters tie exactly, as the JAX package's do."""
+    from repro_torch.kernels.pairwise_sqdist import ops as gram_ops
+    x = np.stack([_stack(n, (d,), b) for b in range(B)])
+    x[:, n - 2], x[:, n - 1] = x[:, 0], x[:, 1]
+    g = gram_ops.gram(torch.from_numpy(x))
+    assert torch.equal(g, g.mT)
+    assert torch.equal(g[:, 0], g[:, n - 2]) and torch.equal(g[:, 1],
+                                                             g[:, n - 1])
+    d2 = gram_ops.pairwise_sqdists(torch.from_numpy(x))
+    assert torch.all(d2[:, 0, n - 2] == 0) and torch.all(d2[:, 1, n - 1] == 0)
+    want = np.einsum("bid,bjd->bij", x.astype(np.float64), x)
+    np.testing.assert_allclose(g.numpy(), want, rtol=1e-5, atol=1e-3)
+
+
 @pytest.mark.parametrize("n,f", [(5, 1), (7, 2), (9, 3)])
 def test_subset_diameters_plain_matches_pallas_kernel(n, f):
     """Exact, NaN included; masks in itertools.combinations order."""

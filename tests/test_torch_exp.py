@@ -1,8 +1,11 @@
-"""The port's Experiment API against ``repro.exp``: the single-host, serve
-and lm presets hash alike, specs round-trip, what is not ported fails at
-construction (or, for a registered preset, at run time before any step),
-``run("smoke")`` trains on the CPU through the stepwise and fused runners,
-and the protocol runner trains an MLP and the reduced transformer."""
+"""The port's Experiment API against ``repro.exp``: the single-host,
+netsim, serve and lm presets hash alike and lower to the same netsim
+scenarios, specs round-trip, what is not ported fails at construction (or,
+for a registered preset, at run time before any step), ``run("smoke")``
+trains on the CPU through the stepwise and fused runners, the netsim runner
+carries the JAX package's cluster accounting and staleness, and the protocol
+runner trains an MLP and the reduced transformer."""
+import dataclasses
 import json
 
 import numpy as np
@@ -12,10 +15,14 @@ import torch
 import repro.exp as jexp
 import repro_torch.exp as exp
 
-PORTED = ("alie_workers", "clean_async", "clean_sync", "lie_server",
-          "lm/moe_tiny", "lm/rwkv_tiny", "lm/tfm_tiny", "quickstart",
-          "reversed_server", "serve/ckpt_lie_server", "serve/ckpt_smoke",
-          "smoke", "sync_filters")
+NETSIM = ("netsim/baseline_uniform", "netsim/byzantine_plus_slow",
+          "netsim/crash_storm", "netsim/heavy_tail_stragglers",
+          "netsim/membership_churn", "netsim/partitioned_dmc")
+PORTED = tuple(sorted(
+    ("alie_workers", "clean_async", "clean_sync", "lie_server",
+     "lm/moe_tiny", "lm/rwkv_tiny", "lm/tfm_tiny", "quickstart",
+     "reversed_server", "serve/ckpt_lie_server", "serve/ckpt_smoke",
+     "smoke", "sync_filters") + NETSIM))
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -37,11 +44,12 @@ def test_overrides_hash_alike_and_presets_listed():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(runner="netsim"), NotImplementedError, "Queue 1 item 6"),
+    (dict(runner="netsim"), ValueError, "needs a netsim scenario"),
     (dict(runner="protocol"), ValueError, "n_workers == n_servers"),
     (dict(runner="elastic"), NotImplementedError, "item 10"),
-    (dict(delivery="trace", scenario="crash_storm"), NotImplementedError,
-     "item 6"),
+    (dict(runner="elastic", delivery="trace", scenario="crash_storm"),
+     ValueError, 'needs delivery="uniform"'),
+    (dict(delivery="trace"), ValueError, "needs a netsim scenario"),
     (dict(membership_plan={"events": []}), NotImplementedError, "item 10"),
     (dict(agg_backend="pallas"), ValueError, "no backend option"),
     (dict(sort_network=False), ValueError, "one sort"),
@@ -112,3 +120,78 @@ def test_run_on_the_cpu_fused_equals_stepwise(name):
         assert np.all(fused.buffers["acc"][1:5] == 0)
     else:
         assert "rejects" in fused.final
+
+
+# ---------------------------------------------------------------------------
+# netsim: trace delivery through every runner but elastic
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kw", [
+    dict(runner="netsim", scenario="crash_storm"),
+    dict(delivery="trace", scenario="crash_storm"),
+    dict(runner="stepwise", delivery="trace", scenario="partitioned_dmc"),
+    dict(runner="protocol", n_workers=5, f_workers=1, n_servers=5,
+         delivery="trace", scenario="membership_churn")])
+def test_trace_delivery_constructs_as_in_jax(kw):
+    """What was refused until netsim was ported: ``runner="netsim"`` forces
+    ``delivery="trace"``, and a trace delivery with a scenario constructs
+    for the stepwise, fused and protocol runners, hashing as in JAX."""
+    mine, ref = exp.Experiment(**kw), jexp.Experiment(**kw)
+    assert mine.delivery == ref.delivery == "trace"
+    assert mine.to_dict() == ref.to_dict()
+    assert mine.spec_hash == ref.spec_hash
+
+
+@pytest.mark.parametrize("name", NETSIM)
+def test_netsim_preset_lowers_to_the_jax_scenario(name):
+    """``to_scenario`` of each netsim preset (and with a payload override)
+    is the JAX package's ``Scenario``, field for field."""
+    for kw in ({}, dict(model_d=1_093_642, steps=150)):
+        mine, ref = exp.get(name, **kw), jexp.get(name, **kw)
+        assert mine.runner == "netsim" and mine.delivery == "trace"
+        assert (dataclasses.asdict(mine.to_scenario())
+                == dataclasses.asdict(ref.to_scenario()))
+    with pytest.raises(ValueError, match="names no netsim scenario"):
+        exp.get("quickstart").to_scenario()
+
+
+def test_netsim_runner_matches_jax_accounting(tmp_path):
+    """``run("smoke", runner="netsim", steps=6)`` on the CPU: the netsim
+    dict and the logged staleness equal JAX's; the result round-trips
+    through ``write_result``."""
+    res = exp.run("smoke", runner="netsim", steps=6, device="cpu")
+    ref = jexp.run("smoke", runner="netsim", steps=6)
+    assert res.netsim == ref.netsim
+    assert res.netsim["scenario"] == "baseline_uniform"
+    assert res.state.t == 6
+    keys = ("step", "staleness_pull_ms", "staleness_push_ms",
+            "staleness_gather_ms")
+    assert ([{k: m[k] for k in keys if k in m} for m in res.logs]
+            == [{k: m[k] for k in keys if k in m} for m in ref.logs])
+    assert "staleness_pull_ms" in res.logs[0]
+    assert "virtual" in res.summary()
+    path = exp.write_result(res, str(tmp_path))
+    assert path.endswith("exp_smoke_netsim.json")
+    with open(path) as fh:
+        back = json.load(fh)
+    assert back["netsim"] == json.loads(json.dumps(res.netsim))
+    assert exp.Experiment.from_dict(back["experiment"]) == res.experiment
+    assert back["logs"] == json.loads(json.dumps(res.logs))
+
+
+@pytest.mark.parametrize("runner", ["stepwise", "protocol"])
+def test_trace_delivery_trains_on_the_cpu(runner):
+    """``netsim/crash_storm``'s trace (repeated senders in its starved
+    quorums) through the stepwise runner and, on a G = 5 cluster, the
+    protocol runner: finite params, staleness in the logs, the smoke task
+    learned."""
+    kw = dict(runner=runner, steps=12, metrics_every=4, eval_n=256)
+    if runner == "protocol":
+        kw.update(n_workers=5, f_workers=1)
+    res = exp.run("netsim/crash_storm", device="cpu", **kw)
+    assert res.netsim["shortfalls"] > 0 and res.netsim["steps"] == 12
+    assert res.state.t == 12
+    assert torch.isfinite(res.state.params).all()
+    assert all("staleness_push_ms" in m for m in res.logs)
+    assert res.final["acc"] > 0.5

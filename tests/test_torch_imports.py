@@ -1,6 +1,7 @@
 """The port stands alone: nothing under src/repro_torch/, tools/ or
-chip_smoke.py imports jax or any repro.* module (repro_torch.* is allowed), and the chip
-smoke script refuses to run without a GPU."""
+chip_smoke.py imports jax, any repro.* module (repro_torch.* is allowed) or
+the JAX package's benchmarks/ (netsim keeps its own copy of the byte
+model), and the chip smoke script refuses to run without a GPU."""
 import ast
 import os
 import subprocess
@@ -26,7 +27,8 @@ def _imports(path: Path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro") or name.startswith("jax")
+    return (top in ("jax", "jaxlib", "repro", "benchmarks")
+            or name.startswith("jax"))
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -68,7 +70,12 @@ def test_scan_covers_the_package():
                 "repro_torch/core/simulator.py", "repro_torch/core/engine.py",
                 "repro_torch/core/protocol.py",
                 "repro_torch/launch/train.py",
-                "repro_torch/exp/runners.py"):
+                "repro_torch/exp/runners.py",
+                "repro_torch/netsim/accounting.py",
+                "repro_torch/netsim/cluster.py",
+                "repro_torch/netsim/scenarios.py",
+                "repro_torch/exp/__main__.py", "repro_torch/agg/__main__.py",
+                "repro_torch/serve/__main__.py"):
         assert mod in names
     assert "jax" in {n for n in _imports(
         ROOT / "tests" / "test_torch_serve.py")}  # the scan sees imports

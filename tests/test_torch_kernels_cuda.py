@@ -2,8 +2,10 @@
 shapes of the serving and training paths (the flash backward pair, the
 batched median, trimmed mean, MeaMed on both its paths, Gram and the exact
 MDA selection included),
-gradients through the kernels' ``autograd.Function``, and a reduced model
-run through the kernels against the same model on the CPU's plain path. Imports no JAX, so it runs
+gradients through the kernels' ``autograd.Function``, a reduced model
+run through the kernels against the same model on the CPU's plain path, and
+quorums that repeat a sender (equal rows in the Gram, the protocol's
+quorum weights) against the CPU. Imports no JAX, so it runs
 on a machine with a GPU and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -288,6 +290,45 @@ def test_gram_kernel_at_the_training_shape():
     x = 0.05 * torch.from_numpy(_stack((5, 7, 1_093_642), 7)).to(dev)
     plan = _gram_within_gate(x)
     assert (plan.path, plan.vec) == ("register", 2)
+
+
+@pytest.mark.parametrize("B,n,d", [(5, 7, 1_093_642), (9, 4, 4099),
+                                   (2, 12, 300)])
+def test_gram_kernel_equal_rows_give_equal_entries(B, n, d):
+    """A quorum that repeats a sender stacks equal rows: the kernel's
+    entries of the copies are bit-equal and their distance exactly 0, as in
+    the plain version, so MDA's subset diameters tie exactly on the card
+    too."""
+    from repro_torch.kernels.pairwise_sqdist import ops as gram_ops
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(B + n)
+    x = torch.randn((B, n, d), generator=g, device=dev)
+    x[:, n - 2], x[:, n - 1] = x[:, 0], x[:, 1]
+    got = gram_ops.gram(x)
+    assert torch.equal(got, got.mT)
+    assert torch.equal(got[:, 0], got[:, n - 2])
+    assert torch.equal(got[:, 1], got[:, n - 1])
+    d2 = gram_ops.pairwise_sqdists(x)
+    assert torch.all(d2[:, 0, n - 2] == 0) and torch.all(d2[:, 1, n - 1] == 0)
+
+
+def test_quorum_weights_with_a_repeated_sender_equal_the_cpus():
+    """The protocol's quorum weights where a sender repeats in a row and
+    the selection keeps one copy: the card's weights equal the CPU's (the
+    last occurrence wins), over 200 repeats of the same rows, since the
+    order of a CUDA scatter to a repeated index is undefined."""
+    from repro_torch.core import protocol as tproto
+    dev = require_cuda()
+    G = 5
+    d2 = torch.ones((G, G)) - torch.eye(G)
+    idx = torch.tensor([[0, 1, 2, 0], [1, 0, 1, 2], [2, 3, 4, 1],
+                        [4, 4, 0, 1], [3, 2, 1, 3]] * 40)
+    pcfg = tproto.ProtocolConfig.derive(G, f_workers=1, f_servers=1)
+    want = tproto.quorum_weights(d2, idx, 1, pcfg)
+    assert want[0, 0] == 0 and want[0, 1] > 0
+    for _ in range(200):
+        got = tproto.quorum_weights(d2.to(dev), idx.to(dev), 1, pcfg)
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("n,f,B", [(7, 2, 5), (5, 1, 1), (12, 5, 3)])

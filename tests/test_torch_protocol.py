@@ -86,7 +86,8 @@ def _run_both(jbundle, tbundle, jp, tp, batches_np, seed=0, lr=(0.2, 0.05)):
         delivery=JTraceDelivery(*tables, T=T), with_attack=attack)
     teng = tproto.ProtocolEngine(
         tbundle, tp, tsched.inverse_linear(*lr),
-        delivery=TraceDelivery(*tables, T=T), with_attack=attack,
+        delivery=TraceDelivery(*tables, T=T, device="cpu"),
+        with_attack=attack,
         device="cpu")
     j0 = jeng.init_state(jax.random.PRNGKey(seed))
     t0 = protocol_state_from_jax(jax.tree.map(np.asarray, j0), "cpu")
@@ -185,7 +186,8 @@ def test_protocol_matches_the_ports_epoch_engine(steps, epoch_steps):
     ev = (batches[0][0, 0], batches[1][0, 0])
     lr = tsched.inverse_linear(0.2, 0.05)
     sim = tsim.ByzSGDSimulator(cfg, tinit, tloss, lr,
-                               delivery=TraceDelivery(*tables, T=T),
+                               delivery=TraceDelivery(*tables, T=T,
+                                                      device="cpu"),
                                device="cpu")
     flat0 = sim.tree.flatten(tinit(torch.Generator().manual_seed(0)))
     s_sim, m_sim = EpochEngine(
@@ -193,7 +195,8 @@ def test_protocol_matches_the_ports_epoch_engine(steps, epoch_steps):
         eval_set=ev).run(sim.state_from(flat0, torch.Generator()), batches,
                          epoch_steps=epoch_steps)
     eng = tproto.ProtocolEngine(tproto.ProblemBundle(tinit, tloss), tp, lr,
-                                delivery=TraceDelivery(*tables, T=T),
+                                delivery=TraceDelivery(*tables, T=T,
+                                                       device="cpu"),
                                 acc_fn=acc, eval_set=ev, device="cpu")
     s0 = tproto.ByzState(flat0.expand(G, -1).clone(), 0, torch.Generator(),
                          (), sim.tree)
@@ -348,7 +351,8 @@ def test_optimizer_registry_matches_jax(name):
 def test_masked_pull_and_consolidate_match_jax():
     """The masked Median pull (the gathered, batched route) in column
     chunks smaller than a replica, and the consolidated median; quorums of
-    different sizes are refused."""
+    different sizes (one receiver delivering a replica fewer) give JAX's
+    values too."""
     rng = np.random.default_rng(8)
     P = 1000
     params = rng.standard_normal((5, P)).astype(np.float32)
@@ -357,19 +361,124 @@ def test_masked_pull_and_consolidate_match_jax():
     jparams = {"w": jnp.asarray(params)}
     masks = np.array([[1, 1, 1, 1, 0], [0, 1, 1, 1, 1], [1, 0, 1, 1, 1],
                       [1, 1, 0, 1, 1], [1, 1, 1, 0, 1]], bool)
-    want = np.asarray(jproto.masked_pull(jparams, jnp.asarray(masks),
-                                         jp)["w"])
-    got = tproto.masked_pull(torch.from_numpy(params),
-                             torch.from_numpy(masks), tp_small)
-    np.testing.assert_array_equal(got.numpy(), want)
     mixed = masks.copy()
     mixed[0, 4] = True
-    with pytest.raises(ValueError, match="quorums of one size"):
-        tproto.masked_pull(torch.from_numpy(params), torch.from_numpy(mixed),
-                           tp_small)
+    for m in (masks, mixed):
+        want = np.asarray(jproto.masked_pull(jparams, jnp.asarray(m),
+                                             jp)["w"])
+        got = tproto.masked_pull(torch.from_numpy(params),
+                                 torch.from_numpy(m), tp_small)
+        np.testing.assert_array_equal(got.numpy(), want)
     want = np.asarray(jproto.consolidate(jparams, jp)["w"])
     got = tproto.consolidate(torch.from_numpy(params), tp_small)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-7, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# quorums with a repeated sender (a netsim trace pads a starved quorum by
+# repeating a delivered sender)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rule", ["median", "meamed", "trimmed_mean"])
+@pytest.mark.parametrize("gather", [False, True])
+def test_masked_pull_with_unequal_counts_matches_jax(rule, gather):
+    """Masks of counts [4, 3, 4, 4] (the second receiver's quorum repeats a
+    sender): the worker pull ``[4 recv, 5 send]``, and the DMC gather
+    ``[4, 4]`` written in place (``out`` aliases ``params``) in chunks
+    smaller than a replica, against JAX's ``masked_pull`` on the same numpy
+    stack. rtol 1e-6: the means sum in other orders."""
+    rng = np.random.default_rng(20)
+    P, G_send = 777, (4 if gather else 5)
+    params = rng.standard_normal((G_send, P)).astype(np.float32)
+    masks = np.ones((4, G_send), bool)
+    if not gather:
+        masks[:, 4] = False
+        masks[[0, 2, 3], [3, 0, 1]] = [False, False, False]
+        masks[[0, 2, 3], 4] = True
+    masks[1, 2] = False
+    assert masks.sum(1).tolist() == [4, 3, 4, 4]
+    kw = dict(f_workers=1, f_servers=1, pull_gar=rule, gather_gar=rule)
+    jp, tp = _pcfgs(G=5, **kw)
+    tp = tproto.ProtocolConfig(**{**vars(tp), "chunk_bytes": 4 * 4 * 100})
+    want = np.asarray(jproto.masked_pull(
+        {"w": jnp.asarray(params)}, jnp.asarray(masks), jp, rule=rule)["w"])
+    x = torch.from_numpy(params.copy())
+    got = tproto.masked_pull(x, torch.from_numpy(masks), tp, rule=rule,
+                             out=x if gather else None)
+    if gather:
+        assert got is x
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+def test_quorum_weights_with_a_repeated_sender_match_jax():
+    """Equidistant workers tie every MDA subset, so the first argmin keeps
+    the first q - f quorum slots: where a sender's last copy falls outside
+    them, one copy gets 1/(q - f) and the other 0. The weights scatter
+    back with the last occurrence winning, bit-equal to JAX's
+    ``.at[idx].set(w)``."""
+    G = 5
+    d2 = (np.ones((G, G)) - np.eye(G)).astype(np.float32)
+    idx = np.array([[0, 1, 2, 0], [1, 0, 1, 2], [2, 3, 4, 1], [4, 4, 0, 1],
+                    [3, 2, 1, 3]], np.int32)
+    jp, tp = _pcfgs(G=G, f_workers=1, f_servers=1)
+    want = np.asarray(jproto.quorum_weights(jnp.asarray(d2),
+                                            jnp.asarray(idx), 1, jp))
+    got = tproto.quorum_weights(torch.from_numpy(d2), torch.from_numpy(idx),
+                                1, tp)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the case the repair is for: the dropped copy is the last one
+    w = agg.selection_weights("mda", torch.from_numpy(
+        d2[idx[:, :, None], idx[:, None, :]]), 1).numpy()
+    assert w[0, 0] > 0 and w[0, 3] == 0 and want[0, 0] == 0
+
+
+def _churn_tables():
+    """The realized ``membership_churn`` trace of the G = 5 lm spec (12
+    steps, T = 5), from the JAX package's netsim: push quorums repeat a
+    sender from step 7 on and one DMC gather quorum of round 1 repeats
+    one."""
+    from repro import exp as jexp
+    from repro.netsim import ClusterSim
+    e = jexp.get("lm/tfm_tiny", delivery="trace", scenario="membership_churn",
+                 n_workers=5, f_workers=1, n_servers=5, f_servers=1)
+    tr = ClusterSim(e.to_scenario()).run()
+    return e, (tr.pull_idx, tr.push_idx, tr.gather_idx)
+
+
+def _repeats(a):
+    return {(k, r) for k in range(a.shape[0]) for r in range(a.shape[1])
+            if len(set(a[k, r].tolist())) < a.shape[2]}
+
+
+def test_protocol_on_a_trace_with_repeated_senders_matches_jax():
+    """Both ``ProtocolEngine``s (MLP problem, G = 5, f_w = f_ps = 1, T = 5)
+    replay the ``membership_churn`` trace tables for 2T + 1 = 11 steps,
+    through repeated push senders and a repeated sender in the DMC gather
+    after step 10: params within the protocol tests' tolerance."""
+    e, tables = _churn_tables()
+    assert {k for k, _ in _repeats(tables[1])} & set(range(7, 11))
+    assert 1 in {r for r, _ in _repeats(tables[2])}
+    steps, T5 = 11, e.T
+    jb, tb = _mlp_bundles()
+    jp = jproto.ProtocolConfig.derive(5, T=T5, f_workers=1, f_servers=1)
+    tp = tproto.ProtocolConfig(**{**vars(jp), "byz": tattacks.ByzantineSpec()})
+    lr = (0.2, 0.05)
+    jeng = jproto.ProtocolEngine(jb, jp, jsched.inverse_linear(*lr),
+                                 delivery=JTraceDelivery(*tables, T=T5))
+    teng = tproto.ProtocolEngine(tb, tp, tsched.inverse_linear(*lr),
+                                 delivery=TraceDelivery(*tables, T=T5,
+                                                        device="cpu"),
+                                 device="cpu")
+    x, y = _mlp_batches(np.random.default_rng(21), steps, 5)
+    j0 = jeng.init_state(jax.random.PRNGKey(0))
+    t0 = protocol_state_from_jax(jax.tree.map(np.asarray, j0), "cpu")
+    jend, _ = jeng.run(j0, (jnp.asarray(x), jnp.asarray(y)))
+    tend, _ = teng.run(t0, (torch.from_numpy(x), torch.from_numpy(y).long()))
+    want = protocol_state_from_jax(jax.tree.map(np.asarray, jend), "cpu")
+    assert tend.t == want.t == steps
+    torch.testing.assert_close(tend.params, want.params, rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_collective_volume_and_config_validation_match_jax():

@@ -81,7 +81,8 @@ def _both(cfg_kw, steps, seed=0):
     js = jsim.ByzSGDSimulator(jcfg, jinit, jloss, jsched.inverse_linear(**lr),
                               delivery=JTraceDelivery(*tables, T=jcfg.T))
     ts = tsim.ByzSGDSimulator(tcfg, tinit, tloss, tsched.inverse_linear(**lr),
-                              delivery=TraceDelivery(*tables, T=tcfg.T),
+                              delivery=TraceDelivery(*tables, T=tcfg.T,
+                                                     device="cpu"),
                               device="cpu")
     j0 = js.init_state(jax.random.PRNGKey(seed))
     t0 = sim_state_from_jax(jax.tree.map(np.asarray, j0), tcfg, "cpu")
@@ -155,7 +156,8 @@ def _port_sim(variant, steps, byz):
                                tsched.inverse_linear(0.2, 0.05),
                                delivery=TraceDelivery(*_tables(
                                    rng, steps, 3, n_w, 5, cfg.q_workers,
-                                   cfg.q_servers), T=3),
+                                   cfg.q_servers), T=3,
+                                   device="cpu"),
                                device="cpu")
     x, y = _batches(rng, steps, n_w)
     return sim, acc, torch.from_numpy(x), torch.from_numpy(y)
@@ -274,7 +276,8 @@ def test_quorum_models():
     assert all(len(set(r.tolist())) == 4 for r in pull)
     assert torch.equal(gather[:, 0], torch.arange(5))   # self delivered
     tables = _tables(np.random.default_rng(0), 6, 3, 5, 5, 4, 4)
-    tr, jt = TraceDelivery(*tables, T=3), JTraceDelivery(*tables, T=3)
+    tr = TraceDelivery(*tables, T=3, device="cpu")
+    jt = JTraceDelivery(*tables, T=3)
     for t in (0, 3, 6, 8):
         np.testing.assert_array_equal(tr.pull_indices(None, t),
                                       jt.pull_indices(None, jnp.int32(t)))
