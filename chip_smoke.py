@@ -69,6 +69,26 @@
    staleness, final accuracy above 0.2, peak memory, kernel launches, a
    profiler window), and ``lm/tfm_tiny`` through the protocol over the
    ``membership_churn`` trace at G = 5 (finite losses).
+12. Checkpoint and elastic phase. (a) Right after phase 10, on its last
+   state (13 steps: its profiled two included; phi4-mini-3.8b, full width, depth 2, G = 4, f32 replicas: 13.05
+   GB of params): the free disk, then one save with the port's
+   checkpointer (bytes, seconds), ``ReplicaPool.from_checkpoint`` onto the
+   card (seconds; every leaf bit-equal to the live state), 8 requests
+   (prompts of 64-1024 tokens, 16 new tokens) through
+   ``QuorumService(median, f=1, n_slots=4)`` over the restored pool,
+   token-identical to the same service over the live state, with the flash
+   forward and the median launched; the same with replica 3 corrupted
+   (``reversed``: disagreement and ejections reported, not gated);
+   ``restore_consolidated`` on the card, cast to bf16, prefill and decode
+   (finite logits); the directory is removed. (b) After phase 11:
+   ``launch.train --reduced`` 12 steps with ``--ckpt-every 5`` against 7
+   steps, killed, and resumed to 12 (bit-equal, t = 12), then
+   ``launch.serve --ckpt-dir --quorum`` on that checkpoint. (c)
+   ``elastic/static`` bit-identical to ``runner="protocol"``;
+   ``elastic/planned_churn`` at ``mlp_h1024`` (G 5 -> 4 -> 5, 24 steps)
+   uninterrupted and killed at step 12 and resumed, bit-identical (steps/s,
+   final accuracy above 0.2, peak memory, the median launches of the
+   joiner's seeding); ``elastic/netsim_churn`` finite.
 
 Phases print on earlier lines; the line before the last holds the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -79,6 +99,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -1201,7 +1222,9 @@ def protocol_train_phase(dev):
 
     busy = _profile("protocol phi4-mini-3.8b depth 2, 2 steps", two_steps)
     G, P = run.state.params.shape
-    del run, state, extra
+    # the state after those two steps (t = 13) stays for the checkpoint
+    # phase (12 a)
+    del run, extra
     gc.collect()
     torch.cuda.empty_cache()
     rows = protocol_kernel_rows(dev, G, P, ProtocolConfig.chunk_bytes)
@@ -1214,7 +1237,7 @@ def protocol_train_phase(dev):
         + json.dumps([(m["step"], round(m["acc"], 4)) for m in res.logs]))
     if not np.isfinite(res.final["acc"]):
         raise AssertionError("lm/tfm_tiny: non-finite eval loss")
-    return got, rows, dict(peak_gb=peak_gb, busy=busy)
+    return got, rows, dict(peak_gb=peak_gb, busy=busy), state
 
 
 
@@ -1350,6 +1373,306 @@ def netsim_train_phase(dev, quickstart_busy: float):
 
 
 
+# ---------------------------------------------------------------------------
+# the checkpoint and elastic slice: save and restore at full width, resume,
+# serve from a checkpoint, elastic membership
+# ---------------------------------------------------------------------------
+
+CKPT_TRAIN = ["--arch", "phi4-mini-3.8b", "--reduced", "--groups", "4",
+              "--T", "3", "--seq", "64", "--batch-per-group", "2",
+              "--ckpt-every", "5", "--log-every", "1"]
+ELASTIC_RUN = dict(model=TRAIN_MODEL)
+
+
+def _ckpt_root(need: int) -> Path:
+    """A fresh directory for a checkpoint of ``need`` bytes: under the
+    temporary directory, or, if that disk has too little room, under the
+    checkout's git-ignored ``.archive/``. Fails if neither can hold it."""
+    import tempfile
+    roots = [Path(tempfile.gettempdir()), ROOT / ".archive"]
+    free = {}
+    for r in roots:
+        r.mkdir(parents=True, exist_ok=True)
+        free[r] = shutil.disk_usage(r).free
+    log("[ckpt] free disk: " + ", ".join(f"{r} {v / 1e9:.2f} GB"
+                                         for r, v in free.items())
+        + f"; the checkpoint needs {need / 1e9:.2f} GB")
+    for r in roots:
+        if free[r] > need * 1.05 + 2e9:
+            return Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=r))
+    raise AssertionError(f"no disk holds the {need / 1e9:.2f} GB checkpoint")
+
+
+def _quorum_run(pool, bundle, prompts, label: str):
+    """8 requests through QuorumService(median, n_slots=4) over ``pool``;
+    the flash forward's and the median's launches counted from 0."""
+    from repro_torch.kernels.cwise_median import ops as median_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.serve import QuorumService
+    max_len = -(-(max(map(len, prompts)) + MAX_NEW + 1) // 64) * 64
+    svc = QuorumService(pool, bundle, n_slots=N_SLOTS, max_len=max_len,
+                        n_chunks=4, rule="median")
+    flash_ops.flash_attention.launches = 0
+    median_ops.cwise_median.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        outs = svc.generate(prompts, max_new=MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"flash_attention": flash_ops.flash_attention.launches,
+           "cwise_median": median_ops.cwise_median.launches}
+    rep = svc.report()
+    log(f"[ckpt] {label}: {rep['committed_tokens']} tokens in {wall:.2f} s "
+        f"({rep['tok_s']:.2f} tok/s), disagreement "
+        f"{rep['disagreement_rate']:.4f}, ejections {rep['ejections']}, "
+        f"launches {got}")
+    return outs, rep, got
+
+
+def checkpoint_phase(dev, state):
+    """12 (a): phase 10's last protocol state (phi4-mini-3.8b, full width,
+    depth 2, G = 4, f32) saved once with the port's checkpointer, restored
+    into a ReplicaPool bit-equal, served through quorum reads against the
+    live pool, consolidated on the card by restore_consolidated and served
+    in bf16; the directory is removed at the end."""
+    from repro_torch.checkpoint import checkpointer as ck
+    from repro_torch.core.attacks import ByzantineSpec
+    from repro_torch.core.protocol import ByzState
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.serve import ReplicaPool
+    bundle = get_bundle("phi4-mini-3.8b", depth=2)
+    G, P = state.params.shape
+    need = state.params.numel() * state.params.element_size()
+    root = _ckpt_root(need)
+    launches = {"flash_attention": 0, "cwise_median": 0}
+    try:
+        t0 = time.perf_counter()
+        ck.save(str(root), state.t, state)
+        save_s = time.perf_counter() - t0
+        d = Path(ck.step_dir(str(root), state.t))
+        written = sum(f.stat().st_size for f in d.iterdir())
+        params_b = sum(f.stat().st_size for f in d.glob(".params__*"))
+        log(f"[ckpt] save: G = {G}, P = {P:,}: {written:,} bytes "
+            f"({params_b / 1e9:.2f} GB of .params leaves) in {save_s:.2f} s"
+            f", {written / save_s / 1e9:.2f} GB/s")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool = ReplicaPool.from_checkpoint(str(root), None, f=F_BYZ,
+                                           device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        live = state.tree.unflatten(state.params)
+        same = all(torch.equal(a, b) for a, b in zip(
+            state.tree.leaves(pool.params), state.tree.leaves(live)))
+        log(f"[ckpt] ReplicaPool.from_checkpoint onto the card: "
+            f"{pool.n_replicas} replicas in {restore_s:.2f} s, "
+            f"{need / restore_s / 1e9:.2f} GB/s of params; every leaf "
+            f"bit-equal to the live state: {same}")
+        if not same:
+            raise AssertionError("the restored pool differs from the live "
+                                 "state")
+        rng = np.random.default_rng(SEED + 12)
+        lens = rng.integers(64, 1025, size=N_REQUESTS)
+        prompts = [rng.integers(0, bundle.cfg.vocab, n).tolist()
+                   for n in lens]
+        outs, _, got = _quorum_run(pool, bundle, prompts,
+                                   "quorum reads over the restored pool")
+        for k, v in got.items():
+            launches[k] += v
+            if v <= 0:
+                raise AssertionError(f"{k} was not launched serving the "
+                                     "restored pool")
+        base, _, got = _quorum_run(ReplicaPool.from_stacked(live, f=F_BYZ),
+                                   bundle, prompts,
+                                   "quorum reads over the live pool")
+        for k, v in got.items():
+            launches[k] += v
+        if outs != base:
+            bad = [i for i, (a, b) in enumerate(zip(outs, base)) if a != b]
+            raise AssertionError(f"requests {bad}: the restored pool's "
+                                 "continuations differ from the live one's")
+        log(f"[ckpt] token-identical to the live pool ({len(outs)} requests"
+            f" x {MAX_NEW} tokens, prompt lengths {lens.tolist()}); sample "
+            f"{outs[0][:8]}")
+        del live, base
+        bad_pool = pool.corrupt(ByzantineSpec(server_attack="reversed",
+                                              n_byz_servers=1))
+        del pool
+        _, rep, got = _quorum_run(bad_pool, bundle, prompts,
+                                  "replica 3 corrupted (reversed), "
+                                  "reported, not gated")
+        for k, v in got.items():
+            launches[k] += v
+        del bad_pool
+        gc.collect()
+        torch.cuda.empty_cache()
+        from repro_torch.kernels.cwise_median import ops as median_ops
+        median_ops.cwise_median.launches = 0
+        t0 = time.perf_counter()
+        cons, _ = ck.restore_consolidated(str(root), state.t,
+                                          ByzState(None, 0, None), dev)
+        torch.cuda.synchronize()
+        cons_s = time.perf_counter() - t0
+        launches["cwise_median"] += median_ops.cwise_median.launches
+        log(f"[ckpt] restore_consolidated on the card ([{G}, P] median, "
+            f"{median_ops.cwise_median.launches} median launches): "
+            f"{cons_s:.2f} s")
+        if median_ops.cwise_median.launches <= 0:
+            raise AssertionError("restore_consolidated launched no median")
+        params = cons.tree.unflatten(cons.params.to(torch.bfloat16))
+        del cons
+        caches = bundle.init_caches(2, max_len=64, n_chunks=1, device=dev)
+        with torch.inference_mode():
+            toks = torch.as_tensor([p[:32] for p in prompts[:2]], device=dev)
+            logits, caches = bundle.prefill(
+                params, {"tokens": toks, "labels": toks}, caches)
+            finite = bool(torch.isfinite(logits).all())
+            out = [torch.argmax(logits, -1)]
+            for _ in range(8):
+                logits, caches = bundle.decode(params, caches,
+                                               {"token": out[-1][:, None]})
+                finite &= bool(torch.isfinite(logits).all())
+                out.append(torch.argmax(logits, -1))
+        log(f"[ckpt] consolidated bf16 model: prefill 2 x 32, 8 decode "
+            f"steps, logits finite {finite}, tokens "
+            f"{torch.stack(out, 1)[0].tolist()}")
+        if not finite:
+            raise AssertionError("the consolidated model's logits are not "
+                                 "finite")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, dict(save_s=save_s, restore_s=restore_s, bytes=written,
+                          cons_s=cons_s)
+
+
+def resume_phase(dev):
+    """12 (b): ``launch.train --reduced`` on the card 12 steps in one go
+    against 7 steps, killed, and resumed to 12 (bit-equal, t = 12), then
+    ``launch.serve --ckpt-dir --quorum`` on that checkpoint; launches counted
+    from 0 around the runs."""
+    import tempfile
+    from repro_torch.launch import serve, train
+    counters = _proto_counters()
+    for c in counters.values():
+        c.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as tmp:
+        a, b = f"{tmp}/a", f"{tmp}/b"
+        whole = train.main(CKPT_TRAIN + ["--steps", "12", "--ckpt-dir", a])
+        train.main(CKPT_TRAIN + ["--steps", "7", "--ckpt-dir", b])
+        resumed = train.main(CKPT_TRAIN + ["--steps", "12", "--ckpt-dir",
+                                           b])
+        torch.cuda.synchronize()
+        same = torch.equal(whole.state.params, resumed.state.params)
+        log(f"[resume] launch.train --reduced, 12 steps against 7 + resumed "
+            f"5 (steps {[i for i, _ in resumed.losses]}): final params "
+            f"bit-equal {same}, t {resumed.state.t}; saves "
+            f"{sorted(os.listdir(b))}")
+        if not same or resumed.state.t != 12 or len(resumed.step_s) != 5:
+            raise AssertionError("the resumed launch.train run is not the "
+                                 "uninterrupted one")
+        rep = serve.main(["--reduced", "--batch", "4", "--prefill", "32",
+                          "--decode", "8", "--ckpt-dir", b, "--quorum"])
+        torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    log(f"[resume] launch.serve --ckpt-dir --quorum: "
+        f"{rep['committed_tokens']} tokens from {rep['n_replicas']} "
+        f"replicas; launches over the phase {got}")
+    if rep["committed_tokens"] != 32:
+        raise AssertionError(f"launch.serve --quorum committed "
+                             f"{rep['committed_tokens']} tokens")
+    for k in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "gram",
+              "subset_diameters", "cwise_median"):
+        if got[k] <= 0:
+            raise AssertionError(f"{k} was not launched by the resume runs")
+    return got
+
+
+def elastic_phase(dev):
+    """12 (c): ``elastic/static`` against ``runner="protocol"``,
+    ``elastic/planned_churn`` at ``mlp_h1024`` uninterrupted and killed at
+    step 12 and resumed, ``elastic/netsim_churn``; launches counted from 0
+    around each run."""
+    import tempfile
+    from repro_torch import exp
+    from repro_torch.core import membership
+    from repro_torch.kernels.cwise_median import ops as median_ops
+    counters = _counters()
+    total = {k: 0 for k in counters}
+
+    def run(name, **kw):
+        for c in counters.values():
+            c.launches = 0
+        res = exp.run(name, device=dev, **kw)
+        torch.cuda.synchronize()
+        for k, c in counters.items():
+            total[k] += c.launches
+        return res, {k: c.launches for k, c in counters.items()}
+
+    static, _ = run("elastic/static", **ELASTIC_RUN)
+    proto, _ = run("elastic/static", runner="protocol", **ELASTIC_RUN)
+    same = torch.equal(static.state.params, proto.state.params)
+    log(f"[elastic] elastic/static at {TRAIN_MODEL} bit-identical to "
+        f"runner='protocol': {same} (final acc {static.final['acc']:.4f})")
+    if not same or static.logs != proto.logs:
+        raise AssertionError("elastic/static differs from runner='protocol'")
+
+    seeding = []
+    reform = membership.reform_params
+
+    def counted(*a, **k):
+        before = median_ops.cwise_median.launches
+        out = reform(*a, **k)
+        seeding.append(median_ops.cwise_median.launches - before)
+        return out
+
+    membership.reform_params = counted
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        churn, got = run("elastic/planned_churn", **ELASTIC_RUN)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        steps = churn.experiment.steps
+        acc = churn.final["acc"]
+        log(f"[elastic] elastic/planned_churn at {TRAIN_MODEL} (G 5 -> 4 at "
+            f"step 8 -> 5 at 16, {steps} steps): {steps / churn.wall_s:.2f} "
+            f"steps/s ({churn.wall_s:.3f} s), final acc {acc:.4f}, peak "
+            f"device memory {peak_gb:.3f} GB, median launches of each "
+            f"re-forming (shrink, join) {seeding}, launches {got}")
+        if not np.isfinite(acc) or acc <= 0.2:
+            raise AssertionError(f"elastic/planned_churn: final accuracy "
+                                 f"{acc} is not finite and above 0.2")
+        churn_seeding = list(seeding)
+        if len(churn_seeding) != 2 or churn_seeding[1] <= 0:
+            raise AssertionError(f"the joiner's seeding launched no median: "
+                                 f"{churn_seeding}")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as d:
+            run("elastic/planned_churn", ckpt_dir=d, ckpt_every=4,
+                **ELASTIC_RUN)
+            for name in sorted(os.listdir(d)):
+                if int(name.split("_")[-1]) > 12:
+                    shutil.rmtree(os.path.join(d, name))
+            resumed, _ = run("elastic/planned_churn", ckpt_dir=d,
+                             ckpt_every=4, **ELASTIC_RUN)
+    finally:
+        membership.reform_params = reform
+    same = torch.equal(churn.state.params, resumed.state.params)
+    log(f"[elastic] killed at step 12 and resumed (at "
+        f"{resumed.provenance['membership']['resumed_at']}, G' = 4): params "
+        f"bit-identical {same}, final acc {resumed.final['acc']:.4f}")
+    if not same or resumed.final != churn.final:
+        raise AssertionError("the resumed elastic run differs")
+    ns, got = run("elastic/netsim_churn", **ELASTIC_RUN)
+    finite = bool(torch.isfinite(ns.state.params).all()) and np.isfinite(
+        ns.final["acc"])
+    epochs = [(e["start"], len(e["active"]))
+              for e in ns.provenance["membership"]["epochs"]]
+    log(f"[elastic] elastic/netsim_churn: epochs (start, G) {epochs}, "
+        f"final acc {ns.final['acc']:.4f}, finite {finite}, launches {got}")
+    if not finite:
+        raise AssertionError("elastic/netsim_churn is not finite")
+    return total, dict(steps_s=steps / churn.wall_s, acc=acc,
+                       peak_gb=peak_gb, seeding=churn_seeding)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs an "
@@ -1395,15 +1718,22 @@ def main() -> int:
                      if k != "cwise_median"})
     bwd_rows = flash_bwd_phase(dev)
     protocol_reference_phase(dev)
-    proto_launches, proto_rows, _ = protocol_train_phase(dev)
+    proto_launches, proto_rows, _, state = protocol_train_phase(dev)
     for k, v in proto_launches.items():
         launches[k] = launches.get(k, 0) + v
+    # phase 12 (a) on phase 10's state, before phase 11 takes the card
+    ckpt_launches, _ = checkpoint_phase(dev, state)
+    del state
     gc.collect()
     torch.cuda.empty_cache()
     netsim_reference_phase(dev)
     netsim_launches, _ = netsim_train_phase(dev, train_results["busy"])
-    for k, v in netsim_launches.items():
-        launches[k] = launches.get(k, 0) + v
+    resume_launches = resume_phase(dev)
+    elastic_launches, _ = elastic_phase(dev)
+    for part in (ckpt_launches, netsim_launches, resume_launches,
+                 elastic_launches):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
 
     rows = dict(train_rows)
     rows.update(bwd_rows)

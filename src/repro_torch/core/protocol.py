@@ -470,16 +470,132 @@ def make_train_step(bundle, pcfg: ProtocolConfig, lr_schedule,
 # ---------------------------------------------------------------------------
 
 
-def consolidate(params: torch.Tensor, pcfg: ProtocolConfig,
+def consolidate(params: torch.Tensor, pcfg: ProtocolConfig | None = None,
                 chunk_bytes: int | None = None) -> torch.Tensor:
     """Median of the replicas -> one ``[P]`` serving model (DMC applied
-    once, full delivery), streamed by column chunks."""
-    cb = chunk_bytes or pcfg.chunk_bytes
+    once, full delivery), streamed by column chunks (``pcfg``'s, or the
+    default's without one)."""
+    cb = chunk_bytes or (pcfg or ProtocolConfig).chunk_bytes
     G, P = params.shape
     out = torch.empty(P, dtype=params.dtype, device=params.device)
     for c0, c1 in _chunks(P, G, 4, cb):
         out[c0:c1] = agg.dispatch.cwise_median(params[:, c0:c1].float())
     return out
+
+
+# ---------------------------------------------------------------------------
+# ByzState <-> checkpoint leaves
+# ---------------------------------------------------------------------------
+
+
+def checkpoint_leaves(state: ByzState) -> list[tuple[str, Any]]:
+    """``(name, value)`` of every leaf a checkpoint of ``state`` holds, in
+    the names and order of a JAX ``ByzState`` checkpoint: ``.params/<path>``
+    as ``[G, *shape]`` views of the stack, ``.t`` (int32), ``.key`` (uint32
+    ``[2]``, the generator's seed: a JAX restore of a port checkpoint reads
+    it and starts a new stream), AdamW's ``.opt/.m/<path>``,
+    ``.opt/.v/<path>`` and ``.opt/.count``; then the port's own ``.gen``,
+    the generator's state (uint8), which a JAX restore ignores."""
+    tree = state.tree
+    G = state.params.shape[0]
+
+    def stacked(prefix, flat):
+        return [(f"{prefix}/" + "/".join(path),
+                 flat[:, off:off + size].reshape((G,) + shape))
+                for path, shape, (off, size) in zip(tree.paths, tree.shapes,
+                                                    tree.spans())]
+
+    seed = state.gen.initial_seed()
+    out = stacked(".params", state.params)
+    out += [(".t", np.asarray(state.t, np.int32)),
+            (".key", np.asarray([(seed >> 32) & 0xFFFFFFFF,
+                                 seed & 0xFFFFFFFF], np.uint32))]
+    if state.opt:
+        out += stacked(".opt/.m", state.opt.m) + stacked(".opt/.v",
+                                                         state.opt.v)
+        out.append((".opt/.count", np.asarray(state.opt.count, np.int32)))
+    out.append((".gen", state.gen.get_state()))
+    return out
+
+
+def tree_from_manifest(leaves: dict) -> FlatTree:
+    """The :class:`FlatTree` of the ``.params/<path>`` leaves a checkpoint
+    manifest lists (their shapes without the replica axis), in the JAX leaf
+    order the names were written in."""
+    paths, shapes = [], []
+    for name, info in leaves.items():
+        if name.startswith(".params/"):
+            paths.append(tuple(name.split("/")[1:]))
+            shapes.append(tuple(info["shape"][1:]))
+    if not paths:
+        raise ValueError("the checkpoint holds no replica-stacked "
+                         ".params/<path> leaves")
+    return FlatTree(paths, shapes)
+
+
+def state_from_leaves(read: Callable[[str], torch.Tensor], leaves: dict,
+                      device, *, tree: FlatTree | None = None,
+                      params_only: bool = False) -> ByzState:
+    """A ``ByzState`` on ``device`` from checkpoint leaves: ``leaves`` is the
+    manifest's name -> info map, ``read(name)`` a leaf's tensor on the
+    host. The ``.params/<path>`` leaves fill one ``[G, P]`` stack in
+    ``tree``'s order (default: the manifest's), leaf by leaf; AdamW's
+    moments likewise. The generator takes the checkpoint's ``.gen`` state;
+    a checkpoint without one (a JAX checkpoint) starts a new stream seeded
+    from ``.key``. ``params_only`` (serving, consolidation) reads neither
+    the moments nor ``.gen``, so it takes a checkpoint saved on any device
+    type; a full restore needs a generator of the device type that saved
+    it (a CUDA generator's state is 16 bytes, a CPU one's about 5 KB)."""
+    tree = tree or tree_from_manifest(leaves)
+    G = leaves[".params/" + "/".join(tree.paths[0])]["shape"][0]
+
+    def stack(prefix):
+        out = None
+        for path, shape, (off, size) in zip(tree.paths, tree.shapes,
+                                            tree.spans()):
+            name = f"{prefix}/" + "/".join(path)
+            if name not in leaves:
+                raise KeyError(f"checkpoint has no leaf {name!r}")
+            if tuple(leaves[name]["shape"]) != (G,) + shape:
+                raise ValueError(f"leaf {name!r} is {leaves[name]['shape']}"
+                                 f"; expected {[G, *shape]}")
+            leaf = read(name)
+            if out is None:
+                out = torch.empty((G, tree.size), dtype=leaf.dtype,
+                                  device=device)
+            elif leaf.dtype != out.dtype:
+                raise ValueError(f"leaf {name!r} is {leaf.dtype}; the "
+                                 f"stack is {out.dtype}")
+            out[:, off:off + size] = leaf.reshape(G, size).to(device)
+            del leaf
+        return out
+
+    params = stack(".params")
+    t = int(read(".t")) if ".t" in leaves else 0
+    gen = torch.Generator(device=device)
+    key = read(".key").numpy().astype(np.uint64) if ".key" in leaves \
+        else np.zeros(2, np.uint64)
+    seed = int(key[0]) << 32 | int(key[1])
+    opt: Any = ()
+    if params_only:
+        gen.manual_seed(seed)
+        return ByzState(params=params, t=t, gen=gen, tree=tree)
+    if ".gen" in leaves:
+        try:
+            gen.set_state(read(".gen"))
+        except RuntimeError as err:
+            raise ValueError(
+                f"the checkpoint's generator state ({leaves['.gen']['shape']}"
+                f" bytes) was saved on another device type than "
+                f"{torch.device(device).type}: resume on that device type, "
+                "or restore the params only") from err
+    else:
+        gen.manual_seed(seed)
+    if ".opt/.count" in leaves:
+        from ..optim.adamw import AdamWState
+        opt = AdamWState(stack(".opt/.m"), stack(".opt/.v"),
+                         int(read(".opt/.count")))
+    return ByzState(params=params, t=t, gen=gen, opt=opt, tree=tree)
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,14 @@ def sample_classification_batch(gen: torch.Generator, centres, spec:
     return centres[y] + noise, y
 
 
+def _width(launch: int, n_workers: int | None) -> int:
+    nw = launch if n_workers is None else n_workers
+    if not 1 <= nw <= launch:
+        raise ValueError(f"a stream launched {launch} workers wide draws "
+                         f"1..{launch} of them per step; got {nw}")
+    return nw
+
+
 class DeviceBatchStream:
     """Per-worker batches drawn on the device: ``next(L)`` returns the next
     L steps as ``(x [L, n_w, b, dim], y [L, n_w, b])``. The draws go step by
@@ -72,11 +80,24 @@ class DeviceBatchStream:
             spec, torch.Generator(device=device).manual_seed(seed))
         self._gen = torch.Generator(device=device).manual_seed(seed + 1)
 
-    def next(self, length: int):
+    def next(self, length: int, n_workers: int | None = None):
+        """The next ``length`` steps, ``n_workers`` wide (default: the
+        stream's width). Every step draws at the stream's width and keeps
+        its first ``n_workers`` rows: a torch generator's draws grow with
+        the width, so a narrower draw while the elastic runner's fleet is
+        shrunk would shift every later batch away from the full-width
+        run's."""
+        nw = _width(self.n_workers, n_workers)
         xs, ys = zip(*(sample_classification_batch(
             self._gen, self.centres, self.spec, self.n_workers,
             self.batch_per_worker) for _ in range(length)))
-        return torch.stack(xs), torch.stack(ys)
+        return torch.stack(xs)[:, :nw], torch.stack(ys)[:, :nw]
+
+    def skip(self, length: int) -> None:
+        """Advance ``length`` steps: :meth:`next` with the result dropped
+        (a checkpointed run's resume)."""
+        if length:
+            self.next(length)
 
     def eval_set(self, n: int = 2048, eval_seed: int = 10_007):
         """Held-out eval set ``(x [n, dim], y [n])`` from its own seed."""
@@ -155,11 +176,19 @@ class DeviceTokenStream:
         self._cdf = (_token_cdf(spec.vocab, spec.zipf, device)
                      if spec.zipf > 0 else None)
 
-    def next(self, length: int) -> dict:
+    def next(self, length: int, n_workers: int | None = None) -> dict:
+        """The next ``length`` steps, ``n_workers`` wide, drawn at the
+        stream's width as :meth:`DeviceBatchStream.next` does."""
+        nw = _width(self.n_workers, n_workers)
         bs = [sample_token_batch(self._gen, self.spec, self.n_workers,
                                  self.batch_per_worker, self._cdf)
               for _ in range(length)]
-        return {k: torch.stack([b[k] for b in bs]) for k in bs[0]}
+        return {k: torch.stack([b[k] for b in bs])[:, :nw] for k in bs[0]}
+
+    def skip(self, length: int) -> None:
+        """Advance ``length`` steps: :meth:`next` with the result dropped."""
+        if length:
+            self.next(length)
 
     def eval_set(self, n: int = 256, eval_seed: int = 10_007):
         """Held-out eval batch ``(tokens [n, seq], labels [n, seq])`` from

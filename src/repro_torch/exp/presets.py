@@ -1,19 +1,20 @@
 """Named experiment presets of ``repro.exp.presets``, identical specs
 (``to_dict``/``spec_hash``): the eight single-host presets, the six netsim
-presets, the two serve presets and the three lm presets.
+presets, the two serve presets, the three elastic presets and the three lm
+presets.
 
 :func:`get` applies field overrides with ``dataclasses.replace``
 (re-validating). The ``netsim/*`` presets name their scenario and the
 matching threat model, with ``runner="netsim"``: :func:`repro_torch.exp.run`
-simulates the cluster and trains over the realized trace. The elastic
-presets need a runner the port does not have yet (``ROADMAP.md``). Of the
-presets here, the serve presets need the checkpointer, and ``lm/moe_tiny``
-and ``lm/rwkv_tiny`` the zoo port: they construct, and ``exp.run`` raises
-before any step. ``python -m repro_torch.exp`` prints the tables below.
+simulates the cluster and trains over the realized trace. ``lm/moe_tiny``
+and ``lm/rwkv_tiny`` need the zoo port: they construct, and ``exp.run``
+raises before any step. ``python -m repro_torch.exp`` prints the tables
+below.
 """
 from __future__ import annotations
 
 from ..core.attacks import ByzantineSpec
+from ..core.membership import MembershipEvent, MembershipPlan
 from .spec import Experiment
 
 _PRESETS: dict[str, Experiment] = {}
@@ -104,8 +105,8 @@ register(Experiment(
 
 # serve presets: protocol-runner training that emits replica-stacked
 # checkpoints for the serving path (ckpt_dir comes from the caller at run
-# time). G=5 satisfies Table 1's n_ps >= 3f+2 for training. They run once the
-# checkpointer is ported (ROADMAP Queue 1 item 7); until then exp.run raises.
+# time: exp.run("serve/ckpt_smoke", ckpt_dir=...)). G=5 satisfies Table 1's
+# n_ps >= 3f+2 for training; serving reads tolerate f=1 of any 2f+1 subset.
 _SERVE_COMMON = dict(
     runner="protocol", n_workers=5, f_workers=1, n_servers=5, f_servers=1,
     T=5, steps=10, batch=8, model="mlp_h32", data="mixture5_small",
@@ -115,6 +116,30 @@ register(Experiment(
     name="serve/ckpt_lie_server",
     byz=ByzantineSpec(server_attack="lie", n_byz_servers=1, equivocate=True),
     **_SERVE_COMMON))
+
+# elastic presets: join/leave-tolerant protocol training (core/membership).
+# G=5 launches at the declared Table-1 point (f_w=f_ps=1); while a group is
+# down (G'=4) the churn-driven resilience caps f_ps' at 0, so these presets
+# have no Byzantine servers (such a spec with a shrink event is refused at
+# construction with MembershipFloorError).
+_ELASTIC_COMMON = dict(
+    runner="elastic", n_workers=5, f_workers=1, n_servers=5, f_servers=1,
+    T=5, steps=24, batch=8, model="mlp_h32", data="mixture5_small",
+    metrics_every=4, eval_n=256)
+# static fleet: bit-identical to runner="protocol" on the same spec
+register(Experiment(name="elastic/static", **_ELASTIC_COMMON))
+# authored plan: group 4 leaves at step 8 (G 5->4) and rejoins at step 16,
+# seeded from the DMC median of the survivors
+register(Experiment(
+    name="elastic/planned_churn",
+    membership_plan=MembershipPlan(events=(
+        MembershipEvent(step=8, kind="leave", group=4),
+        MembershipEvent(step=16, kind="join", group=4))),
+    **_ELASTIC_COMMON))
+# scenario-driven plan: the membership_churn crash windows, realized by the
+# netsim engine and lowered to leave/join events (plan_from_trace)
+register(Experiment(name="elastic/netsim_churn", scenario="membership_churn",
+                    **_ELASTIC_COMMON))
 
 # lm presets: zoo architectures through the protocol — one per trainable
 # model family (dense transformer / MoE / RWKV6), reduced configs on the Zipf
@@ -137,10 +162,9 @@ register(Experiment(name="lm/rwkv_tiny", model="rwkv_tiny", **_LM_COMMON))
 
 def runners_table() -> str:
     """The "Runners" table of the port's own engines: one card, no mesh,
-    eager steps (no ``lax.scan``). The reference's rows but ``elastic``
-    (ROADMAP Queue 1 item 10); the collective-volume column is what the
-    protocol's exchange would carry across cards
-    (``repro_torch.core.protocol.collective_volume_bytes``)."""
+    eager steps (no ``lax.scan``), the reference's rows; the
+    collective-volume column is what the protocol's exchange would carry
+    across cards (``repro_torch.core.protocol.collective_volume_bytes``)."""
     rows = [
         ("stepwise", "per-step eager loop (`ByzSGDSimulator.run`), host "
          "metrics", "uniform or trace",
@@ -155,6 +179,11 @@ def runners_table() -> str:
          "co-located on one card", "uniform or trace",
          "one card, flat `[G, P]` stack, column-chunked passes",
          "none on one card (2(G−1)·P would cross cards)"),
+        ("elastic", "protocol epochs chunked at membership boundaries "
+         "(`core/membership.py`): quorums re-formed per epoch, checkpointed "
+         "resume, DMC-seeded re-admission", "uniform",
+         "one card, flat `[G', P]` re-stacked per membership epoch",
+         "none on one card (2(G′−1)·P per epoch would cross cards)"),
     ]
     out = ["| runner | loop | delivery | state layout | "
            "per-step collective volume |",

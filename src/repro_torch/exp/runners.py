@@ -12,7 +12,12 @@
     n_servers co-located groups) and run through
     :class:`repro_torch.core.protocol.ProtocolEngine` on one device: the MLP
     problems on the mixture stream, the zoo archs on the token stream with
-    the negative eval loss as their ``acc``.
+    the negative eval loss as their ``acc``; with ``ckpt_every`` the run is
+    chunked at the checkpoint boundaries and saved at each;
+  * ``elastic``  — the protocol chunked at the membership boundaries of the
+    spec's plan (or of the named scenario's realized crash windows): the
+    ``[G, P]`` stack re-formed per epoch, joiners seeded from the survivors'
+    median, checkpointed resume.
 
 Delivery is orthogonal to the runner: a ``delivery="trace"`` experiment
 trains stepwise, fused or through the protocol over the realized trace. All
@@ -37,7 +42,7 @@ from ..core.simulator import coordinatewise_diameter_sum, l2_diameter
 from ..data.pipeline import (DeviceBatchStream, DeviceTokenStream,
                              classification_stream)
 from . import presets
-from .spec import DATA, NOT_PORTED, Experiment, is_arch_model
+from .spec import DATA, Experiment, is_arch_model
 
 
 def git_sha() -> str | None:
@@ -113,6 +118,8 @@ def run(experiment: Experiment | str, *, device=None,
         return _run_stepwise(e, dev, delivery, info)
     if e.runner == "protocol":
         return _run_protocol(e, dev, delivery, info)
+    if e.runner == "elastic":
+        return _run_elastic(e, dev)
     return _run_fused(e, dev, delivery, info)
 
 
@@ -226,14 +233,25 @@ def _lm_acc(bundle):
     return acc
 
 
+def _need_ckpt_dir(e: Experiment) -> None:
+    if e.ckpt_every and not e.ckpt_dir:
+        raise ValueError(
+            f"experiment {e.name!r} sets ckpt_every={e.ckpt_every} "
+            "but no ckpt_dir; pass one at run time, e.g. "
+            'exp.run(name, ckpt_dir="...")')
+
+
+def _concat(bufs: list[dict]) -> dict:
+    """Per-chunk metric buffers -> one buffer per metric over the run."""
+    return ({k: np.concatenate([b[k] for b in bufs]) for k in bufs[0]}
+            if bufs else {})
+
+
 def _run_protocol(e: Experiment, dev: torch.device, delivery=None,
                   netsim=None) -> RunResult:
     from ..core.protocol import ProtocolEngine
     pcfg = e.to_protocol_config()
-    if e.ckpt_every:
-        raise NotImplementedError(
-            f"experiment {e.name!r} sets ckpt_every={e.ckpt_every}: "
-            f"{NOT_PORTED['ckpt']} is not ported yet")
+    _need_ckpt_dir(e)
     bundle = e.build_bundle()
     G = pcfg.n_groups
     if is_arch_model(e.model):
@@ -250,8 +268,23 @@ def _run_protocol(e: Experiment, dev: torch.device, delivery=None,
         metrics_every=e.metrics_every, device=dev)
     state = eng.init_state(e.seed)
     t0 = time.time()
-    state, mbuf = eng.run(state, stream=stream, steps=e.steps,
-                          epoch_steps=e.epoch_steps)
+    if e.ckpt_every:
+        # chunks at the checkpoint boundaries: the gather cadence and the
+        # metric stride ride on the state's step counter, so the chunked run
+        # is the one-call run
+        from ..checkpoint import checkpointer as ck
+        bufs, done = [], 0
+        while done < e.steps:
+            n = min(e.ckpt_every, e.steps - done)
+            state, b = eng.run(state, stream=stream, steps=n,
+                               epoch_steps=e.epoch_steps)
+            bufs.append(b)
+            done += n
+            ck.save(e.ckpt_dir, done, state)
+        mbuf = _concat(bufs)
+    else:
+        state, mbuf = eng.run(state, stream=stream, steps=e.steps,
+                              epoch_steps=e.epoch_steps)
     _device.synchronize(dev)
     wall = time.time() - t0
 
@@ -273,6 +306,178 @@ def _run_protocol(e: Experiment, dev: torch.device, delivery=None,
     prov = provenance(e.spec_hash, dev)
     prov["mesh"] = {"rep": 1, "fsdp": 1, "model": 1}
     prov["protocol_engine"] = pcfg.engine
+    return RunResult(e, logs, final, wall, prov, netsim=netsim, state=state,
+                     buffers=mbuf)
+
+
+class _GroupView:
+    """Width-adapted view of a :class:`DeviceBatchStream`: the epoch's
+    active-group count of rows per step, drawn at the launch width (see
+    ``DeviceBatchStream.next``), so the data sequence stays aligned with the
+    global step counter across membership changes."""
+
+    def __init__(self, base: DeviceBatchStream, n_groups: int):
+        self.base = base
+        self.n_groups = n_groups
+
+    def next(self, length: int):
+        return self.base.next(length, n_workers=self.n_groups)
+
+
+def _run_elastic(e: Experiment, dev: torch.device) -> RunResult:
+    """Join/leave-tolerant protocol training (``runner="elastic"``).
+
+    The run is chunked at every membership boundary of the plan (authored
+    in the spec, or lowered from the named netsim scenario's realized crash
+    windows). At each boundary the resilience parameters are re-derived for
+    the new fleet (:func:`~repro_torch.core.membership.epoch_config`, Table
+    1 re-validated), the ``[G, P]`` stack and the optimizer's rows are
+    re-stacked (joiners seeded from the survivors' median), a new
+    ``ProtocolEngine`` takes over, and with a ``ckpt_dir`` the re-formed
+    state is saved. A run with a ``ckpt_dir`` resumes from its latest
+    checkpoint, whose ``meta["active"]`` names the fleet it was saved
+    under. With an empty plan the run is ``runner="protocol"`` bit for
+    bit."""
+    import dataclasses as _dc
+
+    from ..checkpoint import checkpointer as ck
+    from ..core import membership as _membership
+    from ..core.protocol import ProtocolEngine
+    from ..optim.adamw import AdamWState
+
+    pcfg0 = e.to_protocol_config()
+    G0 = pcfg0.n_groups
+    sync = e.variant == "sync"
+
+    plan, plan_source, netsim = e.membership_plan, "spec", None
+    if plan is None and e.scenario is not None:
+        from ..netsim import ClusterSim
+        sc = e.to_scenario()
+        trace = ClusterSim(sc).run()
+        plan = _membership.plan_from_trace(sc, trace)
+        plan_source = f"scenario:{e.scenario}"
+        netsim = {"scenario": sc.name, "steps": int(sc.steps),
+                  "virtual_ms": float(trace.step_done_ms[-1]),
+                  "events": int(trace.events),
+                  "shortfalls": int(trace.shortfalls)}
+    if plan is None:
+        plan = _membership.MembershipPlan()
+    if not plan.events:
+        plan_source = "static" if plan_source == "spec" else plan_source
+    segs = plan.epochs(G0, e.steps)
+
+    bundle = e.build_bundle()
+    acc = e.build_problem()[2]
+    stream = DeviceBatchStream(e.seed, e.mixture, G0, e.batch, dev)
+    ex, ey = stream.eval_set(e.eval_n)
+    with_attack = bool(e.byz.worker_attack or e.byz.server_attack)
+    _need_ckpt_dir(e)
+
+    # resume: the latest checkpoint's meta names the active set it was saved
+    # under (a runner="protocol" checkpoint has none: the launch fleet)
+    start, resume_active = 0, None
+    if e.ckpt_dir:
+        latest = ck.latest_step(e.ckpt_dir)
+        if latest is not None:
+            start = int(latest)
+            if start > e.steps:
+                raise ValueError(
+                    f"checkpoint at step {start} under {e.ckpt_dir!r} is "
+                    f"beyond this run (steps={e.steps}); wrong ckpt_dir?")
+            meta = ck.read_manifest(e.ckpt_dir, start).get("meta") or {}
+            resume_active = tuple(int(g) for g in
+                                  meta.get("active", range(G0)))
+
+    def _save(step: int, state, active) -> None:
+        ck.save(e.ckpt_dir, step, state,
+                meta={"elastic": True, "active": [int(g) for g in active],
+                      "n_groups_launch": G0, "spec_hash": e.spec_hash})
+
+    def _reform(x, old, new):
+        return _membership.reform_params(x, old, new, pcfg0.chunk_bytes)
+
+    state, prev_active, bufs, eng = None, None, [], None
+    pcfg = pcfg0
+    t0 = time.time()
+    for seg in segs:
+        if seg.stop <= start and seg.stop < e.steps:
+            continue  # fully replayed by the checkpoint (keep the last seg)
+        pcfg = _membership.epoch_config(pcfg0, seg.active, synchronous=sync)
+        eng = ProtocolEngine(
+            bundle, pcfg, e.build_schedule(), with_attack=with_attack,
+            acc_fn=acc, eval_set=(ex, ey), track_delta=e.track_delta,
+            metrics_every=e.metrics_every, device=dev)
+        if state is None:
+            state = eng.init_state(e.seed)
+            if start > 0:
+                if resume_active != seg.active:
+                    raise ValueError(
+                        f"checkpoint at step {start} was saved with active "
+                        f"groups {resume_active}, but this plan's epoch "
+                        f"there has {seg.active} — the checkpoint does not "
+                        "belong to this membership plan")
+                state, _ = ck.restore(e.ckpt_dir, start, state, dev)
+                stream.skip(start)
+        elif prev_active != seg.active:
+            opt = state.opt
+            if opt:
+                opt = AdamWState(_reform(opt.m, prev_active, seg.active),
+                                 _reform(opt.v, prev_active, seg.active),
+                                 opt.count)
+            state = state._replace(
+                params=_reform(state.params, prev_active, seg.active),
+                opt=opt)
+            if e.ckpt_dir:
+                # overwrites the chunk save at this step: a resume of THIS
+                # epoch restores the re-formed state
+                _save(seg.start, state, seg.active)
+        prev_active = seg.active
+
+        seg_stream = _GroupView(stream, pcfg.n_groups)
+        done = max(seg.start, start)
+        while done < seg.stop:
+            n = seg.stop - done
+            if e.ckpt_every:
+                n = min(n, e.ckpt_every - done % e.ckpt_every)
+            state, b = eng.run(state, stream=seg_stream, steps=n,
+                               epoch_steps=e.epoch_steps)
+            bufs.append(b)
+            done += n
+            if e.ckpt_every:
+                _save(done, state, seg.active)
+    if e.ckpt_dir and not e.ckpt_every and start < e.steps:
+        _save(e.steps, state, prev_active)
+    _device.synchronize(dev)
+    wall = time.time() - t0
+
+    mbuf = _concat(bufs)
+    logs = []
+    if "acc" in mbuf:
+        # buffer index j is global step start + j; acc lands where the
+        # global step hits the metrics_every stride
+        for j in range((-start) % e.metrics_every, len(mbuf["acc"]),
+                       e.metrics_every):
+            m = {"step": start + j, "acc": float(mbuf["acc"][j])}
+            if e.track_delta:
+                m["delta"] = float(mbuf["delta"][j])
+                m["l2_diam"] = float(mbuf["l2_diam"][j])
+            logs.append(m)
+
+    final = {"acc": float(eng._acc(state))}
+    if e.track_delta:
+        h = pcfg.n_groups - e.byz.n_byz_servers
+        final["delta"] = float(coordinatewise_diameter_sum(state.params, h))
+        final["l2_diam"] = float(l2_diameter(state.params, h))
+    prov = provenance(e.spec_hash, dev)
+    prov["mesh"] = {"rep": 1, "fsdp": 1, "model": 1}
+    prov["protocol_engine"] = pcfg0.engine
+    prov["membership"] = {
+        "plan_source": plan_source,
+        "events": [_dc.asdict(ev) for ev in plan.events],
+        "epochs": [{"start": s.start, "stop": s.stop,
+                    "active": list(s.active)} for s in segs],
+        "resumed_at": start or None,
+    }
     return RunResult(e, logs, final, wall, prov, netsim=netsim, state=state,
                      buffers=mbuf)
 

@@ -11,12 +11,11 @@ forces ``delivery="trace"``. ``Experiment`` lowers to the internal carriers
 :meth:`to_scenario` (netsim ``Scenario``) — and each lowering checks that
 it kept every shared field.
 
-What the port does not run yet fails at construction, naming its
-``ROADMAP.md`` item: the ``elastic`` runner, membership plans, backend
-options (the port has one sort and no backend switch). What a registered
-preset needs and the port lacks — the checkpointer (``ckpt_every``), the MoE
-and RWKV6 families — fails at run time, before any step, so the preset
-registry still builds every spec.
+Every runner of the JAX package runs here, ``elastic`` (with its
+``membership_plan``) included; backend options fail at construction (the
+port has one sort and no backend switch). What a registered preset needs
+and the port lacks — the MoE and RWKV6 families — fails at run time,
+before any step, so the preset registry still builds every spec.
 """
 from __future__ import annotations
 
@@ -28,6 +27,7 @@ from typing import Any, Callable
 
 from ..configs.paper_models import make_mlp_problem
 from ..core.attacks import GRADIENT_ATTACKS, MODEL_ATTACKS, ByzantineSpec
+from ..core.membership import MembershipPlan, epoch_config
 from ..core.simulator import ByzSGDConfig
 from ..data.pipeline import MixtureSpec, TokenSpec
 from .. import optim as _optim
@@ -82,14 +82,6 @@ RUNNERS = ("stepwise", "fused", "netsim", "protocol", "elastic")
 DELIVERIES = ("uniform", "trace")
 PROTOCOL_ENGINES = ("naive", "sharded")
 
-#: what the port does not run yet -> its ROADMAP.md item
-NOT_PORTED = {
-    "ckpt": "the checkpointer (ROADMAP Queue 1 item 7)",
-    "elastic": "the elastic runner and membership plans (ROADMAP Queue 1 "
-               "item 10)",
-}
-
-
 @dataclass(frozen=True)
 class Experiment:
     """One serializable experiment spec (the JAX package's fields)."""
@@ -137,11 +129,14 @@ class Experiment:
     sort_network: bool = True
     epoch_steps: int | None = None
     protocol_engine: str = "sharded"
-    # -- checkpointing (protocol runner)
+    # -- checkpointing (protocol and elastic runners): the replica-stacked
+    # ByzState every ckpt_every steps into ckpt_dir (presets leave ckpt_dir
+    # to the caller)
     ckpt_every: int | None = None
     ckpt_dir: str | None = None
-    # -- elastic membership (elastic runner)
-    membership_plan: Any = None
+    # -- elastic membership (elastic runner): None means the named netsim
+    # scenario's realized crash windows, or a static fleet
+    membership_plan: MembershipPlan | None = None
 
     # -- construction-time validation -------------------------------------
     def __post_init__(self):
@@ -160,6 +155,19 @@ class Experiment:
                              f"choose from {DELIVERIES}")
         if self.runner == "netsim" and self.delivery != "trace":
             object.__setattr__(self, "delivery", "trace")
+        if self.membership_plan is not None:
+            mp = self.membership_plan
+            if isinstance(mp, dict):
+                mp = MembershipPlan.from_dict(mp)
+                object.__setattr__(self, "membership_plan", mp)
+            if not isinstance(mp, MembershipPlan):
+                raise TypeError("membership_plan must be a MembershipPlan "
+                                f"(got {type(mp).__name__})")
+            if self.runner != "elastic":
+                raise ValueError(
+                    'membership_plan is a runner="elastic" knob (only the '
+                    "elastic runner re-forms the fleet at membership "
+                    f"boundaries); got runner={self.runner!r}")
         if self.runner == "elastic" and self.delivery == "trace":
             raise ValueError(
                 'runner="elastic" needs delivery="uniform": trace delivery '
@@ -167,14 +175,6 @@ class Experiment:
                 "follow a membership change (a scenario still drives the "
                 'elastic run — its realized crash windows become the '
                 "membership plan)")
-        if self.runner == "elastic":
-            raise NotImplementedError(
-                f"runner='elastic': {NOT_PORTED['elastic']} is not ported "
-                "yet; the port runs 'stepwise', 'fused', 'netsim' and "
-                "'protocol'")
-        if self.membership_plan is not None:
-            raise NotImplementedError(
-                f"membership_plan: {NOT_PORTED['elastic']} are not ported yet")
         if self.delivery == "trace" and self.scenario is None:
             raise ValueError('delivery="trace" needs a netsim scenario '
                              "name (Experiment.scenario)")
@@ -213,7 +213,8 @@ class Experiment:
         if self.optimizer not in _optim.OPTIMIZERS:
             raise ValueError(f"unknown optimizer {self.optimizer!r}; "
                              f"registered: {sorted(_optim.OPTIMIZERS)}")
-        if self.optimizer != "sgd" and self.runner != "protocol":
+        if self.optimizer != "sgd" and self.runner not in ("protocol",
+                                                           "elastic"):
             raise ValueError(
                 f"optimizer={self.optimizer!r} needs the protocol/elastic "
                 "runner (the single-host simulator implements the paper's "
@@ -246,7 +247,7 @@ class Experiment:
             raise ValueError("sort_network=False: the port has one sort (the "
                              "compare-exchange network of its kernels)")
         if self.ckpt_every is not None:
-            if self.runner != "protocol":
+            if self.runner not in ("protocol", "elastic"):
                 raise ValueError(
                     'ckpt_every is a runner="protocol"/"elastic" knob (those '
                     "engines own the replica-stacked ByzState that "
@@ -254,7 +255,10 @@ class Experiment:
             if self.ckpt_every < 1:
                 raise ValueError(f"ckpt_every must be >= 1, "
                                  f"got {self.ckpt_every}")
-        elif self.ckpt_dir is not None:
+        elif self.ckpt_dir is not None and self.runner != "elastic":
+            # the elastic runner reads ckpt_dir alone: it resumes from the
+            # latest checkpoint and saves at every membership boundary and
+            # at the end
             raise ValueError("ckpt_dir without ckpt_every does nothing; "
                              "set ckpt_every to emit checkpoints")
         if self.protocol_engine not in PROTOCOL_ENGINES:
@@ -263,8 +267,15 @@ class Experiment:
                              f"choose from {PROTOCOL_ENGINES}")
         # the Table-1 preconditions and registry checks of the lowering
         self.to_config()
-        if self.runner == "protocol":
-            self.to_protocol_config()
+        if self.runner in ("protocol", "elastic"):
+            pcfg = self.to_protocol_config()
+            if self.runner == "elastic" and self.membership_plan is not None:
+                # every epoch of the plan meets Table 1 for its fleet: a
+                # below-floor plan fails here, not mid-run
+                for seg in self.membership_plan.epochs(self.n_workers,
+                                                       self.steps):
+                    epoch_config(pcfg, seg.active,
+                                 synchronous=(self.variant == "sync"))
 
     # -- serialization -----------------------------------------------------
     def to_dict(self) -> dict[str, Any]:
@@ -284,6 +295,9 @@ class Experiment:
             byz["attack_kwargs"] = tuple(
                 (str(k), v) for k, v in byz.get("attack_kwargs", ()))
             d["byz"] = ByzantineSpec(**byz)
+        mp = d.get("membership_plan")
+        if isinstance(mp, dict):
+            d["membership_plan"] = MembershipPlan.from_dict(mp)
         return cls(**d)
 
     @property

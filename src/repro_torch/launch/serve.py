@@ -1,13 +1,19 @@
-"""Batched serving driver (port of ``repro.launch.serve``'s default path):
-random init from a seed, cast to bf16 for single-model serving, one prefill
-of a random batch, then greedy decode.
+"""Batched serving launcher (port of ``repro.launch.serve``): prefill and
+greedy decode of one random prompt batch. Three model sources, by flag:
+
+  * default — random init from a seed, in bf16, one serving model;
+  * ``--ckpt-dir`` — restore a replica-stacked ByzSGD checkpoint and take
+    the coordinate-wise median of the replicas (a Byzantine replica is
+    outvoted at load time), cast to bf16;
+  * ``--ckpt-dir --quorum`` — keep every restored replica live behind
+    :class:`repro_torch.serve.QuorumService` with f = (R - 1) // 3: every
+    token is a quorum read.
 
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --batch 4 --prefill 64 --decode 32
 
 Runs on the GPU; ``--device cpu`` (with ``--reduced``) is for smoke runs.
-Restoring a ByzSGD checkpoint (``--ckpt-dir``, ``--quorum``) waits for the
-checkpointer port; the TPU mesh (``--mesh``) has no counterpart on one card.
+The TPU mesh (``--mesh``) has no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -25,6 +31,32 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def _serve_quorum(args, bundle, pool, dev) -> dict:
+    """--quorum: every restored replica live, every token a quorum read."""
+    from ..serve import QuorumService
+    B, S = args.batch, args.prefill
+    # the cache splits into 4 chunks: round its length up to a multiple
+    svc = QuorumService(pool, bundle, n_slots=B,
+                        max_len=-(-(S + args.decode + 1) // 4) * 4)
+    pf = bundle.make_batch("prefill", B, S,
+                           torch.Generator(device=dev).manual_seed(1))
+    prompts = [row.tolist() for row in pf["tokens"].cpu()]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        outs = svc.generate(prompts, max_new=args.decode)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    rep = svc.report()
+    print(f"[serve] quorum ({rep['rule']}): {rep['committed_tokens']} tokens "
+          f"across {rep['n_replicas']} replicas (f={rep['f']}, "
+          f"{rep['n_active']} active) in {wall:.2f}s "
+          f"({rep['tok_s']:.1f} tok/s) | disagreement "
+          f"{rep['disagreement_rate']:.4f} | ejections {rep['ejections']} | "
+          f"retries {rep['retries']}")
+    print(f"[serve] sample continuation ids: {outs[0][:10]}")
+    return rep
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="phi4-mini-3.8b")
@@ -34,17 +66,38 @@ def main(argv=None):
     ap.add_argument("--decode", type=int, default=32)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a GPU)")
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--quorum", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="restore + median-consolidate a ByzSGD checkpoint")
+    ap.add_argument("--quorum", action="store_true",
+                    help="with --ckpt-dir: serve every restored replica "
+                         "behind quorum reads instead of consolidating")
     args = ap.parse_args(argv)
-    if args.ckpt_dir or args.quorum:
-        raise SystemExit("--ckpt-dir/--quorum need the checkpointer port "
-                         "(ROADMAP.md, queue 1)")
+    if args.quorum and not args.ckpt_dir:
+        raise SystemExit("--quorum serves the replicas of a checkpoint: "
+                         "pass --ckpt-dir")
 
     dev = devmod.resolve(args.device)
     bundle = get_bundle(args.arch, reduced=args.reduced)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = bundle.init(gen, dtype=torch.bfloat16)
+    if args.ckpt_dir:
+        from ..serve import ReplicaPool, checkpoint_groups
+        from ..serve.replica import tree_map
+        step, R = checkpoint_groups(args.ckpt_dir)
+        f = (R - 1) // 3   # the protocol's server tolerance for R groups
+        pool = ReplicaPool.from_checkpoint(args.ckpt_dir, bundle.init,
+                                           step=step, f=f, device=dev)
+        print(f"[serve] restored step {step}: {R} replicas (f={f}) "
+              f"from {args.ckpt_dir}")
+        if args.quorum:
+            return _serve_quorum(args, bundle, pool, dev)
+        with torch.inference_mode():
+            params = tree_map(lambda l: l.to(torch.bfloat16)
+                              if l.dtype == torch.float32 else l,
+                              pool.consolidated())
+        del pool
+        print("[serve] median-consolidated to one serving model")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = bundle.init(gen, dtype=torch.bfloat16)
 
     B, S = args.batch, args.prefill
     max_len = S + args.decode + 1
@@ -74,6 +127,7 @@ def main(argv=None):
           f"{t_dec:.2f}s ({total / max(t_dec, 1e-9):.1f} tok/s on {where})")
     sample = torch.cat(out_tokens, dim=1)[0, :10]
     print(f"[serve] sample continuation ids: {sample.tolist()}")
+    return torch.cat(out_tokens, dim=1)
 
 
 if __name__ == "__main__":

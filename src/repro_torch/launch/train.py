@@ -5,14 +5,20 @@ attack injection, the DMC cadence and loss logging.
   python -m repro_torch.launch.train --arch phi4-mini-3.8b --depth 2 \\
       --groups 4 --T 5 --seq 1024 --batch-per-group 4 --steps 11 \\
       --worker-attack alie --n-byz 1
-  # CPU smoke of a reduced arch
-  python -m repro_torch.launch.train --reduced --device cpu --steps 2 \\
-      --groups 4 --seq 32 --batch-per-group 2 --log-every 1
+  # CPU smoke of a reduced arch, checkpointed every 5 steps; run it again
+  # with a larger --steps to resume from the latest checkpoint
+  python -m repro_torch.launch.train --reduced --device cpu --steps 7 \\
+      --groups 4 --seq 32 --batch-per-group 2 --log-every 1 \\
+      --ckpt-dir /tmp/ck --ckpt-every 5
 
 Runs on the GPU; ``--device cpu`` is for smoke runs. Only ``--mesh 1x1`` is
-taken: a mesh over several cards needs the multi-GPU protocol port, and
-``--ckpt-dir`` the checkpointer port. ``--depth`` keeps the arch's width and
-cuts its depth (``get_bundle(..., depth=...)``).
+taken: a mesh over several cards needs the multi-GPU protocol port.
+``--depth`` keeps the arch's width and cuts its depth (``get_bundle(...,
+depth=...)``). With ``--ckpt-dir`` the run resumes from the latest
+checkpoint there (params, step counter and the run's generator; the token
+stream skips the steps done) and saves every ``--ckpt-every`` steps and at
+the end, each labelled by the steps done (the JAX launcher labels a save
+after step i with i, one step late).
 """
 from __future__ import annotations
 
@@ -24,9 +30,10 @@ from typing import Any
 import torch
 
 from .. import device as devmod
+from ..checkpoint import checkpointer as ck
 from ..core import protocol
 from ..core.attacks import ByzantineSpec
-from ..data.pipeline import token_stream
+from ..data.pipeline import DeviceTokenStream, TokenSpec
 from ..models.registry import get_bundle
 from ..optim.schedules import inverse_linear
 
@@ -75,9 +82,6 @@ def main(argv=None) -> TrainRun:
         raise SystemExit(f"--mesh {args.mesh} needs the multi-GPU protocol "
                          "port (ROADMAP.md, queue 1 item 9); one card takes "
                          "--mesh 1x1")
-    if args.ckpt_dir:
-        raise SystemExit("--ckpt-dir needs the checkpointer port (ROADMAP.md,"
-                         " queue 1 item 7)")
     dev = devmod.resolve(args.device)
     G = args.groups or 1
     bundle = get_bundle(args.arch, reduced=args.reduced, depth=args.depth)
@@ -92,7 +96,17 @@ def main(argv=None) -> TrainRun:
         engine=args.engine, byz=byz)
 
     t0 = time.perf_counter()
-    state = protocol.make_init_fn(bundle, pcfg, dev)(0)
+    latest = ck.latest_step(args.ckpt_dir) if args.ckpt_dir else None
+    if latest is None:
+        state = protocol.make_init_fn(bundle, pcfg, dev)(0)
+    else:
+        # the params tree comes from the manifest, so no second model is
+        # initialized only to be overwritten
+        state, _ = ck.restore(args.ckpt_dir, latest,
+                              protocol.ByzState(None, 0, None), dev)
+        print(f"[train] restored checkpoint at step {state.t} from "
+              f"{args.ckpt_dir}")
+    start = state.t
     step = protocol.make_train_step(
         bundle, pcfg, inverse_linear(args.lr, 0.005),
         with_attack=bool(args.worker_attack or args.server_attack))
@@ -103,11 +117,12 @@ def main(argv=None) -> TrainRun:
           f"{G} groups (f_w={f_w}, f_ps={f_ps}), init "
           f"{time.perf_counter() - t0:.1f}s")
 
-    stream = token_stream(0, bundle.cfg.vocab, G,
-                          args.batch_per_group, args.seq, args.steps,
-                          device=dev)
+    stream = DeviceTokenStream(0, TokenSpec(bundle.cfg.vocab, args.seq), G,
+                               args.batch_per_group, dev)
+    stream.skip(start)
     t0 = time.perf_counter()
-    for i, batch in enumerate(stream):
+    for i in range(start, args.steps):
+        batch = {k: v[0] for k, v in stream.next(1).items()}
         ts = time.perf_counter()
         state = step(state, batch)
         devmod.synchronize(dev)
@@ -120,6 +135,10 @@ def main(argv=None) -> TrainRun:
             run.losses.append((i, loss))
             print(f"[train] step {i:5d} loss {loss:8.4f} "
                   f"({time.perf_counter() - t0:.1f}s)")
+        if args.ckpt_dir and (state.t % args.ckpt_every == 0
+                              or state.t == args.steps):
+            ck.save(args.ckpt_dir, state.t, state)
+            print(f"[train] checkpoint @ {state.t}")
     p0 = protocol.consolidate(state.params, pcfg)
     devmod.synchronize(dev)
     print(f"[train] done: {args.steps} steps, {p0.numel() / 1e6:.1f}M params,"

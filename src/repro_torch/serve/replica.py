@@ -1,10 +1,13 @@
 """`ReplicaPool` — n independent parameter replicas behind one read surface
-(port of ``repro.serve.replica``; restoring a pool from a ByzSGD checkpoint
-waits for the checkpointer port).
+(port of ``repro.serve.replica``).
 
 The pool holds a nested dict whose leaves are ``[R, ...]`` replica stacks,
 as the JAX pool does, plus the declared tolerance f and a host-side
-liveness mask that quorum ejections flip.
+liveness mask that quorum ejections flip. Replica sources: one trusted
+model broadcast (:meth:`ReplicaPool.from_params`), a live ``[R, ...]``
+stack (:meth:`ReplicaPool.from_stacked`), or a replica-stacked ByzSGD
+checkpoint (:meth:`ReplicaPool.from_checkpoint`, the replica count read
+from its manifest by :func:`checkpoint_groups`).
 """
 from __future__ import annotations
 
@@ -14,8 +17,25 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..agg import rules
+from .. import agg
+from ..checkpoint import checkpointer as ck
 from ..core.attacks import ByzantineSpec, inject_models
+
+
+def checkpoint_groups(ckpt_dir: str, step: int | None = None
+                      ) -> tuple[int, int]:
+    """(step, n_replicas) of a replica-stacked checkpoint (the latest step
+    by default), read from the manifest: any ``params`` leaf's leading dim
+    is the replica count."""
+    if step is None:
+        step = ck.latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {ckpt_dir!r}")
+    for name, info in ck.read_manifest(ckpt_dir, step)["leaves"].items():
+        if "params" in name.split("/")[0] and info["shape"]:
+            return step, int(info["shape"][0])
+    raise ValueError(f"checkpoint {ckpt_dir!r} step {step} has no "
+                     "replica-stacked params leaves")
 
 
 def leaves(tree):
@@ -88,8 +108,36 @@ class ReplicaPool:
     @classmethod
     def from_stacked(cls, stacked, f: int = 0,
                      active: np.ndarray | None = None) -> "ReplicaPool":
-        """Adopt an existing ``[R, ...]`` stack."""
+        """Adopt an existing ``[R, ...]`` stack (e.g. ``state.tree.unflatten
+        (state.params)`` of a live protocol state)."""
         return cls(params=stacked, f=f, active=active)
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, init_params=None, *,
+                        step: int | None = None, f: int = 0,
+                        device=None) -> "ReplicaPool":
+        """Restore a replica-stacked ByzSGD checkpoint (latest step by
+        default) onto ``device`` (the GPU unless ``"cpu"`` is asked). The
+        replica count and the param tree come from the manifest; the leaves
+        are ``[R, *shape]`` views of the one restored ``[R, P]`` stack.
+        ``init_params(gen) -> single-replica params`` (``bundle.init`` or an
+        MLP init), when given, is called once on the CPU to check that the
+        checkpoint holds that model."""
+        from ..core.protocol import ByzState, tree_from_manifest
+        from ..core.simulator import FlatTree
+        step, _ = checkpoint_groups(ckpt_dir, step)
+        tree = tree_from_manifest(ck.read_manifest(ckpt_dir, step)["leaves"])
+        if init_params is not None:
+            want = FlatTree.from_params(
+                init_params(torch.Generator().manual_seed(0)))
+            have = list(zip(tree.paths, tree.shapes))
+            if have != list(zip(want.paths, want.shapes)):
+                raise ValueError(
+                    f"checkpoint {ckpt_dir!r} step {step} holds another "
+                    f"model than init_params: {have}")
+        like = ByzState(params=None, t=0, gen=None, tree=tree)
+        state, _ = ck.restore(ckpt_dir, step, like, device, params_only=True)
+        return cls(params=tree.unflatten(state.params), f=f)
 
     # -- reads -------------------------------------------------------------
     def single(self, i: int = 0):
@@ -102,12 +150,15 @@ class ReplicaPool:
 
     def consolidated(self):
         """Median-of-active-replicas -> one serving model (the DMC rule
-        applied at read time)."""
+        applied at read time; the median kernel on the card)."""
         idx = torch.as_tensor(np.flatnonzero(self.active))
-        return tree_map(
-            lambda l: rules.median_stack(
-                l.index_select(0, idx.to(l.device)).float()).to(l.dtype),
-            self.params)
+
+        def med(l):
+            x = l.index_select(0, idx.to(l.device))
+            out = agg.dispatch.cwise_median(x.reshape(x.shape[0], -1).float())
+            return out.reshape(l.shape[1:]).to(l.dtype)
+
+        return tree_map(med, self.params)
 
     # -- fault injection / membership --------------------------------------
     def corrupt(self, spec: ByzantineSpec,

@@ -58,14 +58,14 @@ def test_agg_backends_name_the_dispatch_routes():
 
 
 def test_exp_tables_equal_jax_for_the_ports_entries():
-    """Runners: the reference's rows but ``elastic`` (ROADMAP item 10),
-    with the same deliveries; models: equal; presets: the reference's rows
-    of every preset the port registers."""
+    """Runners: the reference's rows, ``elastic`` included, with the same
+    deliveries; models: equal; presets: the reference's rows of every
+    preset the port registers."""
     out = _main("repro_torch.exp")
     runners, models, presets = out.strip().split("\n\n")
     assert runners == exp.runners_table()
     mine, ref = _rows(runners), _rows(jpresets.runners_table())
-    ref = [r for r in ref if r[0] != "`elastic`"]
+    assert "`elastic`" in [r[0] for r in mine]
     assert [r[0] for r in mine] == [r[0] for r in ref]
     assert [r[2] for r in mine] == [r[2] for r in ref]
     assert models == jpresets.models_table()

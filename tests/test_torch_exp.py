@@ -1,10 +1,11 @@
 """The port's Experiment API against ``repro.exp``: the single-host,
-netsim, serve and lm presets hash alike and lower to the same netsim
-scenarios, specs round-trip, what is not ported fails at construction (or,
-for a registered preset, at run time before any step), ``run("smoke")``
-trains on the CPU through the stepwise and fused runners, the netsim runner
-carries the JAX package's cluster accounting and staleness, and the protocol
-runner trains an MLP and the reduced transformer."""
+netsim, serve, elastic and lm presets hash alike and lower to the same
+netsim scenarios, specs round-trip, what is invalid fails at construction
+as in JAX (what is not ported, for a registered preset, at run time before
+any step), ``run("smoke")`` trains on the CPU through the stepwise and fused
+runners, the netsim runner carries the JAX package's cluster accounting and
+staleness, the protocol runner trains an MLP and the reduced transformer,
+and the serve presets run and checkpoint."""
 import dataclasses
 import json
 
@@ -19,7 +20,8 @@ NETSIM = ("netsim/baseline_uniform", "netsim/byzantine_plus_slow",
           "netsim/crash_storm", "netsim/heavy_tail_stragglers",
           "netsim/membership_churn", "netsim/partitioned_dmc")
 PORTED = tuple(sorted(
-    ("alie_workers", "clean_async", "clean_sync", "lie_server",
+    ("alie_workers", "clean_async", "clean_sync", "elastic/netsim_churn",
+     "elastic/planned_churn", "elastic/static", "lie_server",
      "lm/moe_tiny", "lm/rwkv_tiny", "lm/tfm_tiny", "quickstart",
      "reversed_server", "serve/ckpt_lie_server", "serve/ckpt_smoke",
      "smoke", "sync_filters") + NETSIM))
@@ -46,11 +48,12 @@ def test_overrides_hash_alike_and_presets_listed():
 @pytest.mark.parametrize("kw,err,match", [
     (dict(runner="netsim"), ValueError, "needs a netsim scenario"),
     (dict(runner="protocol"), ValueError, "n_workers == n_servers"),
-    (dict(runner="elastic"), NotImplementedError, "item 10"),
+    (dict(runner="elastic"), ValueError, "n_workers == n_servers"),
     (dict(runner="elastic", delivery="trace", scenario="crash_storm"),
      ValueError, 'needs delivery="uniform"'),
     (dict(delivery="trace"), ValueError, "needs a netsim scenario"),
-    (dict(membership_plan={"events": []}), NotImplementedError, "item 10"),
+    (dict(membership_plan={"events": []}), ValueError,
+     'runner="elastic" knob'),
     (dict(agg_backend="pallas"), ValueError, "no backend option"),
     (dict(sort_network=False), ValueError, "one sort"),
     (dict(model="tfm_tiny"), ValueError, 'runner="protocol" only'),
@@ -63,12 +66,32 @@ def test_not_ported_and_invalid_fail_at_construction(kw, err, match):
         exp.Experiment(**kw)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(runner="elastic"), dict(membership_plan={"events": []}),
+    dict(runner="stepwise", ckpt_every=5),
+    dict(runner="fused", ckpt_dir="/nowhere"),
+    dict(runner="elastic", n_workers=5, f_workers=1, ckpt_dir="/nowhere"),
+    dict(runner="elastic", n_workers=5, f_workers=1, optimizer="adamw")])
+def test_elastic_and_checkpoint_fields_validate_as_in_jax(kw):
+    """The elastic runner, membership plans and the checkpoint fields are
+    taken or refused at construction exactly as JAX takes or refuses them
+    (same exception type; same spec hash where taken)."""
+    try:
+        ref = jexp.Experiment(**kw)
+    except ValueError as err:
+        with pytest.raises(type(err)):
+            exp.Experiment(**kw)
+        return
+    mine = exp.Experiment(**kw)
+    assert mine.to_dict() == ref.to_dict()
+    assert mine.spec_hash == ref.spec_hash
+
+
 @pytest.mark.parametrize("name,item", [
-    ("lm/moe_tiny", "item 8"), ("lm/rwkv_tiny", "item 8"),
-    ("serve/ckpt_smoke", "item 7")])
+    ("lm/moe_tiny", "item 8"), ("lm/rwkv_tiny", "item 8")])
 def test_not_ported_fail_at_run(name, item, monkeypatch):
-    """Registered presets whose family or checkpointer is not ported yet
-    construct, and raise from ``exp.run`` before any step."""
+    """Registered presets whose family is not ported yet construct, and
+    raise from ``exp.run`` before any step."""
     from repro_torch.core import protocol
     monkeypatch.setattr(protocol.ProtocolEngine, "run", None)
     with pytest.raises(NotImplementedError, match=item):
@@ -92,6 +115,29 @@ def test_protocol_runner_trains_on_the_cpu(name, kw):
     else:
         accs = [m["acc"] for m in res.logs] + [res.final["acc"]]
         assert np.all(np.isfinite(accs)) and accs[-1] > accs[0]
+
+
+@pytest.mark.parametrize("name", ["serve/ckpt_smoke",
+                                  "serve/ckpt_lie_server"])
+def test_serve_presets_run_and_checkpoint(name, tmp_path):
+    """The serve presets train through the protocol runner on the CPU and
+    leave their replica-stacked checkpoints every 5 steps, which the port's
+    pool restores (the lie server's replica is outvoted by the
+    consolidated read)."""
+    from repro_torch.serve import ReplicaPool, checkpoint_groups
+    d = str(tmp_path / "ck")
+    res = exp.run(name, ckpt_dir=d, device="cpu")
+    assert res.state.t == 10 and res.final["acc"] > 0.5
+    assert checkpoint_groups(d) == (10, 5)
+    assert checkpoint_groups(d, step=5) == (5, 5)
+    pool = ReplicaPool.from_checkpoint(d, res.experiment.build_problem()[0],
+                                       f=1, device="cpu")
+    flat = res.state.tree.flatten(pool.params, lead=1)
+    assert torch.equal(flat, res.state.params)
+    cons = res.state.tree.flatten(pool.consolidated())
+    honest = res.state.params[:4] if "lie" in name else res.state.params
+    assert bool(((cons >= honest.min(0).values)
+                 & (cons <= honest.max(0).values)).all())
 
 
 def test_run_defaults_to_the_gpu():

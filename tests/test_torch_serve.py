@@ -1,7 +1,9 @@
 """repro_torch.serve: the tests/test_serve.py gates on the port (quorum reads
 under every model attack x both read rules, detector, pool, batcher,
 service), plus end-to-end parity: the JAX and the port's QuorumService on
-the same converted params generate identical tokens."""
+the same converted params generate identical tokens, and on a JAX
+checkpoint of a reduced transformer restored by each package's
+``ReplicaPool.from_checkpoint``."""
 import types
 
 import jax
@@ -163,6 +165,24 @@ def test_consolidated_outvotes_corruption():
     with pytest.raises(ValueError, match="tolerance"):
         ReplicaPool.from_params(p, 5, f=1).corrupt(
             ByzantineSpec(server_attack="random", n_byz_servers=2), _gen(3))
+
+
+def test_consolidated_reads_through_the_median_dispatch(monkeypatch):
+    """The consolidated read goes through ``agg.dispatch.cwise_median``
+    (the median kernel on a CUDA tensor), once per leaf, over the active
+    replicas only."""
+    p = _tiny_params(2)
+    pool = ReplicaPool.from_params(p, 5, f=1).corrupt(
+        ByzantineSpec(server_attack="reversed", n_byz_servers=1))
+    seen = []
+    inner = agg.dispatch.cwise_median
+    monkeypatch.setattr(agg.dispatch, "cwise_median",
+                        lambda x, **k: seen.append(x.shape) or inner(x, **k))
+    assert pool.deactivate(4)
+    cons = pool.consolidated()
+    assert len(seen) == len(p) and all(n == 4 for n, _ in seen)
+    for k in p:
+        assert torch.equal(cons[k], p[k])
 
 
 def test_corrupt_leaves_broadcast_source_untouched():
@@ -353,3 +373,52 @@ def test_jax_and_port_services_generate_identical_tokens(rule, attack):
     assert tout == jout
     assert ([i for _, i in tsvc.report()["ejections"]]
             == [i for _, i in jsvc.report()["ejections"]])
+
+
+def test_jax_checkpoint_served_token_identical_to_the_jax_service(tmp_path):
+    """A replica-stacked JAX checkpoint of the reduced transformer (f32
+    activations; four equal replicas, the last one reversed): restored by
+    each package's ``ReplicaPool.from_checkpoint`` (the replica count from
+    the manifest) and served by each ``QuorumService``, the two commit the
+    same tokens and eject the same replica."""
+    import jax.numpy as jnp
+
+    from repro.checkpoint import checkpointer as jck
+    from repro.core import protocol as jproto
+    from repro_torch.serve import checkpoint_groups
+    over = dict(act_dtype="float32")
+    jb = jax_bundle("phi4-mini-3.8b", reduced=True, **over)
+    tb = get_bundle("phi4-mini-3.8b", reduced=True, **over)
+    p_np = numpy_params(jb.cfg, seed=7)
+
+    def stack(a):
+        s = np.stack([a] * R)
+        s[-1] = -s[-1]
+        return jnp.asarray(s)
+
+    d = str(tmp_path / "ck")
+    jck.save(d, 5, jproto.ByzState(
+        params=jax.tree.map(stack, p_np), t=jnp.asarray(5, jnp.int32),
+        key=jax.random.PRNGKey(0)))
+    assert checkpoint_groups(d) == (5, R)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, jb.cfg.vocab, n).tolist() for n in (5, 8, 3)]
+
+    jpool = JaxReplicaPool.from_checkpoint(d, jb.init, f=F)
+    jsvc = JaxQuorumService(jpool, jb, n_slots=2, max_len=32)
+    jout = jsvc.generate(prompts, max_new=6)
+
+    tpool = ReplicaPool.from_checkpoint(d, tb.init, f=F, device="cpu")
+    assert tpool.n_replicas == R
+    for k, v in tpool.single(0)["blocks"]["attn"].items():
+        np.testing.assert_array_equal(v.numpy(),
+                                      p_np["blocks"]["attn"][k])
+    tout, tsvc = _serve(tpool, tb, prompts, 6)
+    assert tout == jout
+    assert ([i for _, i in tsvc.report()["ejections"]]
+            == [i for _, i in jsvc.report()["ejections"]] == [R - 1])
+    with pytest.raises(ValueError, match="another model"):
+        ReplicaPool.from_checkpoint(d, get_bundle("phi4-mini-3.8b",
+                                                  reduced=True,
+                                                  d_model=64).init,
+                                    f=F, device="cpu")
