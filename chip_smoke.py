@@ -89,6 +89,26 @@
    uninterrupted and killed at step 12 and resumed, bit-identical (steps/s,
    final accuracy above 0.2, peak memory, the median launches of the
    joiner's seeding); ``elastic/netsim_churn`` finite.
+13. The zoo: the MoE and RWKV6 families. (a) The flash forward at
+   qwen3-moe's heads (``[1, 1024, 64/4, 64]``, bf16, causal) against its
+   plain version, timed as in 2. (b) qwen3-moe-235b-a22b at full width,
+   depth 2 of 94 (four bf16 replicas of the full depth would not fit one
+   card), random bf16 weights, phase 4's quorum run (4 replicas, replica 3
+   ``reversed``, f = 1, 4 slots, 8 requests of 64-1024 prompt tokens, 16
+   new tokens): token-identical to an honest single replica, every request
+   equal to its own B = 1 prefill and decode (each slot routes alone), the
+   flash forward and the median launched; tok/s, the R = 1 ratio, peak
+   memory and a profiler window. (c) rwkv6-3b at full width, depth 2,
+   through ``launch/train.py`` with phase 10's argv: finite, falling
+   losses, peak memory under 80 GB, the median, the Gram and the
+   selection launched at least once a step; steps/s, and a two-step
+   profiler window with the WKV scan's share (its ranges, and the backward
+   nodes of the ops they ran). (d) rwkv6-3b at full width and full depth,
+   with (b)'s requests and gates (no attention: the median only); 8
+   requests over 4 slots refill every slot, so the per-request check holds
+   the state reset. (e) ``lm/moe_tiny`` and ``lm/rwkv_tiny`` in float32
+   (activations and replicas) as phase 9, card against CPU, every MDA
+   selection equal; then both presets as registered on the card.
 
 Phases print on earlier lines; the line before the last holds the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -225,68 +245,72 @@ def bound(nbytes: float, ops: float, peak_ops: float):
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def flash_phase(dev):
+def flash_row(dev, B, S, H, kvH, hd, window, tag="kernel"):
+    """The flash forward at ``[B, S, H/kvH, hd]`` bf16, causal: error
+    against the plain version, two launches bit-equal, and the times of the
+    kernel, the plain version and SDPA, cold in L2, beside the bound."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    B, H, kvH, hd = N_REPLICAS, 24, 8, 128      # R*H = 96 rows, phi4 heads
-    rows = []
-    # serving's prefills (S 128 and 1000, causal and windowed) and the
-    # protocol run's shape (S 1024)
-    for S, window in ((128, 0), (1000, 0), (1000, 256), (1024, 0)):
-        g = torch.Generator(device=dev).manual_seed(S + window)
-        q = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
-        k = torch.randn((B, S, kvH, hd), generator=g, device=dev).bfloat16()
-        v = torch.randn((B, S, kvH, hd), generator=g, device=dev).bfloat16()
-        o, lse = ops.flash_attention(q, k, v, causal=True, window=window)
-        o2, lse2 = ops.flash_attention(q, k, v, causal=True, window=window)
-        po, plse = attention_ref(q, k, v, causal=True, window=window,
-                                 return_lse=True)
-        torch.cuda.synchronize()
-        same = torch.equal(o, o2) and torch.equal(lse, lse2)
-        if not same:
-            raise AssertionError(f"flash forward S={S} window={window} is "
-                                 f"not deterministic")
-        err = (o.float() - po.float()).abs().max().item()
-        lse_err = (lse - plse).abs().max().item()
-        # o: one bf16 step of the output, and the plain version's bf16
-        # rounding of p (as the JAX oracle's); lse: f32 summation order
-        torch.testing.assert_close(o.float(), po.float(), rtol=1e-2, atol=1e-2)
-        torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-4)
-        iters = 20 if S > 500 else 100
-        ms = cold_ms(lambda *t: ops.flash_attention(*t, causal=True,
-                                                    window=window),
-                     (q, k, v), iters)
-        plain_ms = cold_ms(lambda *t: attention_ref(*t, causal=True,
-                                                    window=window),
-                           (q, k, v), max(iters // 4, 5))
-        if window:
-            i = torch.arange(S, device=dev)
-            mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
-            lib = dict(attn_mask=mask)
-        else:
-            lib = dict(is_causal=True)
-        library_ms = cold_ms(lambda *t: F.scaled_dot_product_attention(
-            *(x.transpose(1, 2) for x in t), enable_gqa=True, **lib),
-            (q, k, v), iters)
-        # the work these inputs need: visible (q, k) pairs only
-        i = np.arange(S)
-        lo = np.maximum(0, i - window + 1) if window else 0
-        pairs = int(np.sum(i + 1 - lo))
-        flops = 4.0 * hd * pairs * B * H                    # QK^T and PV
-        nbytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * kvH * hd) \
-            + 4.0 * B * H * S
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-        log(f"[kernel] flash_attention S={S} window={window} rows={B * H}: "
-            f"max|o-plain|={err:.3g} max|lse-plain|={lse_err:.3g}, two "
-            f"launches bit-equal {same} | kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {b_ms:.4f} "
-            f"ms ({b_by}), {flops / ms / 1e9:.1f} TFLOP/s, "
-            f"{100 * b_ms / ms:.1f} % of the bound"
-            + ptxas_note("tc10fwd_kernel"))
-        rows.append(dict(S=S, window=window, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=b_ms, bound_by=b_by))
-    return rows
+    g = torch.Generator(device=dev).manual_seed(S + window + hd)
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, S, kvH, hd), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, S, kvH, hd), generator=g, device=dev).bfloat16()
+    o, lse = ops.flash_attention(q, k, v, causal=True, window=window)
+    o2, lse2 = ops.flash_attention(q, k, v, causal=True, window=window)
+    po, plse = attention_ref(q, k, v, causal=True, window=window,
+                             return_lse=True)
+    torch.cuda.synchronize()
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    if not same:
+        raise AssertionError(f"flash forward S={S} window={window} is "
+                             f"not deterministic")
+    err = (o.float() - po.float()).abs().max().item()
+    lse_err = (lse - plse).abs().max().item()
+    # o: one bf16 step of the output, and the plain version's bf16
+    # rounding of p (as the JAX oracle's); lse: f32 summation order
+    torch.testing.assert_close(o.float(), po.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-4)
+    iters = 20 if S > 500 else 100
+    ms = cold_ms(lambda *t: ops.flash_attention(*t, causal=True,
+                                                window=window),
+                 (q, k, v), iters)
+    plain_ms = cold_ms(lambda *t: attention_ref(*t, causal=True,
+                                                window=window),
+                       (q, k, v), max(iters // 4, 5))
+    if window:
+        i = torch.arange(S, device=dev)
+        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+        lib = dict(attn_mask=mask)
+    else:
+        lib = dict(is_causal=True)
+    library_ms = cold_ms(lambda *t: F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in t), enable_gqa=True, **lib),
+        (q, k, v), iters)
+    # the work these inputs need: visible (q, k) pairs only, at the true hd
+    i = np.arange(S)
+    lo = np.maximum(0, i - window + 1) if window else 0
+    pairs = int(np.sum(i + 1 - lo))
+    flops = 4.0 * hd * pairs * B * H                        # QK^T and PV
+    nbytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * kvH * hd) \
+        + 4.0 * B * H * S
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    log(f"[{tag}] flash_attention [{B}, {S}, {H}/{kvH}, {hd}] window="
+        f"{window} rows={B * H}: max|o-plain|={err:.3g} "
+        f"max|lse-plain|={lse_err:.3g}, two launches bit-equal {same} | "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.1f} % of the "
+        f"bound" + ptxas_note("tc10fwd_kernel"))
+    return dict(S=S, window=window, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def flash_phase(dev):
+    # R*H = 96 rows, phi4's heads: serving's prefills (S 128 and 1000,
+    # causal and windowed) and the protocol run's shape (S 1024)
+    return [flash_row(dev, N_REPLICAS, S, 24, 8, 128, window)
+            for S, window in ((128, 0), (1000, 0), (1000, 256), (1024, 0))]
 
 
 def median_phase(dev):
@@ -432,14 +456,15 @@ def serve_phase(dev):
 def profile_window(svc, prompts, max_new: int = 8):
     """Where the serve time goes: one short quorum run (a prefill of 256
     tokens per slot, then decode) under torch.profiler."""
-    _profile(f"{len(prompts)} x 256-token prefill + {max_new} tokens each on "
-             f"{svc.pool.n_replicas} replicas",
-             lambda: svc.generate(prompts, max_new=max_new))
+    return _profile(f"{len(prompts)} x 256-token prefill + {max_new} tokens "
+                    f"each on {svc.pool.n_replicas} replicas",
+                    lambda: svc.generate(prompts, max_new=max_new))
 
 
-def _profile(label: str, fn) -> float:
+def _profile(label: str, fn, keep: bool = False):
     """Run ``fn`` under torch.profiler: device busy share of the wall time
-    and the kernels that take the most device time."""
+    and the kernels that take the most device time (with ``keep``, also the
+    profiler and the wall in µs)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -447,14 +472,19 @@ def _profile(label: str, fn) -> float:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # kernels only: a record_function range also shows on the device's
+    # timeline, as a span that would count its gaps as busy
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
     busy_us = sum(e.self_device_time_total for e in events)
     log(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}% of wall)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:6d} x  {e.key[:90]}")
+    if keep:
+        return busy_us / wall_us, prof, wall_us
     return busy_us / wall_us
 
 
@@ -1015,8 +1045,10 @@ def _token_tables(rng, G, q_w, q_ps, T, steps):
             np.stack([pick(q_ps, True) for _ in range(steps // T)]))
 
 
-def protocol_reference_phase(dev):
-    """lm/tfm_tiny (f32) through the ProtocolEngine: card vs CPU."""
+def protocol_reference_phase(dev, preset: str = "lm/tfm_tiny",
+                             arch: str = "phi4-mini-3.8b", **over):
+    """``preset``'s model (``arch`` reduced, f32 activations, ``over``
+    config fields) through the ProtocolEngine: card vs CPU."""
     import dataclasses
 
     from repro_torch.agg import registry
@@ -1025,12 +1057,12 @@ def protocol_reference_phase(dev):
     from repro_torch.core.quorum import TraceDelivery
     from repro_torch.exp import presets
     from repro_torch.models.registry import get_bundle
-    e = presets.get("lm/tfm_tiny")
+    e = presets.get(preset)
     pcfg = dataclasses.replace(e.to_protocol_config(), byz=ByzantineSpec(
         worker_attack="alie", n_byz_workers=1))
     T, G = pcfg.T, pcfg.n_groups
     steps = 2 * T + 1
-    bundle = get_bundle("phi4-mini-3.8b", reduced=True, act_dtype="float32")
+    bundle = get_bundle(arch, reduced=True, act_dtype="float32", **over)
     rng = np.random.default_rng(SEED)
     tables = _token_tables(rng, G, pcfg.q_workers, pcfg.q_servers, T, steps)
     spec = e.to_dict()
@@ -1064,14 +1096,14 @@ def protocol_reference_phase(dev):
             wall = time.perf_counter() - t0
         finally:
             registry._REGISTRY["mda"] = mda
-        log(f"[protocol-ref] {key}: {steps} steps in {wall:.1f} s")
+        log(f"[protocol-ref] {preset} {key}: {steps} steps in {wall:.1f} s")
     if not torch.isfinite(out["card"]).all():
         raise AssertionError("non-finite params on the card")
     same = (len(sels["cpu"]) == len(sels["card"]) == steps
             and all(torch.equal(a, b) for a, b in zip(sels["cpu"],
                                                       sels["card"])))
     err = (out["card"] - out["cpu"]).abs().max().item()
-    log(f"[protocol-ref] lm/tfm_tiny f32 (P = {out['cpu'].shape[1]}, G = "
+    log(f"[protocol-ref] {preset} f32 (P = {out['cpu'].shape[1]}, G = "
         f"{G}, ALIE x1), {steps} steps, 2 gathers: card kernels vs CPU plain "
         f"versions max|params diff|={err:.3g} (max|param| "
         f"{out['cpu'].abs().max().item():.3g}); every MDA selection matched "
@@ -1403,7 +1435,7 @@ def _ckpt_root(need: int) -> Path:
     raise AssertionError(f"no disk holds the {need / 1e9:.2f} GB checkpoint")
 
 
-def _quorum_run(pool, bundle, prompts, label: str):
+def _quorum_run(pool, bundle, prompts, label: str, tag: str = "ckpt"):
     """8 requests through QuorumService(median, n_slots=4) over ``pool``;
     the flash forward's and the median's launches counted from 0."""
     from repro_torch.kernels.cwise_median import ops as median_ops
@@ -1422,7 +1454,7 @@ def _quorum_run(pool, bundle, prompts, label: str):
     got = {"flash_attention": flash_ops.flash_attention.launches,
            "cwise_median": median_ops.cwise_median.launches}
     rep = svc.report()
-    log(f"[ckpt] {label}: {rep['committed_tokens']} tokens in {wall:.2f} s "
+    log(f"[{tag}] {label}: {rep['committed_tokens']} tokens in {wall:.2f} s "
         f"({rep['tok_s']:.2f} tok/s), disagreement "
         f"{rep['disagreement_rate']:.4f}, ejections {rep['ejections']}, "
         f"launches {got}")
@@ -1673,6 +1705,261 @@ def elastic_phase(dev):
                        peak_gb=peak_gb, seeding=churn_seeding)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the zoo — the MoE and RWKV6 families at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, RWKV_ARCH = "qwen3-moe-235b-a22b", "rwkv6-3b"
+# (arch, depth, tag, new tokens of the profiler window): qwen3-moe at depth
+# 2 (one bf16 copy 11.05 GB; four replicas, one corrupted, 55 GB);
+# rwkv6-3b at its full depth (5.81 GB a copy), whose window decodes 2
+# tokens: each of its decode steps is ~23k launches, and the profiler's
+# parse of a window grows with the launches
+ZOO_SERVE = ((MOE_ARCH, 2, "moe-serve", 8),
+             (RWKV_ARCH, None, "rwkv-serve", 2))
+# phase 10's run with the RWKV6 family
+ZOO_TRAIN_ARGV = ["--arch", RWKV_ARCH] + PROTO_ARGV[2:]
+
+
+def _single_run(bundle, params, prompt, max_len: int, dev):
+    """One request alone: a B = 1 prefill and greedy decode to MAX_NEW."""
+    c = bundle.init_caches(1, max_len=max_len, n_chunks=4, device=dev)
+    lg, c = bundle.prefill(params, {"tokens": torch.tensor(
+        [prompt], device=dev)}, c)
+    out = [int(lg.argmax(-1))]
+    for _ in range(MAX_NEW - 1):
+        lg, c = bundle.decode(params, c, {"token": torch.tensor(
+            [out[-1:]], device=dev)})
+        out.append(int(lg.argmax(-1)))
+    return out
+
+
+def zoo_serve_phase(dev, arch: str, depth, tag: str, window_new: int):
+    """13 (b) / (d): phase 4's quorum run on a zoo arch at full width,
+    random bf16 weights: token-identical to an honest single replica, every
+    request equal to its own B = 1 run (the MoE's routing per slot, the
+    RWKV6 state reset per request), the kernels of the path launched."""
+    from repro_torch.core.attacks import ByzantineSpec
+    from repro_torch.models.registry import get_bundle, get_config
+    from repro_torch.serve import QuorumService, ReplicaPool
+    from repro_torch.serve.replica import leaves
+    bundle = get_bundle(arch, depth=depth)
+    cfg, full = bundle.cfg, get_config(arch).n_layers
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device=dev).manual_seed(SEED),
+                         dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in leaves(params))
+    cut = (f"depth {cfg.n_layers} of {full} (cut: four replicas of the "
+           f"full depth would need {4 * 2 * n / cfg.n_layers * full / 1e9:.0f}"
+           f" GB)" if cfg.n_layers < full else f"full depth {full}")
+    log(f"[{tag}] {cfg.name} ({cfg.family}) at full width (d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}"
+        + (f", {cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, "
+           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}"
+           if cfg.family == "moe" else f", d_ff {cfg.d_ff}, "
+           f"{cfg.d_model // cfg.ssm_head_dim} heads of {cfg.ssm_head_dim}")
+        + f"), {cut}: {n / 1e9:.3f} B params, {2 * n / 1e9:.2f} GB a bf16 "
+        f"copy, init {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(64, 1025, size=N_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    max_len = -(-(int(lens.max()) + MAX_NEW + 1) // 64) * 64
+    pool = ReplicaPool.from_params(params, N_REPLICAS, f=F_BYZ).corrupt(
+        ByzantineSpec(server_attack="reversed", n_byz_servers=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    outs, rep, got = _quorum_run(
+        pool, bundle, prompts, f"{N_REPLICAS} replicas (f={F_BYZ}, replica "
+        f"{N_REPLICAS - 1} reversed), prompts {lens.tolist()}", tag)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    base, base_rep, _ = _quorum_run(ReplicaPool.from_params(params, 1, f=0),
+                                    bundle, prompts, "honest single replica",
+                                    tag)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        single = [_single_run(bundle, params, p, max_len, dev)
+                  for p in prompts]
+        torch.cuda.synchronize()
+    log(f"[{tag}] quorum run {rep['tok_s']:.2f} tok/s against "
+        f"{base_rep['tok_s']:.2f} for one replica (R = 1 ratio "
+        f"{rep['tok_s'] / base_rep['tok_s']:.3f}); peak device memory "
+        f"{peak_gb:.1f} GB; ejections {rep['ejections']}; the {N_REQUESTS} "
+        f"B = 1 runs {time.perf_counter() - t0:.1f} s")
+    if outs != base:
+        bad = [i for i, (a, b) in enumerate(zip(outs, base)) if a != b]
+        raise AssertionError(f"{cfg.name}: requests {bad} differ from the "
+                             f"honest single replica")
+    if outs != single:
+        bad = [i for i, (a, b) in enumerate(zip(outs, single)) if a != b]
+        raise AssertionError(f"{cfg.name}: requests {bad} differ from their "
+                             f"own B = 1 runs")
+    if any(len(o) != MAX_NEW for o in outs):
+        raise AssertionError("a request did not reach max_new tokens")
+    need = ("flash_attention", "cwise_median") if cfg.family == "moe" \
+        else ("cwise_median",)                  # RWKV6 has no attention
+    for k in need:
+        if got[k] <= 0:
+            raise AssertionError(f"{k} was not launched by the {tag} run")
+    log(f"[{tag}] token-identical to the honest single replica and every "
+        f"request to its own B = 1 run ({N_REQUESTS} x {MAX_NEW} tokens, "
+        f"{rep['refills']} refills); sample {outs[0][:8]}; launches {got}")
+    with torch.inference_mode():
+        profile_window(QuorumService(pool, bundle, n_slots=N_SLOTS,
+                                     max_len=320, n_chunks=4),
+                       [rng.integers(0, cfg.vocab, 256).tolist()
+                        for _ in range(N_SLOTS)], max_new=window_new)
+    return got, dict(tok_s=rep["tok_s"], base_tok_s=base_rep["tok_s"],
+                     peak_gb=peak_gb)
+
+
+def scan_share(prof, name: str = "wkv_chunked") -> dict:
+    """What the ``name`` ranges (the scan's forward and its remat
+    recompute) and the backward nodes of the ops they ran (matched by
+    autograd sequence number) cost: their kernels' device time (the
+    ranges' own spans on the device's timeline left out), the host time
+    the union of their intervals covers, and their kernel launches."""
+    cpu = torch.autograd.DeviceType.CPU
+    evs = prof.events()
+    ranges = [e for e in evs if e.name == name and e.device_type == cpu]
+
+    def subtree(roots):
+        seen, stack = {}, list(roots)
+        while stack:
+            e = stack.pop()
+            if e.id not in seen:
+                seen[e.id] = e
+                stack.extend(e.cpu_children)
+        return seen
+
+    fwd = subtree(ranges)
+    seqs = {e.sequence_nr for e in fwd.values() if e.sequence_nr >= 0}
+    bwd_roots = [e for e in evs
+                 if e.name.startswith("autograd::engine::evaluate")
+                 and e.sequence_nr in seqs]
+    bwd = {k: e for k, e in subtree(bwd_roots).items() if k not in fwd}
+
+    def device_us(part):
+        return sum(k.duration for e in part.values() for k in e.kernels
+                   if k.name != name)
+
+    host_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in ranges + bwd_roots):
+        host_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return dict(calls=len(ranges), fwd_device_us=device_us(fwd),
+                bwd_device_us=device_us(bwd), host_us=host_us,
+                launches=sum("LaunchKernel" in e.name
+                             for e in (*fwd.values(), *bwd.values())))
+
+
+def zoo_train_phase(dev):
+    """13 (c): phase 10's protocol run with rwkv6-3b at full width, depth
+    2, through ``launch/train.py``; launches counted from 0 around the run;
+    a two-step profiler window with the WKV scan's share."""
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.launch import train
+    from repro_torch.models import rwkv6
+    counters = _counters()
+    scan = rwkv6.wkv_chunked
+
+    def ranged(*a, **k):
+        with torch.profiler.record_function("wkv_chunked"):
+            return scan(*a, **k)
+
+    rwkv6.wkv_chunked = ranged
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        run = train.main(ZOO_TRAIN_ARGV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        losses = [loss for _, loss in run.losses]
+        warm = run.step_s[1:]
+        log(f"[zoo-train] rwkv6-3b full width (d_model 2560, 40 heads of "
+            f"64, d_ff 8960, vocab 65536), depth 2 of 32 (cut as phase 10: "
+            f"~14 bytes a param a group), P = {run.n_params:,}, G = 4, f_w = "
+            f"1 (ALIE x1), T = 5, {PROTO_STEPS} steps of 4 x 1024 tokens per "
+            f"group: {PROTO_STEPS / sum(run.step_s):.3f} steps/s over all "
+            f"steps, {len(warm) / sum(warm):.3f} after the first (first "
+            f"{run.step_s[0]:.2f} s, then {np.mean(warm):.3f} s each), "
+            f"train.main wall {wall:.1f} s, peak device memory "
+            f"{peak_gb:.1f} GB")
+        log("[zoo-train] loss per step " + json.dumps(
+            [(i, round(x, 4)) for i, x in run.losses]))
+        log("[zoo-train] launches " + json.dumps(got) + " | per step "
+            + json.dumps({k: round(v / PROTO_STEPS, 2)
+                          for k, v in got.items()}))
+        if not np.all(np.isfinite(losses)) or len(losses) != PROTO_STEPS:
+            raise AssertionError(f"rwkv6 losses not finite: {losses}")
+        if not np.mean(losses[-3:]) < losses[0]:
+            raise AssertionError(f"rwkv6 loss did not fall: {losses}")
+        if peak_gb >= 80:
+            raise AssertionError(f"peak device memory {peak_gb:.1f} GB")
+        for k in ("gram", "subset_diameters", "cwise_median"):
+            if got[k] < PROTO_STEPS:
+                raise AssertionError(f"{k} was launched {got[k]} times in "
+                                     f"{PROTO_STEPS} rwkv6 protocol steps")
+        extra = list(token_stream(SEED + 1, run.bundle.cfg.vocab, 4, 4,
+                                  1024, 2, device=dev))
+        state = run.state
+
+        def two_steps():
+            nonlocal state
+            for b in extra:
+                state = run.step(state, b)
+
+        busy, prof, wall_us = _profile("protocol rwkv6-3b depth 2, 2 steps",
+                                       two_steps, keep=True)
+        sh = scan_share(prof)
+        dev_ms = (sh["fwd_device_us"] + sh["bwd_device_us"]) / 1e3
+        log(f"[zoo-train] the WKV scan in that window: {sh['calls']} calls "
+            f"(forward and remat recompute), device {dev_ms:.1f} ms "
+            f"(forward {sh['fwd_device_us'] / 1e3:.1f}, backward "
+            f"{sh['bwd_device_us'] / 1e3:.1f}) = "
+            f"{100 * dev_ms * 1e3 / wall_us:.1f} % of the wall, host "
+            f"{sh['host_us'] / 1e3:.1f} ms = "
+            f"{100 * sh['host_us'] / wall_us:.1f} % of the wall; "
+            f"{sh['launches'] / 2:.0f} launches a step")
+    finally:
+        rwkv6.wkv_chunked = scan
+    del run, extra, state, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, dict(peak_gb=peak_gb, busy=busy, scan=sh)
+
+
+def zoo_reference_phase(dev):
+    """13 (e): ``lm/moe_tiny`` and ``lm/rwkv_tiny`` in float32 (activations
+    and replicas) card against CPU as phase 9; then both presets as
+    registered (the MoE's bf16 replicas) on the card, their launches
+    counted from 0 around each run."""
+    from repro_torch import exp
+    counters = _proto_counters()
+    total = {k: 0 for k in counters}
+    for preset, arch in (("lm/moe_tiny", MOE_ARCH),
+                         ("lm/rwkv_tiny", RWKV_ARCH)):
+        protocol_reference_phase(dev, preset, arch, param_dtype="float32")
+        for c in counters.values():
+            c.launches = 0
+        res = exp.run(preset, device=dev)
+        torch.cuda.synchronize()
+        for k, c in counters.items():
+            total[k] += c.launches
+        log(f"[protocol] exp.run({preset!r}) on the card: {res.summary()}; "
+            f"acc (negative eval loss) log "
+            + json.dumps([(m["step"], round(m["acc"], 4))
+                          for m in res.logs]))
+        if not np.isfinite(res.final["acc"]):
+            raise AssertionError(f"{preset}: non-finite eval loss")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs an "
@@ -1730,8 +2017,23 @@ def main() -> int:
     netsim_launches, _ = netsim_train_phase(dev, train_results["busy"])
     resume_launches = resume_phase(dev)
     elastic_launches, _ = elastic_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 13: the zoo. (a) the flash forward at qwen3-moe's heads
+    flash.append(flash_row(dev, 1, 1024, 64, 4, 64, 0, tag="zoo-kernel"))
+    zoo_launches = []
+    for zs in ZOO_SERVE[:1]:                                    # (b)
+        zoo_launches.append(zoo_serve_phase(dev, *zs)[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+    zoo_launches.append(zoo_train_phase(dev)[0])                # (c)
+    for zs in ZOO_SERVE[1:]:                                    # (d)
+        zoo_launches.append(zoo_serve_phase(dev, *zs)[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+    zoo_launches.append(zoo_reference_phase(dev))               # (e)
     for part in (ckpt_launches, netsim_launches, resume_launches,
-                 elastic_launches):
+                 elastic_launches, *zoo_launches):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
 

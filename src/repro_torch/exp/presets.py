@@ -6,10 +6,9 @@ presets.
 :func:`get` applies field overrides with ``dataclasses.replace``
 (re-validating). The ``netsim/*`` presets name their scenario and the
 matching threat model, with ``runner="netsim"``: :func:`repro_torch.exp.run`
-simulates the cluster and trains over the realized trace. ``lm/moe_tiny``
-and ``lm/rwkv_tiny`` need the zoo port: they construct, and ``exp.run``
-raises before any step. ``python -m repro_torch.exp`` prints the tables
-below.
+simulates the cluster and trains over the realized trace. The three
+``lm/*`` presets train a reduced dense transformer, MoE and RWKV6 through
+the protocol. ``python -m repro_torch.exp`` prints the tables below.
 """
 from __future__ import annotations
 
@@ -145,7 +144,7 @@ register(Experiment(name="elastic/netsim_churn", scenario="membership_churn",
 # model family (dense transformer / MoE / RWKV6), reduced configs on the Zipf
 # token task. G=4 co-located groups satisfy Table 1 (n_w >= 3·1+1 workers,
 # n_ps >= 3·0+2 servers). The "acc" metric is the NEGATIVE eval loss (higher
-# is better). MoE and RWKV6 wait for the zoo port (ROADMAP Queue 1 item 8).
+# is better). ``moe_tiny`` keeps qwen3-moe's bf16 replicas (param_dtype).
 _LM_COMMON = dict(
     runner="protocol", n_workers=4, f_workers=1, n_servers=4, f_servers=0,
     T=5, steps=12, batch=4, data="tokens_tiny", schedule="constant",

@@ -12,10 +12,9 @@ forces ``delivery="trace"``. ``Experiment`` lowers to the internal carriers
 it kept every shared field.
 
 Every runner of the JAX package runs here, ``elastic`` (with its
-``membership_plan``) included; backend options fail at construction (the
-port has one sort and no backend switch). What a registered preset needs
-and the port lacks — the MoE and RWKV6 families — fails at run time,
-before any step, so the preset registry still builds every spec.
+``membership_plan``) included, and every registered preset runs; backend
+options fail at construction (the port has one sort and no backend
+switch).
 """
 from __future__ import annotations
 
@@ -40,8 +39,8 @@ from ..optim import schedules as _schedules
 #: model registry. ``{"hidden", "depth"}`` entries are MLPs, trainable by
 #: every runner; ``{"arch", "reduced", ...overrides}`` entries are zoo
 #: architectures (lowered by ``models.registry.get_bundle``), which train
-#: through ``runner="protocol"`` only. Of the zoo families the dense
-#: transformer is ported; MoE and RWKV6 wait (ROADMAP Queue 1 item 8).
+#: through ``runner="protocol"`` only (the dense transformer, MoE and
+#: RWKV6 families).
 MODELS: dict[str, dict[str, Any]] = {
     "mlp_h32": {"hidden": 32, "depth": 2},
     "mlp_h64": {"hidden": 64, "depth": 2},
@@ -431,8 +430,8 @@ class Experiment:
 
     def build_bundle(self):
         """The protocol-ready bundle of the named model: the zoo
-        :class:`~repro_torch.models.registry.ModelBundle` for arch entries
-        (raises for a family not ported yet), or the MLP problem wrapped in
+        :class:`~repro_torch.models.registry.ModelBundle` for arch entries,
+        or the MLP problem wrapped in
         a :class:`~repro_torch.core.protocol.ProblemBundle`."""
         m = MODELS[self.model]
         if "arch" in m:

@@ -12,7 +12,10 @@ greedy decode of one random prompt batch. Three model sources, by flag:
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --batch 4 --prefill 64 --decode 32
 
-Runs on the GPU; ``--device cpu`` (with ``--reduced``) is for smoke runs.
+``--arch`` takes every arch the port runs (``models.registry.PORTED_IDS``);
+the decode steps the B rows together (a MoE routes them as one group, as
+the JAX driver does). Runs on the GPU; ``--device cpu`` (with
+``--reduced``) is for smoke runs.
 The TPU mesh (``--mesh``) has no counterpart on one card.
 """
 from __future__ import annotations
@@ -23,7 +26,7 @@ import time
 import torch
 
 from .. import device as devmod
-from ..models.registry import get_bundle
+from ..models.registry import PORTED_IDS, get_bundle
 
 
 def _sync(dev):
@@ -59,7 +62,7 @@ def _serve_quorum(args, bundle, pool, dev) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="phi4-mini-3.8b")
+    ap.add_argument("--arch", default="phi4-mini-3.8b", choices=PORTED_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prefill", type=int, default=64)

@@ -5,13 +5,17 @@ attack injection, the DMC cadence and loss logging.
   python -m repro_torch.launch.train --arch phi4-mini-3.8b --depth 2 \\
       --groups 4 --T 5 --seq 1024 --batch-per-group 4 --steps 11 \\
       --worker-attack alie --n-byz 1
+  # the RWKV6 family (or --arch qwen3-moe-235b-a22b for the MoE)
+  python -m repro_torch.launch.train --arch rwkv6-3b --depth 2 --groups 4
   # CPU smoke of a reduced arch, checkpointed every 5 steps; run it again
   # with a larger --steps to resume from the latest checkpoint
   python -m repro_torch.launch.train --reduced --device cpu --steps 7 \\
       --groups 4 --seq 32 --batch-per-group 2 --log-every 1 \\
       --ckpt-dir /tmp/ck --ckpt-every 5
 
-Runs on the GPU; ``--device cpu`` is for smoke runs. Only ``--mesh 1x1`` is
+``--arch`` takes every arch the port runs (``models.registry.PORTED_IDS``:
+the dense, MoE and RWKV6 families). Runs on the GPU; ``--device cpu`` is
+for smoke runs. Only ``--mesh 1x1`` is
 taken: a mesh over several cards needs the multi-GPU protocol port.
 ``--depth`` keeps the arch's width and cuts its depth (``get_bundle(...,
 depth=...)``). With ``--ckpt-dir`` the run resumes from the latest
@@ -34,7 +38,7 @@ from ..checkpoint import checkpointer as ck
 from ..core import protocol
 from ..core.attacks import ByzantineSpec
 from ..data.pipeline import DeviceTokenStream, TokenSpec
-from ..models.registry import get_bundle
+from ..models.registry import PORTED_IDS, get_bundle
 from ..optim.schedules import inverse_linear
 
 
@@ -53,7 +57,7 @@ class TrainRun:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="phi4-mini-3.8b")
+    ap.add_argument("--arch", default="phi4-mini-3.8b", choices=PORTED_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--depth", type=int, default=None,
                     help="override n_layers (the width stays)")

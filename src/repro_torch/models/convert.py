@@ -1,8 +1,9 @@
-"""Carry state from the JAX package into the port: transformer params, MLP
-params, and a whole ByzSGD simulator state.
+"""Carry state from the JAX package into the port: zoo model params (the
+dense, MoE and RWKV6 families), MLP params, and a whole ByzSGD simulator
+state.
 
-Both packages use one tree (``embed/table``, ``blocks/<...>`` stacked
-``[L, ...]``, ``ln_f/scale``) and one weight layout (``[in, out]``, applied
+Both packages use one tree per family (``embed/table``, ``blocks/<...>``
+stacked ``[L, ...]``, ``ln_f``) and one weight layout (``[in, out]``, applied
 as ``x @ w``), so the conversion is leaf by leaf with no transpose. The
 input is the JAX tree already moved to the host as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
@@ -28,16 +29,20 @@ def _leaf(a, device, dtype):
 def params_from_jax(tree_of_numpy, cfg: ArchConfig, device="cuda",
                     dtype: torch.dtype | None = None):
     """Nested dict of numpy arrays -> nested dict of tensors on ``device``
-    (cast to ``dtype`` when given). Checks the tree against ``cfg``."""
+    (cast to ``dtype`` when given). Checks the tree against ``cfg``: a few
+    leaves that fix the family's widths."""
     blocks = tree_of_numpy["blocks"]
-    L = cfg.n_layers
-    want = {("attn", "wq"): (L, cfg.d_model, cfg.n_heads * cfg.hd),
-            ("attn", "wk"): (L, cfg.d_model, cfg.n_kv_heads * cfg.hd),
-            ("mlp", "w_down"): (L, cfg.d_ff, cfg.d_model)}
-    for (a, b), shape in want.items():
-        got = tuple(np.shape(blocks[a][b]))
-        if got != shape:
-            raise ValueError(f"blocks/{a}/{b} is {got}; cfg {cfg.name} "
+    for path, shape in _checked_leaves(cfg).items():
+        node = blocks
+        for k in path:
+            if not isinstance(node, dict) or k not in node:
+                raise ValueError(f"blocks/{'/'.join(path)} is missing; cfg "
+                                 f"{cfg.name} ({cfg.family}) expects "
+                                 f"{shape}")
+            node = node[k]
+        if tuple(np.shape(node)) != shape:
+            raise ValueError(f"blocks/{'/'.join(path)} is "
+                             f"{tuple(np.shape(node))}; cfg {cfg.name} "
                              f"expects {shape}")
 
     def walk(t):
@@ -46,6 +51,22 @@ def params_from_jax(tree_of_numpy, cfg: ArchConfig, device="cuda",
         return _leaf(t, device, dtype)
 
     return walk(tree_of_numpy)
+
+
+def _checked_leaves(cfg: ArchConfig) -> dict:
+    """``blocks`` leaf path -> the shape ``cfg`` gives it, per family."""
+    L, D = cfg.n_layers, cfg.d_model
+    if cfg.family == "ssm":
+        K = cfg.ssm_head_dim
+        return {("Wr",): (L, D, D), ("cWv",): (L, cfg.d_ff, D),
+                ("u",): (L, D // K, K)}
+    attn = {("attn", "wq"): (L, D, cfg.n_heads * cfg.hd),
+            ("attn", "wk"): (L, D, cfg.n_kv_heads * cfg.hd)}
+    if cfg.family == "moe":
+        E = cfg.n_experts
+        return {**attn, ("moe", "router"): (L, D, E),
+                ("moe", "w_down"): (L, E, cfg.d_ff, D)}
+    return {**attn, ("mlp", "w_down"): (L, cfg.d_ff, D)}
 
 
 def mlp_params_from_jax(tree_of_numpy, device="cuda") -> dict:
@@ -96,7 +117,8 @@ def protocol_state_from_jax(jstate, device="cuda", seed: int = 0):
     """The numpy leaves of a JAX protocol ``ByzState`` (e.g.
     ``jax.tree.map(np.asarray, state)``) -> the port's ``ByzState``: the
     replica-stacked params flattened in JAX leaf order into one ``[G, P]``
-    stack (with the :class:`~repro_torch.core.simulator.FlatTree` that
+    stack in their own dtype (with the
+    :class:`~repro_torch.core.simulator.FlatTree` that
     records the layout), the step counter on the host, a generator seeded
     with ``seed`` in place of the JAX key (the two never draw alike), and
     the optimizer state — ``()`` for sgd, AdamW's moments flattened like the
@@ -108,11 +130,14 @@ def protocol_state_from_jax(jstate, device="cuda", seed: int = 0):
     tree = FlatTree.from_params(jstate.params, lead=1)
 
     def flat(t):
+        # the leaves' own dtype (bf16 replicas stay bf16), not the
+        # simulator's float32 of ``FlatTree.flatten``
         def tensors(x):
             if isinstance(x, dict):
                 return {k: tensors(v) for k, v in x.items()}
             return _leaf(x, device, None)
-        return tree.flatten(tensors(t), lead=1)
+        return torch.cat([leaf.reshape(leaf.shape[0], -1)
+                          for leaf in tree.leaves(tensors(t))], dim=-1)
 
     opt = jstate.opt
     if opt is not None and len(opt) == 3 and isinstance(opt[0], dict):

@@ -28,6 +28,26 @@ from ..kernels.flash_attention.ref import NEG, attention_ref
 
 
 # ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_dense(gen, fan_in, shape, dtype):
+    """``truncated_normal(-2, 2) / sqrt(fan_in)`` — the JAX ``_init_dense``
+    in law, not in bits — by inverse-CDF sampling in float32, in place (one
+    float32 buffer per leaf), on ``gen.device``."""
+    lo, hi = (0.5 * (1 + math.erf(b / math.sqrt(2))) for b in (-2.0, 2.0))
+    x = torch.rand(shape, generator=gen, device=gen.device)
+    x.mul_(2 * (hi - lo)).add_(2 * lo - 1).erfinv_().mul_(math.sqrt(2))
+    return x.clamp_(-2.0, 2.0).div_(math.sqrt(fan_in)).to(dtype)
+
+
+def init_embedding(gen, vocab, d_model, dtype):
+    """``{"table": 0.02 * normal [vocab, d_model]}`` on ``gen.device``."""
+    return {"table": (0.02 * torch.randn((vocab, d_model), generator=gen,
+                                         device=gen.device)).to(dtype)}
+
+
+# ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
@@ -35,6 +55,23 @@ def rmsnorm(p, x, eps=1e-5):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(shape, dtype=torch.float32, device=None):
+    """``{"scale": ones, "bias": zeros}`` of ``shape`` (``[D]``, or
+    ``[L, D]`` for stacked blocks)."""
+    return {"scale": torch.ones(shape, dtype=dtype, device=device),
+            "bias": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps=1e-5):
+    """float32 statistics (population variance, two passes as ``jnp.var``),
+    cast back to ``x``'s dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"].float()
+            + p["bias"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

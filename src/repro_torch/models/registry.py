@@ -7,13 +7,18 @@ Bundle methods, as in ``repro.models.registry``:
     decode(params, caches, batch) -> (logits, caches)
     init_caches(batch, max_len, n_chunks, device=...) -> caches
     make_batch(kind, B, S, gen) -> concrete batch
-and the replica-batched forms the serving loop uses in place of the JAX
-``vmap`` over replicas:
+and what the serving loop uses in place of the JAX ``vmap`` over replicas
+and slots:
     prefill_replicas(reps, tokens, caches) -> logits [R, B, V]
     decode_replicas(reps, caches, tokens) -> logits [R, B, V]
+    cache_rows(caches, rows) -> views of batch rows ``rows`` (a slot)
+    reset_cache_rows(caches, rows) -> those rows ready for a new request
 
-Only the ``dense`` family is ported so far; the configs of the MoE and RWKV6
-archs of the experiment registry are here, their families are not.
+Families ported: ``dense`` (``transformer.py``: phi4-mini-3.8b,
+h2o-danube-3-4b, phi3-medium-14b, internlm2-20b), ``moe`` (``moe.py``:
+qwen3-moe-235b-a22b, dbrx-132b) and ``ssm`` (``rwkv6.py``: rwkv6-3b).
+``ARCH_IDS`` lists every arch of the reference; the others (qwen2-vl-7b,
+zamba2-1.2b, whisper-small) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,23 +29,39 @@ import torch
 
 from .config import ArchConfig
 
+ARCH_IDS = [
+    "dbrx-132b", "qwen3-moe-235b-a22b", "zamba2-1.2b", "h2o-danube-3-4b",
+    "phi3-medium-14b", "phi4-mini-3.8b", "internlm2-20b", "rwkv6-3b",
+    "qwen2-vl-7b", "whisper-small",
+]
+
 _CONFIG_MODULES = {
-    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3p8b",
-    # configs only: their families (moe, ssm) wait for the zoo port
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
+    "h2o-danube-3-4b": "repro_torch.configs.h2o_danube3_4b",
+    "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3p8b",
+    "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
 }
 
+#: the arch ids the port runs, in ``ARCH_IDS`` order
+PORTED_IDS = [a for a in ARCH_IDS if a in _CONFIG_MODULES]
+
 _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",
+    "moe": "repro_torch.models.moe",
+    "ssm": "repro_torch.models.rwkv6",
 }
 
 
 def get_config(arch_id: str) -> ArchConfig:
+    if arch_id not in ARCH_IDS:
+        raise ValueError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
     if arch_id not in _CONFIG_MODULES:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP.md, queue 1: "
-            f"modules to port); have {sorted(_CONFIG_MODULES)}")
+            f"arch {arch_id!r} is not ported yet (ROADMAP.md, queue 1 item "
+            f"8: the models zoo); have {PORTED_IDS}")
     return importlib.import_module(_CONFIG_MODULES[arch_id]).CONFIG
 
 
@@ -51,8 +72,8 @@ class ModelBundle:
     def __post_init__(self):
         if self.cfg.family not in _FAMILY_MODULES:
             raise NotImplementedError(
-                f"model family {self.cfg.family!r} ({self.cfg.name}) needs "
-                "the zoo port (ROADMAP Queue 1 item 8)")
+                f"model family {self.cfg.family!r} ({self.cfg.name}) is not "
+                "ported yet (ROADMAP.md, queue 1 item 8)")
         self.mod = importlib.import_module(_FAMILY_MODULES[self.cfg.family])
 
     # -- core fns ----------------------------------------------------------
@@ -78,6 +99,12 @@ class ModelBundle:
                     dtype=torch.bfloat16, device=None):
         return self.mod.init_caches(self.cfg, batch, max_len, n_chunks, dtype,
                                     device)
+
+    def cache_rows(self, caches, rows: slice):
+        return self.mod.cache_rows(caches, rows)
+
+    def reset_cache_rows(self, caches, rows: slice):
+        return self.mod.reset_cache_rows(caches, rows)
 
     # -- batch construction --------------------------------------------------
     def make_batch(self, kind: str, B: int, S: int,

@@ -13,8 +13,6 @@ kernel takes all ``R * B * H`` rows in one launch.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -36,45 +34,43 @@ def _norm(cfg: ArchConfig):
 # init
 # ---------------------------------------------------------------------------
 
-def _dense(gen, fan_in, shape, dtype):
-    """``truncated_normal(-2, 2) / sqrt(fan_in)`` — the JAX init in law, not
-    in bits — by inverse-CDF sampling in float32, in place (one float32
-    buffer per leaf)."""
-    lo, hi = (0.5 * (1 + math.erf(b / math.sqrt(2))) for b in (-2.0, 2.0))
-    x = torch.rand(shape, generator=gen, device=gen.device)
-    x.mul_(2 * (hi - lo)).add_(2 * lo - 1).erfinv_().mul_(math.sqrt(2))
-    return x.clamp_(-2.0, 2.0).div_(math.sqrt(fan_in)).to(dtype)
+def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype):
+    """The stacked ``[L, ...]`` q/k/v/o projections of every block."""
+    Lyr, D, hd = cfg.n_layers, cfg.d_model, cfg.hd
+    H, kvH = cfg.n_heads, cfg.n_kv_heads
+    return {"wq": L.init_dense(gen, D, (Lyr, D, H * hd), dtype),
+            "wk": L.init_dense(gen, D, (Lyr, D, kvH * hd), dtype),
+            "wv": L.init_dense(gen, D, (Lyr, D, kvH * hd), dtype),
+            "wo": L.init_dense(gen, H * hd, (Lyr, H * hd, D), dtype)}
 
 
 def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32):
     """Random params on ``gen.device`` in ``dtype`` (the JAX init draws f32;
     serving casts to bf16 — passing ``dtype`` casts leaf by leaf, so the
     float32 copy of the whole model never exists)."""
-    Lyr, D, hd = cfg.n_layers, cfg.d_model, cfg.hd
-    H, kvH, Fd = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    Lyr, D, Fd = cfg.n_layers, cfg.d_model, cfg.d_ff
     dev = gen.device
 
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
 
+    def dense(fan_in, shape):
+        return L.init_dense(gen, fan_in, shape, dtype)
+
     params = {
-        "embed": {"table": (0.02 * torch.randn(
-            (cfg.vocab, D), generator=gen, device=dev)).to(dtype)},
+        "embed": L.init_embedding(gen, cfg.vocab, D, dtype),
         "blocks": {
             "ln_attn": {"scale": ones(Lyr, D)},
-            "attn": {"wq": _dense(gen, D, (Lyr, D, H * hd), dtype),
-                     "wk": _dense(gen, D, (Lyr, D, kvH * hd), dtype),
-                     "wv": _dense(gen, D, (Lyr, D, kvH * hd), dtype),
-                     "wo": _dense(gen, H * hd, (Lyr, H * hd, D), dtype)},
+            "attn": init_attention(gen, cfg, dtype),
             "ln_mlp": {"scale": ones(Lyr, D)},
-            "mlp": {"w_gate": _dense(gen, D, (Lyr, D, Fd), dtype),
-                    "w_up": _dense(gen, D, (Lyr, D, Fd), dtype),
-                    "w_down": _dense(gen, Fd, (Lyr, Fd, D), dtype)},
+            "mlp": {"w_gate": dense(D, (Lyr, D, Fd)),
+                    "w_up": dense(D, (Lyr, D, Fd)),
+                    "w_down": dense(Fd, (Lyr, Fd, D))},
         },
         "ln_f": {"scale": ones(D)},
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"table": _dense(gen, D, (cfg.vocab, D), dtype)}
+        params["lm_head"] = {"table": dense(D, (cfg.vocab, D))}
     return params
 
 
@@ -90,7 +86,13 @@ def layer(params, i: int):
 # training: forward with remat, logits, loss
 # ---------------------------------------------------------------------------
 
-def _block_train(blk, x, rope, cfg: ArchConfig, dtype):
+def swiglu_ffn(blk, h, cfg: ArchConfig, dtype):
+    """The dense block's FFN; a family with another FFN (the MoE) passes
+    its own as ``ffn`` to the functions below."""
+    return L.swiglu(blk["mlp"], h, dtype)
+
+
+def _block_train(blk, x, rope, cfg: ArchConfig, dtype, ffn=swiglu_ffn):
     norm = _norm(cfg)
     q, k, v = L.attention_qkv(blk["attn"], norm(blk["ln_attn"], x),
                               cfg.n_heads, cfg.n_kv_heads, cfg.hd, None,
@@ -99,11 +101,11 @@ def _block_train(blk, x, rope, cfg: ArchConfig, dtype):
                                window=cfg.sliding_window, q_block=cfg.q_block,
                                kv_block=cfg.kv_block)
     x = x + L.attention_out(blk["attn"], attn, dtype)
-    return x + L.swiglu(blk["mlp"], norm(blk["ln_mlp"], x), dtype)
+    return x + ffn(blk, norm(blk["ln_mlp"], x), cfg, dtype)
 
 
 def forward(params, tokens=None, *, cfg: ArchConfig, embeds=None,
-            positions=None, remat: bool = True):
+            positions=None, remat: bool = True, ffn=swiglu_ffn):
     """[B, S] tokens (or [B, S, D] embeds) -> [B, S, D] hidden states.
 
     The JAX layer ``scan`` is a loop over the stacked blocks; with ``remat``
@@ -120,10 +122,10 @@ def forward(params, tokens=None, *, cfg: ArchConfig, embeds=None,
     for i in range(cfg.n_layers):
         blk = layer(params, i)
         if remat:
-            x = checkpoint(_block_train, blk, x, rope, cfg, dtype,
+            x = checkpoint(_block_train, blk, x, rope, cfg, dtype, ffn,
                            use_reentrant=False)
         else:
-            x = _block_train(blk, x, rope, cfg, dtype)
+            x = _block_train(blk, x, rope, cfg, dtype, ffn)
     return _norm(cfg)(params["ln_f"], x)
 
 
@@ -132,12 +134,12 @@ def logits_fn(params, hidden, cfg: ArchConfig):
     return _logits(params, hidden, cfg)
 
 
-def loss(params, batch, *, cfg: ArchConfig):
+def loss(params, batch, *, cfg: ArchConfig, ffn=swiglu_ffn):
     """Mean next-token NLL of ``batch`` (``tokens``, ``labels`` [B, S]),
     the logits streamed by sequence chunks."""
     hidden = forward(params, batch.get("tokens"), cfg=cfg,
                      embeds=batch.get("embeds"),
-                     positions=batch.get("positions"))
+                     positions=batch.get("positions"), ffn=ffn)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return L.cross_entropy_chunked(hidden, table, batch["labels"])
 
@@ -168,16 +170,22 @@ def cache_rows(caches: L.KVCache, rows: slice) -> L.KVCache:
                      caches.length[:, rows])
 
 
+def reset_cache_rows(caches: L.KVCache, rows: slice) -> L.KVCache:
+    """Rows ``rows`` ready for a new request: a prefill rewrites a KV
+    cache from position 0, so nothing is cleared (views)."""
+    return cache_rows(caches, rows)
+
+
 def _logits(params, hidden, cfg: ArchConfig):
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return L.unembed(table, hidden)
 
 
-def _attention_mlp(xs, blocks, rope, cfg, dtype, attend):
+def _attention_mlp(xs, blocks, rope, cfg, dtype, attend, ffn):
     """One block on every replica: per-replica norm and projections (RoPE
     from the precomputed ``rope`` tables), ``attend(qs, ks, vs) ->
     per-replica attention outputs``, then per-replica output projection and
-    MLP."""
+    ``ffn``."""
     norm = _norm(cfg)
     qkv = [L.attention_qkv(blk["attn"], norm(blk["ln_attn"], x), cfg.n_heads,
                            cfg.n_kv_heads, cfg.hd, None, cfg.rope_theta,
@@ -187,11 +195,12 @@ def _attention_mlp(xs, blocks, rope, cfg, dtype, attend):
     out = []
     for blk, x, a in zip(blocks, xs, attn):
         x = x + L.attention_out(blk["attn"], a, dtype)
-        out.append(x + L.swiglu(blk["mlp"], norm(blk["ln_mlp"], x), dtype))
+        out.append(x + ffn(blk, norm(blk["ln_mlp"], x), cfg, dtype))
     return out
 
 
-def prefill_replicas(reps, tokens, caches, *, cfg: ArchConfig):
+def prefill_replicas(reps, tokens, caches, *, cfg: ArchConfig,
+                     ffn=swiglu_ffn):
     """Prefill ``tokens [B, S]`` on R replicas. ``reps``: list of R param
     trees; ``caches``: list of R stacked caches, filled in place. Returns
     last-token logits ``[R, B, V]`` float32."""
@@ -214,13 +223,14 @@ def prefill_replicas(reps, tokens, caches, *, cfg: ArchConfig):
                 kv_block=cfg.kv_block)
             return o.chunk(R)
 
-        xs = _attention_mlp(xs, blocks, rope, cfg, dtype, attend)
+        xs = _attention_mlp(xs, blocks, rope, cfg, dtype, attend, ffn)
     norm = _norm(cfg)
     return torch.stack([_logits(p, norm(p["ln_f"], x[:, -1:]), cfg)[:, 0]
                         for p, x in zip(reps, xs)])
 
 
-def decode_replicas(reps, caches, tokens, *, cfg: ArchConfig):
+def decode_replicas(reps, caches, tokens, *, cfg: ArchConfig,
+                    ffn=swiglu_ffn):
     """One token ``[B, 1]`` per row against each replica's caches (each row
     at its own position, its cache length). Returns logits ``[R, B, V]``
     float32; caches are updated in place."""
@@ -241,7 +251,7 @@ def decode_replicas(reps, caches, tokens, *, cfg: ArchConfig):
                                           window=cfg.sliding_window))
             return out
 
-        xs = _attention_mlp(xs, blocks, rope, cfg, dtype, attend)
+        xs = _attention_mlp(xs, blocks, rope, cfg, dtype, attend, ffn)
     norm = _norm(cfg)
     return torch.stack([_logits(p, norm(p["ln_f"], x), cfg)[:, 0]
                         for p, x in zip(reps, xs)])

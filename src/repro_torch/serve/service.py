@@ -12,7 +12,13 @@ dimensions: slots are the batch rows of one cache whose length is kept per
 row, and replicas are a loop over per-replica params in which each replica
 computes at the shapes a single replica would (so an R = 1 baseline and an
 R = 4 pool give bit-identical honest logits), except the prefill attention,
-which takes every replica's rows in one kernel launch.
+which takes every replica's rows in one kernel launch. The families
+differ only inside the bundle: the MoE and RWKV6 decodes run each slot
+alone at B = 1 shapes (the MoE routes each slot on its own, as the JAX
+service's B = 1 slots do), and a slot's cache is reset before each prefill
+(``bundle.reset_cache_rows``): an RWKV6 state starts from zero for every
+request, where the JAX service carries the slot's last request's state
+into the next (ROADMAP Queue 3).
 
 On top of the device loop: continuous batching
 (:class:`~repro_torch.serve.batcher.ContinuousBatcher`), divergence
@@ -27,7 +33,6 @@ import time
 import numpy as np
 import torch
 
-from ..models.transformer import cache_rows
 from . import quorum
 from .batcher import ContinuousBatcher, Request
 from .replica import ReplicaPool
@@ -123,7 +128,8 @@ class QuorumService:
         s = req.slot
         tokens = torch.tensor([req.prompt], dtype=torch.int64,
                               device=self.device)                # [1, P]
-        slot = [cache_rows(c, slice(s, s + 1)) for c in self.caches]
+        slot = [self.bundle.reset_cache_rows(c, slice(s, s + 1))
+                for c in self.caches]
         logits = self.bundle.prefill_replicas(self.pool.replicas(), tokens,
                                               slot)              # [R, 1, V]
         tok = int(self._read(logits)[0])

@@ -1,11 +1,11 @@
 """The port's Experiment API against ``repro.exp``: the single-host,
 netsim, serve, elastic and lm presets hash alike and lower to the same
 netsim scenarios, specs round-trip, what is invalid fails at construction
-as in JAX (what is not ported, for a registered preset, at run time before
-any step), ``run("smoke")`` trains on the CPU through the stepwise and fused
+as in JAX, ``run("smoke")`` trains on the CPU through the stepwise and fused
 runners, the netsim runner carries the JAX package's cluster accounting and
-staleness, the protocol runner trains an MLP and the reduced transformer,
-and the serve presets run and checkpoint."""
+staleness, the protocol runner trains an MLP and the reduced transformer
+(the MoE and RWKV6 presets: ``test_torch_zoo.py``), and the serve presets
+run and checkpoint."""
 import dataclasses
 import json
 
@@ -85,17 +85,6 @@ def test_elastic_and_checkpoint_fields_validate_as_in_jax(kw):
     mine = exp.Experiment(**kw)
     assert mine.to_dict() == ref.to_dict()
     assert mine.spec_hash == ref.spec_hash
-
-
-@pytest.mark.parametrize("name,item", [
-    ("lm/moe_tiny", "item 8"), ("lm/rwkv_tiny", "item 8")])
-def test_not_ported_fail_at_run(name, item, monkeypatch):
-    """Registered presets whose family is not ported yet construct, and
-    raise from ``exp.run`` before any step."""
-    from repro_torch.core import protocol
-    monkeypatch.setattr(protocol.ProtocolEngine, "run", None)
-    with pytest.raises(NotImplementedError, match=item):
-        exp.run(name, device="cpu")
 
 
 @pytest.mark.parametrize("name,kw", [

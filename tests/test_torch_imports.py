@@ -63,6 +63,7 @@ def test_scan_covers_the_package():
     names = {p.relative_to(ROOT / "src").as_posix() for p in FILES
              if ROOT / "src" in p.parents}
     for mod in ("repro_torch/models/layers.py", "repro_torch/serve/service.py",
+                "repro_torch/models/moe.py", "repro_torch/models/rwkv6.py",
                 "repro_torch/kernels/flash_attention/ops.py",
                 "repro_torch/kernels/cwise_median/ops.py",
                 "repro_torch/kernels/pairwise_sqdist/ops.py",

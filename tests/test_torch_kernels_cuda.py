@@ -75,12 +75,12 @@ def test_flash_kernel_f32_ragged_gqa_and_rows_independent():
         flash_ops.flash_attention(wide, wide, wide)
 
 
-def _bf16_qkv(B, Sq, Skv, H, kvH, seed):
+def _bf16_qkv(B, Sq, Skv, H, kvH, seed, hd=128):
     dev = require_cuda()
     g = torch.Generator(device=dev).manual_seed(seed)
     return tuple(torch.randn(shape, generator=g, device=dev).bfloat16()
-                 for shape in ((B, Sq, H, 128), (B, Skv, kvH, 128),
-                               (B, Skv, kvH, 128)))
+                 for shape in ((B, Sq, H, hd), (B, Skv, kvH, hd),
+                               (B, Skv, kvH, hd)))
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,kvH,causal,window", [
@@ -107,6 +107,21 @@ def test_flash_forward_bf16_tensor_core_kernel(B, Sq, Skv, H, kvH, causal,
                              return_lse=True)
     torch.cuda.synchronize()
     assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    torch.testing.assert_close(o.float(), po.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-4)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+
+
+def test_flash_forward_bf16_at_qwen3_moe_heads():
+    """qwen3-moe's layout: 64 query heads over 4 kv heads (a GQA group of
+    16) of hd 64, padded to 128 by the wrapper, S 1024, causal: against the
+    plain version as above, two launches bit-equal."""
+    q, k, v = _bf16_qkv(1, 1024, 1024, 64, 4, 64, hd=64)
+    o, lse = flash_ops.flash_attention(q, k, v, causal=True)
+    again = flash_ops.flash_attention(q, k, v, causal=True)
+    po, plse = attention_ref(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape
     torch.testing.assert_close(o.float(), po.float(), rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-4)
     assert torch.equal(o, again[0]) and torch.equal(lse, again[1])

@@ -125,6 +125,51 @@ def test_tfm_tiny_protocol_matches_jax():
     _assert_params_close(jend, tend)
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "rwkv6-3b"])
+def test_zoo_protocol_matches_jax_every_selection(arch, monkeypatch):
+    """``lm/moe_tiny``'s and ``lm/rwkv_tiny``'s models (f32 activations;
+    the MoE keeps qwen3-moe's bf16 replicas) through both ``ProtocolEngine``s
+    on replayed tables and numpy batches, G = 4 with an ALIE worker, 7
+    steps at T = 3: every step's MDA selection equal (the quorum weights of
+    every server), and params within the float32 tolerance (the MoE's bf16
+    replicas within one bf16 step: an update can round to a neighbouring
+    bf16 value)."""
+    sel = {"jax": [], "port": []}
+    jq, tq = jproto.quorum_weights, tproto.quorum_weights
+
+    def jrec(d2, idx, f, cfg):
+        w = jq(d2, idx, f, cfg)
+        jax.debug.callback(lambda x: sel["jax"].append(np.asarray(x)), w,
+                           ordered=True)
+        return w
+
+    def trec(d2, idx, f, cfg):
+        w = tq(d2, idx, f, cfg)
+        sel["port"].append(w.numpy().copy())
+        return w
+
+    monkeypatch.setattr(jproto, "quorum_weights", jrec)
+    monkeypatch.setattr(tproto, "quorum_weights", trec)
+    over = dict(act_dtype="float32")
+    jb = jax_bundle(arch, reduced=True, **over)
+    tb = get_bundle(arch, reduced=True, **over)
+    jp, tp = _pcfgs(G=4, byz=dict(worker_attack="alie", n_byz_workers=1))
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, jb.cfg.vocab, (STEPS, 4, 2, 17)).astype(np.int32)
+    batches = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    jend, tend = _run_both(jb, tb, jp, tp, batches, lr=(0.05, 0.05))
+    assert len(sel["jax"]) == len(sel["port"]) == STEPS
+    for a, b in zip(sel["jax"], sel["port"]):
+        np.testing.assert_array_equal(b > 0, a > 0)
+        np.testing.assert_allclose(b, a, rtol=1e-6)
+    want = protocol_state_from_jax(jax.tree.map(np.asarray, jend), "cpu")
+    assert tend.params.dtype == want.params.dtype == (
+        torch.bfloat16 if "moe" in arch else torch.float32)
+    tol = (dict(rtol=2 ** -7, atol=2 ** -12) if "moe" in arch
+           else dict(rtol=RTOL, atol=ATOL))
+    torch.testing.assert_close(tend.params, want.params, **tol)
+
+
 MIX_DIM, HIDDEN, CLASSES, BATCH = 6, 8, 3, 5
 
 
