@@ -109,6 +109,32 @@
    the state reset. (e) ``lm/moe_tiny`` and ``lm/rwkv_tiny`` in float32
    (activations and replicas) as phase 9, card against CPU, every MDA
    selection equal; then both presets as registered on the card.
+14. The rest of the zoo: the vlm, hybrid and audio families. (a) The flash
+   forward at whisper-small's encoder (``[4, 1500, 12/12, 64]``) and cross-
+   attention (Sq 1024 over Skv 1500), both non-causal, at zamba2's shared
+   block (``[4, 1024, 32/32, 64]``) and qwen2-vl's GQA-7
+   (``[4, 1024, 28/4, 128]``), causal; dq and dkv at whisper's encoder
+   shape and qwen2-vl's; each against its plain version, timed as in 2 and
+   8. (b) qwen2-vl-7b at full width and depth through ``launch/serve.py``:
+   a 4 x 1024 prefill of merged embeddings at ``[3, B, S]`` M-RoPE ids and
+   32 decode steps; finite logits, the flash forward launched, peak memory
+   under 80 GB; tok/s and a profiler window's busy share. (c) zamba2-1.2b
+   at full width and depth with phase 13 (b)'s quorum run and gates (the
+   median and the flash forward launched; every request equal to its own
+   B = 1 run, which holds the Mamba2 state reset). (d) zamba2-1.2b at full
+   width, depth 12 (two shared-attention sites) through ``launch/train.py``
+   with phase 10's argv: finite, falling losses, peak memory, the flash
+   forward and backward, the median, the Gram and the selection launched
+   each step; steps/s and the SSD scan's share of a two-step window. (e)
+   whisper-small at full width and depth: serving over 1500 frames (a
+   64-token prompt, 32 decode steps; the cross-attention's flash forward
+   at Sq = 1 launched each layer each step), then ``launch/serve.py --arch
+   whisper-small``; training: 4 protocol steps at G = 4 through
+   ``ProtocolEngine.run`` on numpy frame and Zipf token batches (4 x 1024
+   each), falling loss on a fixed batch, the non-causal flash backward
+   launched. (f) The three families reduced in float32, card against CPU:
+   loss and gradients, prefill and 3 decode steps; zamba2 through the
+   protocol for 2T + 1 steps, every MDA selection equal.
 
 Phases print on earlier lines; the line before the last holds the card's
 name and power limit, the one before it the kernels' JSON record, and the
@@ -245,20 +271,44 @@ def bound(nbytes: float, ops: float, peak_ops: float):
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def flash_row(dev, B, S, H, kvH, hd, window, tag="kernel"):
-    """The flash forward at ``[B, S, H/kvH, hd]`` bf16, causal: error
-    against the plain version, two launches bit-equal, and the times of the
-    kernel, the plain version and SDPA, cold in L2, beside the bound."""
+def _visible_pairs(Sq: int, Skv: int, window: int, causal: bool) -> int:
+    """(q, k) pairs of one (batch, head) that the mask leaves visible."""
+    if not causal:
+        return Sq * Skv
+    i = np.arange(Sq) + (Skv - Sq)
+    lo = np.maximum(0, i - window + 1) if window else 0
+    return int(np.sum(i + 1 - lo))
+
+
+def _sdpa_mask(Sq: int, Skv: int, window: int, causal: bool, dev) -> dict:
+    """The library call's mask arguments for the same attention."""
+    if not causal:
+        return {}
+    if not window:
+        return dict(is_causal=True)
+    i = torch.arange(Sq, device=dev)[:, None] + (Skv - Sq)
+    j = torch.arange(Skv, device=dev)[None]
+    return dict(attn_mask=(j <= i) & (j > i - window))
+
+
+def flash_row(dev, B, S, H, kvH, hd, window, tag="kernel", *, Skv=None,
+              causal: bool = True, main: bool = True):
+    """The flash forward at q ``[B, S, H, hd]``, k/v ``[B, Skv, kvH, hd]``
+    bf16 (Skv = S by default; causal, or not): error against the plain
+    version, two launches bit-equal, and the times of the kernel, the plain
+    version and SDPA, cold in L2, beside the bound. ``main`` marks a row of
+    the serving or protocol path's own shapes (the kernels line's)."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
+    Skv = S if Skv is None else Skv
     g = torch.Generator(device=dev).manual_seed(S + window + hd)
     q = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
-    k = torch.randn((B, S, kvH, hd), generator=g, device=dev).bfloat16()
-    v = torch.randn((B, S, kvH, hd), generator=g, device=dev).bfloat16()
-    o, lse = ops.flash_attention(q, k, v, causal=True, window=window)
-    o2, lse2 = ops.flash_attention(q, k, v, causal=True, window=window)
-    po, plse = attention_ref(q, k, v, causal=True, window=window,
-                             return_lse=True)
+    k = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).bfloat16()
+    v = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).bfloat16()
+    kw = dict(causal=causal, window=window)
+    o, lse = ops.flash_attention(q, k, v, **kw)
+    o2, lse2 = ops.flash_attention(q, k, v, **kw)
+    po, plse = attention_ref(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
     same = torch.equal(o, o2) and torch.equal(lse, lse2)
     if not same:
@@ -271,31 +321,23 @@ def flash_row(dev, B, S, H, kvH, hd, window, tag="kernel"):
     torch.testing.assert_close(o.float(), po.float(), rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-4)
     iters = 20 if S > 500 else 100
-    ms = cold_ms(lambda *t: ops.flash_attention(*t, causal=True,
-                                                window=window),
-                 (q, k, v), iters)
-    plain_ms = cold_ms(lambda *t: attention_ref(*t, causal=True,
-                                                window=window),
-                       (q, k, v), max(iters // 4, 5))
-    if window:
-        i = torch.arange(S, device=dev)
-        mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
-        lib = dict(attn_mask=mask)
-    else:
-        lib = dict(is_causal=True)
+    ms = cold_ms(lambda *t: ops.flash_attention(*t, **kw), (q, k, v), iters)
+    plain_ms = cold_ms(lambda *t: attention_ref(*t, **kw), (q, k, v),
+                       max(iters // 4, 5))
+    lib = _sdpa_mask(S, Skv, window, causal, dev)
     library_ms = cold_ms(lambda *t: F.scaled_dot_product_attention(
         *(x.transpose(1, 2) for x in t), enable_gqa=True, **lib),
         (q, k, v), iters)
     # the work these inputs need: visible (q, k) pairs only, at the true hd
-    i = np.arange(S)
-    lo = np.maximum(0, i - window + 1) if window else 0
-    pairs = int(np.sum(i + 1 - lo))
+    pairs = _visible_pairs(S, Skv, window, causal)
     flops = 4.0 * hd * pairs * B * H                        # QK^T and PV
-    nbytes = 2.0 * (2 * B * S * H * hd + 2 * B * S * kvH * hd) \
+    nbytes = 2.0 * (2 * B * S * H * hd + 2 * B * Skv * kvH * hd) \
         + 4.0 * B * H * S
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    log(f"[{tag}] flash_attention [{B}, {S}, {H}/{kvH}, {hd}] window="
-        f"{window} rows={B * H}: max|o-plain|={err:.3g} "
+    shape = f"{S}" + (f"/{Skv}" if Skv != S else "")
+    log(f"[{tag}] flash_attention [{B}, {shape}, {H}/{kvH}, {hd}] "
+        f"{'causal' if causal else 'non-causal'} "
+        f"window={window} rows={B * H}: max|o-plain|={err:.3g} "
         f"max|lse-plain|={lse_err:.3g}, two launches bit-equal {same} | "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
         f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
@@ -303,7 +345,7 @@ def flash_row(dev, B, S, H, kvH, hd, window, tag="kernel"):
         f"bound" + ptxas_note("tc10fwd_kernel"))
     return dict(S=S, window=window, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, main=main)
 
 
 def flash_phase(dev):
@@ -472,6 +514,7 @@ def _profile(label: str, fn, keep: bool = False):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        t0 = time.perf_counter()
     # kernels only: a record_function range also shows on the device's
     # timeline, as a span that would count its gaps as busy
     events = [e for e in prof.key_averages()
@@ -479,7 +522,8 @@ def _profile(label: str, fn, keep: bool = False):
               and not e.is_user_annotation]
     busy_us = sum(e.self_device_time_total for e in events)
     log(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, device busy "
-        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}% of wall)")
+        f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}% of wall); "
+        f"the trace's parse {time.perf_counter() - t0:.1f} s")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:6d} x  {e.key[:90]}")
@@ -942,32 +986,34 @@ def sdpa_bwd_ms(q, k, v, do, lib: dict) -> float:
 
 
 BWD_CASES = (
-    # label, B, Sq, Skv, H, kvH, hd, window, dtype
-    ("protocol shape", 4, 1024, 1024, 24, 8, 128, 0, torch.bfloat16),
-    ("ragged windowed GQA", 2, 1000, 1000, 24, 8, 128, 256, torch.bfloat16),
-    ("padded hd 32", 4, 64, 64, 4, 2, 32, 0, torch.float32),
+    # label, B, Sq, Skv, H, kvH, hd, window, dtype, causal
+    ("protocol shape", 4, 1024, 1024, 24, 8, 128, 0, torch.bfloat16, True),
+    ("ragged windowed GQA", 2, 1000, 1000, 24, 8, 128, 256, torch.bfloat16,
+     True),
+    ("padded hd 32", 4, 64, 64, 4, 2, 32, 0, torch.float32, True),
 )
 
 
-def flash_bwd_phase(dev):
-    """The dq and dkv kernels against the plain backward, timed."""
+def flash_bwd_phase(dev, cases=BWD_CASES, main: bool = True):
+    """The dq and dkv kernels against the plain backward, timed; ``main``
+    marks rows of the protocol path's own shapes (the kernels line's)."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_bwd_from_delta, flash_delta)
     rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
-    for label, B, Sq, Skv, H, kvH, hd, window, dt in BWD_CASES:
+    for label, B, Sq, Skv, H, kvH, hd, window, dt, causal in cases:
         g = torch.Generator(device=dev).manual_seed(Sq + hd + window)
         q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dt)
         k = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).to(dt)
         v = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).to(dt)
         do = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dt)
-        o, lse = ops.flash_attention(q, k, v, causal=True, window=window)
-        got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+        o, lse = ops.flash_attention(q, k, v, causal=causal, window=window)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                       window=window)
-        again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+        again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                         window=window)
         delta = flash_delta(o, do).contiguous()
-        want = flash_bwd_from_delta(q, k, v, do, lse, delta, causal=True,
+        want = flash_bwd_from_delta(q, k, v, do, lse, delta, causal=causal,
                                     window=window)
         torch.cuda.synchronize()
         # both sides accumulate in float32 and round once at the output:
@@ -987,25 +1033,18 @@ def flash_bwd_phase(dev):
         # the kernels' own operands: hd padded to 128, contiguous
         pad = (lambda t: t if hd == 128 else F.pad(t, (0, 128 - hd)))
         qp, kp, vp, dop = (pad(t).contiguous() for t in (q, k, v, do))
-        kw = dict(scale=hd ** -0.5, causal=True, window=window)
+        kw = dict(scale=hd ** -0.5, causal=causal, window=window)
         dq_ms = cold_ms(lambda *t: ops.flash_bwd_dq(*t, **kw),
                         (qp, kp, vp, dop, lse, delta), 10)
         dkv_ms = cold_ms(lambda *t: ops.flash_bwd_dkv(*t, **kw),
                          (qp, kp, vp, dop, lse, delta), 10)
         plain_ms = cold_ms(lambda *t: flash_bwd_from_delta(
-            *t, causal=True, window=window), (q, k, v, do, lse, delta), 3)
+            *t, causal=causal, window=window), (q, k, v, do, lse, delta), 3)
         # the library's backward of the same attention (dq, dk, dv at once)
-        if window:
-            i = torch.arange(Sq, device=dev)
-            lib = dict(attn_mask=(i[None] <= i[:, None])
-                       & (i[None] > i[:, None] - window))
-        else:
-            lib = dict(is_causal=True)
-        library_ms = sdpa_bwd_ms(q, k, v, do, lib)
+        library_ms = sdpa_bwd_ms(q, k, v, do,
+                                 _sdpa_mask(Sq, Skv, window, causal, dev))
         # the work these inputs need: visible (q, k) pairs, the true hd
-        i = np.arange(Sq)
-        lo = np.maximum(0, i - window + 1) if window else 0
-        pairs = int(np.sum(i + 1 - lo)) * B * H
+        pairs = _visible_pairs(Sq, Skv, window, causal) * B * H
         es = torch.finfo(dt).bits // 8
         qb, kvb = es * B * Sq * H * hd, es * B * Skv * kvH * hd
         vec = 4.0 * B * H * Sq                           # lse or delta
@@ -1018,9 +1057,11 @@ def flash_bwd_phase(dev):
                                else F32_FLOPS)
             rows[name].append(dict(label=label, max_abs_err=max(errs), ms=ms,
                                    plain_ms=plain_ms, library_ms=library_ms,
-                                   bound_ms=b_ms, bound_by=b_by, flops=flops))
+                                   bound_ms=b_ms, bound_by=b_by, flops=flops,
+                                   main=main))
             log(f"[bwd-kernel] {name} {label} [B {B}, S {Sq}/{Skv}, heads "
-                f"{H}/{kvH}, hd {hd}, window {window}, {str(dt)[6:]}]: "
+                f"{H}/{kvH}, hd {hd}, window {window}, {str(dt)[6:]}, "
+                f"{'causal' if causal else 'non-causal'}]: "
                 f"max|dq,dk,dv - plain| {errs[0]:.3g}/{errs[1]:.3g}/"
                 f"{errs[2]:.3g} (tol {atol} + {rtol:.3g} x |plain|; median "
                 f"|plain| {typical[0]:.3g}/{typical[1]:.3g}/"
@@ -1734,11 +1775,14 @@ def _single_run(bundle, params, prompt, max_len: int, dev):
     return out
 
 
-def zoo_serve_phase(dev, arch: str, depth, tag: str, window_new: int):
-    """13 (b) / (d): phase 4's quorum run on a zoo arch at full width,
-    random bf16 weights: token-identical to an honest single replica, every
-    request equal to its own B = 1 run (the MoE's routing per slot, the
-    RWKV6 state reset per request), the kernels of the path launched."""
+def zoo_serve_phase(dev, arch: str, depth, tag: str, window_new: int,
+                    window_prompts: int = N_SLOTS):
+    """13 (b) / (d), 14 (c): phase 4's quorum run on a zoo arch at full
+    width, random bf16 weights: token-identical to an honest single
+    replica, every request equal to its own B = 1 run (the MoE's routing
+    per slot, the RWKV6 and Mamba2 state reset per request), the kernels of
+    the path launched; then a profiler window of ``window_prompts``
+    256-token prompts and ``window_new`` tokens each."""
     from repro_torch.core.attacks import ByzantineSpec
     from repro_torch.models.registry import get_bundle, get_config
     from repro_torch.serve import QuorumService, ReplicaPool
@@ -1757,7 +1801,14 @@ def zoo_serve_phase(dev, arch: str, depth, tag: str, window_new: int):
         f"{cfg.d_model}, vocab {cfg.vocab}"
         + (f", {cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, "
            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}"
-           if cfg.family == "moe" else f", d_ff {cfg.d_ff}, "
+           if cfg.family == "moe" else
+           f", Mamba2 state {cfg.ssm_state}, "
+           f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} SSM heads "
+           f"of {cfg.ssm_head_dim}, the shared block after every "
+           f"{cfg.shared_attn_every} ({cfg.shared_attn_heads} heads of "
+           f"{cfg.d_model // cfg.shared_attn_heads}, d_ff "
+           f"{cfg.shared_attn_d_ff})" if cfg.family == "hybrid" else
+           f", d_ff {cfg.d_ff}, "
            f"{cfg.d_model // cfg.ssm_head_dim} heads of {cfg.ssm_head_dim}")
         + f"), {cut}: {n / 1e9:.3f} B params, {2 * n / 1e9:.2f} GB a bf16 "
         f"copy, init {time.perf_counter() - t0:.1f} s")
@@ -1796,8 +1847,8 @@ def zoo_serve_phase(dev, arch: str, depth, tag: str, window_new: int):
                              f"own B = 1 runs")
     if any(len(o) != MAX_NEW for o in outs):
         raise AssertionError("a request did not reach max_new tokens")
-    need = ("flash_attention", "cwise_median") if cfg.family == "moe" \
-        else ("cwise_median",)                  # RWKV6 has no attention
+    need = ("cwise_median",) if cfg.family == "ssm" \
+        else ("flash_attention", "cwise_median")    # RWKV6 has no attention
     for k in need:
         if got[k] <= 0:
             raise AssertionError(f"{k} was not launched by the {tag} run")
@@ -1808,7 +1859,7 @@ def zoo_serve_phase(dev, arch: str, depth, tag: str, window_new: int):
         profile_window(QuorumService(pool, bundle, n_slots=N_SLOTS,
                                      max_len=320, n_chunks=4),
                        [rng.integers(0, cfg.vocab, 256).tolist()
-                        for _ in range(N_SLOTS)], max_new=window_new)
+                        for _ in range(window_prompts)], max_new=window_new)
     return got, dict(tok_s=rep["tok_s"], base_tok_s=base_rep["tok_s"],
                      peak_gb=peak_gb)
 
@@ -1960,6 +2011,436 @@ def zoo_reference_phase(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the rest of the zoo — qwen2-vl-7b, zamba2-1.2b, whisper-small
+# ---------------------------------------------------------------------------
+
+VLM_ARCH, HYBRID_ARCH, AUDIO_ARCH = ("qwen2-vl-7b", "zamba2-1.2b",
+                                     "whisper-small")
+# (a): the flash forward at the new families' shapes, bf16: whisper's
+# encoder and its cross-attention (non-causal), zamba2's shared block
+# (MHA, hd 64), qwen2-vl's GQA with 7 query heads a kv head
+ZOO2_FLASH = (
+    # B, Sq, H, kvH, hd, Skv, causal
+    (4, 1500, 12, 12, 64, 1500, False),
+    (4, 1024, 12, 12, 64, 1500, False),
+    (4, 1024, 32, 32, 64, 1024, True),
+    (4, 1024, 28, 4, 128, 1024, True),
+)
+ZOO2_BWD = (
+    ("whisper encoder", 4, 1500, 1500, 12, 12, 64, 0, torch.bfloat16, False),
+    ("qwen2-vl GQA-7", 4, 1024, 1024, 28, 4, 128, 0, torch.bfloat16, True),
+)
+# (b): launch/serve.py's default path, full width and depth
+VLM_SERVE_ARGV = ["--arch", VLM_ARCH, "--batch", "4", "--prefill", "1024",
+                  "--decode", "32"]
+# (c): phase 13 (b)'s quorum run; the profiler window prefills 2 slots and
+# decodes 2 tokens each (a zamba2 prefill or decode is ~2k launches a
+# slot-replica, and the trace's parse grows with the launches)
+HYBRID_SERVE = (HYBRID_ARCH, None, "hybrid-serve", 2, 2)
+# (d): phase 10's run at depth 12 (two shared-attention sites)
+HYBRID_TRAIN_ARGV = ["--arch", HYBRID_ARCH, "--depth", "12"] + PROTO_ARGV[4:]
+AUDIO_STEPS, AUDIO_LR = 4, 0.005
+
+
+def zoo2_kernel_phase(dev):
+    """14 (a): the flash forward, dq and dkv at the new families' shapes,
+    each against its plain version and timed as in 2 and 8."""
+    fwd = [flash_row(dev, B, S, H, kvH, hd, 0, tag="zoo2-kernel", Skv=Skv,
+                     causal=causal, main=False)
+           for B, S, H, kvH, hd, Skv, causal in ZOO2_FLASH]
+    return fwd, flash_bwd_phase(dev, ZOO2_BWD, main=False)
+
+
+def _finite_logits(mod, names=("prefill", "decode_step")):
+    """Wrap ``mod``'s prefill and decode so every logits they return is
+    checked; returns (the record, a function that restores them)."""
+    seen = {"calls": 0, "finite": True}
+    saved = {n: getattr(mod, n) for n in names}
+
+    def wrap(fn):
+        def checked(*a, **k):
+            logits, caches = fn(*a, **k)
+            seen["calls"] += 1
+            seen["finite"] &= bool(torch.isfinite(logits).all())
+            return logits, caches
+        return checked
+
+    for n, fn in saved.items():
+        setattr(mod, n, wrap(fn))
+    return seen, lambda: [setattr(mod, n, fn) for n, fn in saved.items()]
+
+
+def vlm_serve_phase(dev):
+    """14 (b): qwen2-vl-7b at full width and depth through
+    ``launch/serve.py``'s default path: a 4 x 1024 prefill of merged bf16
+    embeddings at ``[3, B, S]`` M-RoPE ids, then 32 decode steps; finite
+    logits, the flash forward launched, peak memory; then a profiler
+    window of the same prefill and 8 decode steps on the bundle."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.serve.replica import leaves
+    seen, restore = _finite_logits(transformer)
+    stats = {}
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        flash_ops.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        toks = serve.main(VLM_SERVE_ARGV, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = {"flash_attention": flash_ops.flash_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    cfg = get_bundle(VLM_ARCH).cfg
+    log(f"[vlm-serve] {cfg.name} full width and depth ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, M-RoPE "
+        f"sections 32/16/16): 4 x 1024 prefill {stats['prefill_s']:.3f} s, "
+        f"32 decode steps {stats['decode_s']:.3f} s = {stats['tok_s']:.2f} "
+        f"tok/s, launcher wall {wall:.1f} s (init included), peak device "
+        f"memory {peak_gb:.1f} GB; {seen['calls']} logits calls, all finite "
+        f"{seen['finite']}; launches {launches}; sample "
+        f"{toks[0, :8].tolist()}")
+    if not seen["finite"] or seen["calls"] != 33:
+        raise AssertionError(f"qwen2-vl logits: {seen}")
+    if launches["flash_attention"] < cfg.n_layers:
+        raise AssertionError(f"flash forward launched "
+                             f"{launches['flash_attention']} times")
+    if peak_gb >= 80:
+        raise AssertionError(f"peak device memory {peak_gb:.1f} GB")
+    del toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundle = get_bundle(VLM_ARCH)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(SEED),
+                         dtype=torch.bfloat16)
+    n = sum(t.numel() for t in leaves(params))
+    pf = bundle.make_batch("prefill", 4, 1024,
+                           torch.Generator(device=dev).manual_seed(1))
+
+    def window():
+        with torch.inference_mode():
+            c = bundle.init_caches(4, max_len=1024 + 9, n_chunks=1,
+                                   device=dev)
+            lg, c = bundle.prefill(params, pf, c)
+            for i in range(8):
+                lg, c = bundle.decode(params, c,
+                                      serve.decode_batch(bundle, pf, None, i))
+
+    busy = _profile(f"{VLM_ARCH} ({n / 1e9:.3f} B params bf16) 4 x 1024 "
+                    f"prefill + 8 decode steps", window)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, dict(tok_s=stats["tok_s"], peak_gb=peak_gb, busy=busy,
+                          n_params=n)
+
+
+def hybrid_train_phase(dev):
+    """14 (d): phase 10's protocol run with zamba2-1.2b at full width,
+    depth 12 (two shared-attention sites), through ``launch/train.py``;
+    launches counted from 0 around the run; a two-step profiler window
+    with the SSD scan's share."""
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.launch import train
+    from repro_torch.models import mamba2
+    counters = _proto_counters()
+    scan = mamba2.ssd_chunked
+
+    def ranged(*a, **k):
+        with torch.profiler.record_function("ssd_chunked"):
+            return scan(*a, **k)
+
+    mamba2.ssd_chunked = ranged
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        run = train.main(HYBRID_TRAIN_ARGV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        losses = [loss for _, loss in run.losses]
+        warm = run.step_s[1:]
+        cfg = run.bundle.cfg
+        log(f"[hybrid-train] {cfg.name} full width (d_model {cfg.d_model}, "
+            f"Mamba2 state {cfg.ssm_state}, 64 SSM heads of 64, the shared "
+            f"block's 32 heads of 64 and d_ff {cfg.shared_attn_d_ff}), depth "
+            f"{cfg.n_layers} of 38 (2 shared-attention sites; the full depth"
+            f" would need ~70 GB of replicas before activations), P = "
+            f"{run.n_params:,}, G = 4, f_w = 1 (ALIE x1), T = 5, "
+            f"{PROTO_STEPS} steps of 4 x 1024 tokens per group: "
+            f"{PROTO_STEPS / sum(run.step_s):.3f} steps/s over all steps, "
+            f"{len(warm) / sum(warm):.3f} after the first (first "
+            f"{run.step_s[0]:.2f} s, then {np.mean(warm):.3f} s each), "
+            f"train.main wall {wall:.1f} s, peak device memory "
+            f"{peak_gb:.1f} GB")
+        log("[hybrid-train] loss per step " + json.dumps(
+            [(i, round(x, 4)) for i, x in run.losses]))
+        log("[hybrid-train] launches " + json.dumps(got) + " | per step "
+            + json.dumps({k: round(v / PROTO_STEPS, 2)
+                          for k, v in got.items()}))
+        if not np.all(np.isfinite(losses)) or len(losses) != PROTO_STEPS:
+            raise AssertionError(f"zamba2 losses not finite: {losses}")
+        if not np.mean(losses[-3:]) < losses[0]:
+            raise AssertionError(f"zamba2 loss did not fall: {losses}")
+        if peak_gb >= 80:
+            raise AssertionError(f"peak device memory {peak_gb:.1f} GB")
+        for k in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "gram",
+                  "subset_diameters", "cwise_median"):
+            if got[k] < PROTO_STEPS:
+                raise AssertionError(f"{k} was launched {got[k]} times in "
+                                     f"{PROTO_STEPS} zamba2 protocol steps")
+        extra = list(token_stream(SEED + 1, cfg.vocab, 4, 4, 1024, 2,
+                                  device=dev))
+        state = run.state
+
+        def two_steps():
+            nonlocal state
+            for b in extra:
+                state = run.step(state, b)
+
+        busy, prof, wall_us = _profile(f"protocol {cfg.name} depth 12, 2 "
+                                       f"steps", two_steps, keep=True)
+        sh = scan_share(prof, "ssd_chunked")
+        dev_ms = (sh["fwd_device_us"] + sh["bwd_device_us"]) / 1e3
+        log(f"[hybrid-train] the SSD scan in that window: {sh['calls']} "
+            f"calls (forward and remat recompute), device {dev_ms:.1f} ms "
+            f"(forward {sh['fwd_device_us'] / 1e3:.1f}, backward "
+            f"{sh['bwd_device_us'] / 1e3:.1f}) = "
+            f"{100 * dev_ms * 1e3 / wall_us:.1f} % of the wall, host "
+            f"{sh['host_us'] / 1e3:.1f} ms = "
+            f"{100 * sh['host_us'] / wall_us:.1f} % of the wall; "
+            f"{sh['launches'] / 2:.0f} launches a step")
+    finally:
+        mamba2.ssd_chunked = scan
+    del run, extra, state, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, dict(peak_gb=peak_gb, busy=busy, scan=sh)
+
+
+def _zipf_tokens(rng, vocab: int, shape, zipf: float = 1.2):
+    """Tokens of a Zipf law over the vocabulary (the token stream's), drawn
+    with numpy, so a model can learn their unigram statistics."""
+    p = np.arange(1, vocab + 1, dtype=np.float64) ** -zipf
+    return rng.choice(vocab, size=shape, p=p / p.sum())
+
+
+def audio_phase(dev):
+    """14 (e): whisper-small at full width and depth. Serving through the
+    bundle over ``max_source_len`` (1500) frames, a 64-token prompt and 32
+    decode steps (the cross-attention's flash forward at Sq = 1 counted
+    over the decode), then ``launch/serve.py --arch whisper-small``;
+    training: 4 protocol steps through ``ProtocolEngine.run`` at G = 4,
+    each group's batch 4 rows of 1024 frames and 1024 tokens from numpy,
+    with the loss on a fixed batch after each step."""
+    from repro_torch.core import protocol
+    from repro_torch.core.attacks import ByzantineSpec
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve, train
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.optim.schedules import inverse_linear
+    from repro_torch.serve.replica import leaves
+    bundle = get_bundle(AUDIO_ARCH)
+    cfg = bundle.cfg
+    rng = np.random.default_rng(SEED)
+    B, Se, P0, N_DEC = 4, cfg.max_source_len, 64, 32
+    frames = torch.from_numpy((0.5 * rng.standard_normal(
+        (B, Se, cfg.d_model))).astype(np.float32)).to(dev)
+    prompt = torch.from_numpy(_zipf_tokens(rng, cfg.vocab, (B, P0))).to(dev)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(SEED),
+                         dtype=torch.bfloat16)
+    n = sum(t.numel() for t in leaves(params))
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        c = bundle.init_caches(B, max_len=P0 + N_DEC + 1, n_chunks=1,
+                               device=dev)
+        t0 = time.perf_counter()
+        lg, c = bundle.prefill(params, {"enc_frames": frames,
+                                        "tokens": prompt}, c)
+        torch.cuda.synchronize()
+        t_pf = time.perf_counter() - t0
+        finite = bool(torch.isfinite(lg).all())
+        flash_ops.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(N_DEC):
+            lg, c = bundle.decode(params, c, {"token": lg.argmax(-1)[:, None]})
+            finite &= bool(torch.isfinite(lg).all())
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+    cross = flash_ops.flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"[audio-serve] {cfg.name} full width and depth ({cfg.encoder_layers}"
+        f" + {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads of {cfg.hd}, vocab {cfg.vocab}; {n / 1e9:.3f} B params bf16):"
+        f" {B} x {Se} frames + {P0}-token prompt prefill {t_pf:.3f} s; "
+        f"{N_DEC} decode steps {t_dec:.3f} s = {B * N_DEC / t_dec:.1f} tok/s;"
+        f" cross K/V {tuple(c.cross_k.shape)}; flash forward launches over "
+        f"the decode {cross} (cross-attention at Sq = 1 over {Se} frames, "
+        f"{cfg.n_layers} a step); finite {finite}; peak device memory "
+        f"{peak_gb:.1f} GB")
+    if not finite:
+        raise AssertionError("whisper-small: non-finite logits")
+    if c.cross_k.shape[2] != Se or cross != cfg.n_layers * N_DEC:
+        raise AssertionError(f"cross-attention: K/V {tuple(c.cross_k.shape)}"
+                             f", {cross} flash launches over the decode")
+    del params, c, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats = {}
+    toks = serve.main(["--arch", AUDIO_ARCH], stats=stats)
+    log(f"[audio-serve] launch/serve.py --arch {AUDIO_ARCH} (4 x 32 frames "
+        f"+ 32 tokens, 32 steps): {stats['tok_s']:.1f} tok/s; sample "
+        f"{toks[0, :8].tolist()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training: the protocol with G = 4 on frame batches
+    G, rows, S = 4, 4, 1024
+    pcfg = train.protocol_config(G, 5, byz=ByzantineSpec(
+        worker_attack="alie", n_byz_workers=1))
+    toks = _zipf_tokens(rng, cfg.vocab, (AUDIO_STEPS, G, rows, S + 1))
+    batches = {
+        "enc_frames": torch.from_numpy((0.5 * rng.standard_normal(
+            (AUDIO_STEPS, G, rows, S, cfg.d_model))).astype(np.float32)
+        ).to(dev),
+        "tokens": torch.from_numpy(toks[..., :-1]).to(dev),
+        "labels": torch.from_numpy(toks[..., 1:]).to(dev)}
+    fixed = {k: v[0, 0] for k, v in batches.items()}
+
+    def neg_loss(p, batch):
+        return -bundle.loss(p, batch)
+
+    eng = protocol.ProtocolEngine(
+        bundle, pcfg, inverse_linear(AUDIO_LR, 0.005), with_attack=True,
+        acc_fn=neg_loss, eval_set=(fixed,), device=dev)
+    counters = _proto_counters()
+    state = eng.init_state(SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    state, metrics = eng.run(state, batches, epoch_steps=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: c.launches for k, c in counters.items()}
+    peak_gb_t = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [-float(a) for a in metrics["acc"]]
+    log(f"[audio-train] {cfg.name} full width and depth, P = "
+        f"{state.params.shape[1]:,}, G = {G}, f_w = 1 (ALIE x1), "
+        f"{AUDIO_STEPS} protocol steps of {rows} x {S} frames + {S} Zipf "
+        f"tokens per group, sgd {AUDIO_LR}: {AUDIO_STEPS / wall:.3f} steps/s "
+        f"(wall {wall:.1f} s, the eval losses included), peak device memory "
+        f"{peak_gb_t:.1f} GB; loss on a fixed batch after each step "
+        f"{[round(x, 4) for x in losses]}; launches {json.dumps(got)}")
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"whisper losses: {losses}")
+    if peak_gb_t >= 80:
+        raise AssertionError(f"peak device memory {peak_gb_t:.1f} GB")
+    for k in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "gram",
+              "subset_diameters"):
+        if got[k] < AUDIO_STEPS:
+            raise AssertionError(f"{k} was launched {got[k]} times in "
+                                 f"{AUDIO_STEPS} whisper protocol steps")
+    del state, batches, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict(got)
+    launches["flash_attention"] += cross
+    return launches, dict(tok_s=B * N_DEC / t_dec, peak_gb=max(peak_gb,
+                                                               peak_gb_t),
+                          train_steps_s=AUDIO_STEPS / wall)
+
+
+def _zoo2_inputs(bundle, B: int, S: int):
+    """A seeded batch of the family's inputs, float32 (vlm: embeddings and
+    ``[3, B, S]`` ids whose components differ; audio: frames)."""
+    rng = np.random.default_rng(SEED + 7)
+    cfg = bundle.cfg
+    toks = rng.integers(0, cfg.vocab, (B, S + 1))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    if cfg.family == "vlm":
+        batch["embeds"] = torch.from_numpy((0.5 * rng.standard_normal(
+            (B, S, cfg.d_model))).astype(np.float32))
+        batch["positions"] = torch.from_numpy(rng.integers(0, S, (3, B, S)))
+        del batch["tokens"]
+    if cfg.family == "audio":
+        batch["enc_frames"] = torch.from_numpy((0.5 * rng.standard_normal(
+            (B, 50, cfg.d_model))).astype(np.float32))
+    return batch
+
+
+def zoo2_reference_phase(dev):
+    """14 (f): the three families reduced in float32, card against CPU:
+    loss and every gradient, prefill and 3 decode steps (vlm fed embeds
+    and M-RoPE ids); then zamba2 for 2T + 1 protocol steps as phase 9."""
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.serve.replica import leaves, tree_map
+    counters = _proto_counters()
+    total = {k: 0 for k in counters}
+    for arch in (VLM_ARCH, HYBRID_ARCH, AUDIO_ARCH):
+        bundle = get_bundle(arch, reduced=True, act_dtype="float32")
+        params = bundle.init(torch.Generator().manual_seed(SEED))
+        batch = _zoo2_inputs(bundle, 2, 70)
+        out = []
+        for c in counters.values():
+            c.launches = 0
+        for d in (torch.device("cpu"), dev):
+            p = tree_map(lambda t: t.detach().to(d).requires_grad_(), params)
+            b = {k: v.to(d) for k, v in batch.items()}
+            loss = bundle.loss(p, b)
+            loss.backward()
+            grads = [t.grad.flatten().cpu() for t in leaves(p)]
+            with torch.inference_mode():
+                pi = tree_map(lambda t: t.detach(), p)
+                c = bundle.init_caches(2, max_len=80, n_chunks=4,
+                                       dtype=torch.float32, device=d)
+                pf = {k: v for k, v in b.items() if k != "labels"}
+                lg, c = bundle.prefill(pi, pf, c)
+                logits = [lg]
+                for i in range(3):
+                    lg, c = bundle.decode(pi, c, serve.decode_batch(
+                        bundle, pf, lg.argmax(-1)[:, None], i))
+                    logits.append(lg)
+            out.append((loss.item(), torch.cat(grads),
+                        torch.stack(logits).cpu()))
+        for k, cnt in counters.items():
+            total[k] += cnt.launches
+        (l_cpu, g_cpu, lg_cpu), (l_card, g_card, lg_card) = out
+        g_err = (g_card - g_cpu).abs().max().item()
+        lg_err = (lg_card - lg_cpu).abs().max().item()
+        log(f"[zoo2-ref] {arch} reduced f32 ({bundle.cfg.family}): loss card "
+            f"{l_card:.6f} cpu {l_cpu:.6f}; max|grad diff| {g_err:.3g} "
+            f"(max|grad| {g_cpu.abs().max().item():.3g}); prefill + 3 "
+            f"decode max|logits diff| {lg_err:.3g}")
+        if not (torch.isfinite(g_card).all()
+                and torch.isfinite(lg_card).all()):
+            raise AssertionError(f"{arch}: non-finite on the card")
+        # float32 on both sides, sums in other orders (cuBLAS, the flash
+        # kernels' tiles)
+        if abs(l_card - l_cpu) > 1e-4:
+            raise AssertionError(f"{arch}: loss {l_card} vs {l_cpu}")
+        torch.testing.assert_close(g_card, g_cpu, rtol=1e-3,
+                                   atol=1e-3 * g_cpu.abs().max().item())
+        torch.testing.assert_close(lg_card, lg_cpu, rtol=1e-3, atol=1e-3)
+    for c in counters.values():
+        c.launches = 0
+    protocol_reference_phase(dev, "lm/tfm_tiny", HYBRID_ARCH,
+                             param_dtype="float32")
+    for k, c in counters.items():
+        total[k] += c.launches
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs an "
@@ -2020,7 +2501,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # phase 13: the zoo. (a) the flash forward at qwen3-moe's heads
-    flash.append(flash_row(dev, 1, 1024, 64, 4, 64, 0, tag="zoo-kernel"))
+    flash.append(flash_row(dev, 1, 1024, 64, 4, 64, 0, tag="zoo-kernel",
+                           main=False))
     zoo_launches = []
     for zs in ZOO_SERVE[:1]:                                    # (b)
         zoo_launches.append(zoo_serve_phase(dev, *zs)[0])
@@ -2032,6 +2514,20 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     zoo_launches.append(zoo_reference_phase(dev))               # (e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 14: the rest of the zoo. (a) the flash kernels at its shapes
+    fwd2, bwd2 = zoo2_kernel_phase(dev)
+    flash += fwd2
+    for k, rs in bwd2.items():
+        bwd_rows[k] += rs
+    for part in (vlm_serve_phase,                               # (b)
+                 lambda d: zoo_serve_phase(d, *HYBRID_SERVE),   # (c)
+                 hybrid_train_phase, audio_phase):              # (d), (e)
+        zoo_launches.append(part(dev)[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+    zoo_launches.append(zoo2_reference_phase(dev))              # (f)
     for part in (ckpt_launches, netsim_launches, resume_launches,
                  elastic_launches, *zoo_launches):
         for k, v in part.items():
@@ -2066,9 +2562,9 @@ def main() -> int:
         on_path = [r for r in rs if r.get("main", True)]
         # the row of the path's largest call (flash forward and backward:
         # the protocol run's shape)
-        main_row = (max(rs, key=lambda r: (r["S"], -r["window"]))
+        main_row = (max(on_path, key=lambda r: (r["S"], -r["window"]))
                     if name == "flash_attention"
-                    else max(rs, key=lambda r: r["flops"])
+                    else max(on_path, key=lambda r: r["flops"])
                     if name.startswith("flash_bwd")
                     else max(on_path, key=lambda r: r["nbytes"]))
         kernels.append({

@@ -12,10 +12,14 @@ greedy decode of one random prompt batch. Three model sources, by flag:
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --batch 4 --prefill 64 --decode 32
 
-``--arch`` takes every arch the port runs (``models.registry.PORTED_IDS``);
+``--arch`` takes every arch of the reference (``models.registry.ARCH_IDS``);
 the decode steps the B rows together (a MoE routes them as one group, as
-the JAX driver does). Runs on the GPU; ``--device cpu`` (with
-``--reduced``) is for smoke runs.
+the JAX driver does). The vlm family (qwen2-vl-7b) prefills merged
+embeddings at ``[3, B, S]`` M-RoPE ids and decodes the last embedding at
+ids one further each step; the audio family (whisper-small) prefills the
+batch's encoder frames with its tokens and decodes by token, as the JAX
+driver does. Runs on the GPU; ``--device cpu`` (with ``--reduced``) is for
+smoke runs.
 The TPU mesh (``--mesh``) has no counterpart on one card.
 """
 from __future__ import annotations
@@ -26,12 +30,22 @@ import time
 import torch
 
 from .. import device as devmod
-from ..models.registry import PORTED_IDS, get_bundle
+from ..models.registry import ARCH_IDS, get_bundle
 
 
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def decode_batch(bundle, prefill_batch, tok, i: int) -> dict:
+    """Decode step ``i``'s input: the last token, or for the vlm family the
+    prefill's last embedding at its last M-RoPE ids + i + 1 (no vision
+    frontend turns a token back into an embedding)."""
+    if bundle.cfg.family == "vlm":
+        return {"embeds": prefill_batch["embeds"][:, -1:],
+                "positions": prefill_batch["positions"][:, :, -1:] + i + 1}
+    return {"token": tok}
 
 
 def _serve_quorum(args, bundle, pool, dev) -> dict:
@@ -60,9 +74,12 @@ def _serve_quorum(args, bundle, pool, dev) -> dict:
     return rep
 
 
-def main(argv=None):
+def main(argv=None, stats: dict | None = None):
+    """Run the launcher on ``argv``. Returns the generated ids ``[B, 1 +
+    decode]`` (the quorum report with ``--quorum``); a ``stats`` dict, when
+    given, receives the prefill and decode seconds and the decode tok/s."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="phi4-mini-3.8b", choices=PORTED_IDS)
+    ap.add_argument("--arch", default="phi4-mini-3.8b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prefill", type=int, default=64)
@@ -116,8 +133,9 @@ def main(argv=None):
         tok = torch.argmax(logits, -1)[:, None]
         out_tokens = [tok]
         t0 = time.perf_counter()
-        for _ in range(args.decode):
-            logits, caches = bundle.decode(params, caches, {"token": tok})
+        for i in range(args.decode):
+            logits, caches = bundle.decode(params, caches,
+                                           decode_batch(bundle, pf, tok, i))
             tok = torch.argmax(logits, -1)[:, None]
             out_tokens.append(tok)
         _sync(dev)
@@ -128,6 +146,9 @@ def main(argv=None):
     print(f"[serve] {args.arch}: prefill {B}x{S} in {t_pf:.2f}s | "
           f"decode {args.decode} steps x batch {B} = {total} tokens in "
           f"{t_dec:.2f}s ({total / max(t_dec, 1e-9):.1f} tok/s on {where})")
+    if stats is not None:
+        stats.update(prefill_s=t_pf, decode_s=t_dec,
+                     tok_s=total / max(t_dec, 1e-9))
     sample = torch.cat(out_tokens, dim=1)[0, :10]
     print(f"[serve] sample continuation ids: {sample.tolist()}")
     return torch.cat(out_tokens, dim=1)

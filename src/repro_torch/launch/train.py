@@ -13,9 +13,11 @@ attack injection, the DMC cadence and loss logging.
       --groups 4 --seq 32 --batch-per-group 2 --log-every 1 \\
       --ckpt-dir /tmp/ck --ckpt-every 5
 
-``--arch`` takes every arch the port runs (``models.registry.PORTED_IDS``:
-the dense, MoE and RWKV6 families). Runs on the GPU; ``--device cpu`` is
-for smoke runs. Only ``--mesh 1x1`` is
+``--arch`` takes every arch of the reference (``models.registry.ARCH_IDS``)
+and feeds it the token stream; whisper-small (the audio family), whose
+loss reads encoder frames a token stream does not carry, is refused up
+front (the JAX launcher fails with a ``KeyError`` at its first step).
+Runs on the GPU; ``--device cpu`` is for smoke runs. Only ``--mesh 1x1`` is
 taken: a mesh over several cards needs the multi-GPU protocol port.
 ``--depth`` keeps the arch's width and cuts its depth (``get_bundle(...,
 depth=...)``). With ``--ckpt-dir`` the run resumes from the latest
@@ -38,7 +40,7 @@ from ..checkpoint import checkpointer as ck
 from ..core import protocol
 from ..core.attacks import ByzantineSpec
 from ..data.pipeline import DeviceTokenStream, TokenSpec
-from ..models.registry import PORTED_IDS, get_bundle
+from ..models.registry import ARCH_IDS, get_bundle
 from ..optim.schedules import inverse_linear
 
 
@@ -57,7 +59,7 @@ class TrainRun:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="phi4-mini-3.8b", choices=PORTED_IDS)
+    ap.add_argument("--arch", default="phi4-mini-3.8b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--depth", type=int, default=None,
                     help="override n_layers (the width stays)")
@@ -80,6 +82,18 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def protocol_config(G: int, T: int, engine: str = "sharded",
+                    byz: ByzantineSpec | None = None
+                    ) -> protocol.ProtocolConfig:
+    """The launcher's protocol for G groups: the largest tolerated f_w =
+    (G - 1) // 3 and f_ps = (G - 2) // 3, quorums of G - f."""
+    f_w, f_ps = max((G - 1) // 3, 0), max((G - 2) // 3, 0)
+    return protocol.ProtocolConfig(
+        n_groups=G, f_workers=f_w, f_servers=f_ps, q_workers=G - f_w,
+        q_servers=max(G - f_ps, min(2 * f_ps + 2, G)), T=T, engine=engine,
+        byz=byz or ByzantineSpec())
+
+
 def main(argv=None) -> TrainRun:
     args = parser().parse_args(argv)
     if args.mesh not in (None, "1x1"):
@@ -89,15 +103,17 @@ def main(argv=None) -> TrainRun:
     dev = devmod.resolve(args.device)
     G = args.groups or 1
     bundle = get_bundle(args.arch, reduced=args.reduced, depth=args.depth)
+    if bundle.cfg.family == "audio":
+        raise ValueError(f"{args.arch}: its loss reads batch['enc_frames'] "
+                         "(encoder frames), which the launcher's token "
+                         "stream does not carry; train it through "
+                         "ProtocolEngine.run with frame batches")
     byz = ByzantineSpec(worker_attack=args.worker_attack,
                         server_attack=args.server_attack,
                         n_byz_workers=args.n_byz if args.worker_attack else 0,
                         n_byz_servers=args.n_byz if args.server_attack else 0)
-    f_w, f_ps = max((G - 1) // 3, 0), max((G - 2) // 3, 0)
-    pcfg = protocol.ProtocolConfig(
-        n_groups=G, f_workers=f_w, f_servers=f_ps, q_workers=G - f_w,
-        q_servers=max(G - f_ps, min(2 * f_ps + 2, G)), T=args.T,
-        engine=args.engine, byz=byz)
+    pcfg = protocol_config(G, args.T, args.engine, byz)
+    f_w, f_ps = pcfg.f_workers, pcfg.f_servers
 
     t0 = time.perf_counter()
     latest = ck.latest_step(args.ckpt_dir) if args.ckpt_dir else None

@@ -1,9 +1,10 @@
-"""Carry state from the JAX package into the port: zoo model params (the
-dense, MoE and RWKV6 families), MLP params, and a whole ByzSGD simulator
-state.
+"""Carry state from the JAX package into the port: zoo model params (every
+family), MLP params, and a whole ByzSGD simulator state.
 
 Both packages use one tree per family (``embed/table``, ``blocks/<...>``
-stacked ``[L, ...]``, ``ln_f``) and one weight layout (``[in, out]``, applied
+stacked ``[L, ...]`` and ``ln_f``; the hybrid's ``mamba/<...>`` and
+``shared/<...>``; the encoder-decoder's ``enc_blocks``, ``dec_blocks``,
+``pos_dec``, ``ln_enc``) and one weight layout (``[in, out]``, applied
 as ``x @ w``), so the conversion is leaf by leaf with no transpose. The
 input is the JAX tree already moved to the host as numpy arrays (e.g.
 ``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from .config import ArchConfig
+from .encdec import MAX_DEC_POSITIONS
 
 
 def _leaf(a, device, dtype):
@@ -29,19 +31,19 @@ def _leaf(a, device, dtype):
 def params_from_jax(tree_of_numpy, cfg: ArchConfig, device="cuda",
                     dtype: torch.dtype | None = None):
     """Nested dict of numpy arrays -> nested dict of tensors on ``device``
-    (cast to ``dtype`` when given). Checks the tree against ``cfg``: a few
-    leaves that fix the family's widths."""
-    blocks = tree_of_numpy["blocks"]
+    (cast to ``dtype`` when given, else each leaf keeps its own). Checks
+    the tree against ``cfg``: a few leaves that fix the family's widths,
+    named by their path from the root."""
     for path, shape in _checked_leaves(cfg).items():
-        node = blocks
+        node = tree_of_numpy
         for k in path:
             if not isinstance(node, dict) or k not in node:
-                raise ValueError(f"blocks/{'/'.join(path)} is missing; cfg "
+                raise ValueError(f"{'/'.join(path)} is missing; cfg "
                                  f"{cfg.name} ({cfg.family}) expects "
                                  f"{shape}")
             node = node[k]
         if tuple(np.shape(node)) != shape:
-            raise ValueError(f"blocks/{'/'.join(path)} is "
+            raise ValueError(f"{'/'.join(path)} is "
                              f"{tuple(np.shape(node))}; cfg {cfg.name} "
                              f"expects {shape}")
 
@@ -54,19 +56,39 @@ def params_from_jax(tree_of_numpy, cfg: ArchConfig, device="cuda",
 
 
 def _checked_leaves(cfg: ArchConfig) -> dict:
-    """``blocks`` leaf path -> the shape ``cfg`` gives it, per family."""
+    """Leaf path from the root -> the shape ``cfg`` gives it, per family."""
     L, D = cfg.n_layers, cfg.d_model
     if cfg.family == "ssm":
         K = cfg.ssm_head_dim
-        return {("Wr",): (L, D, D), ("cWv",): (L, cfg.d_ff, D),
-                ("u",): (L, D // K, K)}
-    attn = {("attn", "wq"): (L, D, cfg.n_heads * cfg.hd),
-            ("attn", "wk"): (L, D, cfg.n_kv_heads * cfg.hd)}
+        return {("blocks", "Wr"): (L, D, D),
+                ("blocks", "cWv"): (L, cfg.d_ff, D),
+                ("blocks", "u"): (L, D // K, K)}
+    if cfg.family == "hybrid":
+        d_inner = cfg.ssm_expand * D
+        N, H = cfg.ssm_state, d_inner // cfg.ssm_head_dim
+        heads = cfg.shared_attn_heads or cfg.n_heads
+        return {("mamba", "in_proj"): (L, D, 2 * d_inner + 2 * N + H),
+                ("mamba", "out_proj"): (L, d_inner, D),
+                ("shared", "attn", "wq"): (D, heads * (D // heads)),
+                ("shared", "mlp", "w_down"):
+                    (cfg.shared_attn_d_ff or cfg.d_ff, D),
+                ("embed", "table"): (cfg.vocab, D), ("ln_f", "scale"): (D,)}
+    if cfg.family == "audio":
+        Le, HD = cfg.encoder_layers, cfg.n_heads * cfg.hd
+        return {("enc_blocks", "attn", "wq"): (Le, D, HD),
+                ("enc_blocks", "mlp", "w_up"): (Le, D, cfg.d_ff),
+                ("dec_blocks", "cross_attn", "wk"): (L, D, HD),
+                ("dec_blocks", "mlp", "w_down"): (L, cfg.d_ff, D),
+                ("pos_dec",): (MAX_DEC_POSITIONS, D),
+                ("ln_enc", "bias"): (D,),
+                ("ln_f", "bias"): (D,)}
+    attn = {("blocks", "attn", "wq"): (L, D, cfg.n_heads * cfg.hd),
+            ("blocks", "attn", "wk"): (L, D, cfg.n_kv_heads * cfg.hd)}
     if cfg.family == "moe":
         E = cfg.n_experts
-        return {**attn, ("moe", "router"): (L, D, E),
-                ("moe", "w_down"): (L, E, cfg.d_ff, D)}
-    return {**attn, ("mlp", "w_down"): (L, cfg.d_ff, D)}
+        return {**attn, ("blocks", "moe", "router"): (L, D, E),
+                ("blocks", "moe", "w_down"): (L, E, cfg.d_ff, D)}
+    return {**attn, ("blocks", "mlp", "w_down"): (L, cfg.d_ff, D)}
 
 
 def mlp_params_from_jax(tree_of_numpy, device="cuda") -> dict:

@@ -75,7 +75,7 @@ def layernorm(p, x, eps=1e-5):
 
 
 # ---------------------------------------------------------------------------
-# RoPE (the non-M-RoPE branch)
+# RoPE (incl. M-RoPE for qwen2-vl)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -83,11 +83,27 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
+def mrope_sections(n_freqs: int) -> tuple[int, int, int]:
+    """The reference's default M-RoPE split of the ``hd/2`` frequencies
+    into (temporal, height, width) sections: ``(32, 16, 16)`` at hd 128."""
+    return (n_freqs - 2 * (n_freqs // 4), n_freqs // 4, n_freqs // 4)
+
+
 def rope_tables(positions, head_dim: int, theta: float, dtype):
-    """(cos, sin) ``[B, S, 1, hd/2]`` in ``dtype`` for ``[B, S]`` positions —
-    computed once per forward and shared by every layer."""
+    """(cos, sin) ``[B, S, 1, hd/2]`` in ``dtype`` — computed once per
+    forward and shared by every layer. ``positions``: ``[B, S]``, or
+    ``[3, B, S]`` temporal/height/width ids (M-RoPE), where frequency j
+    takes the component of its section (:func:`mrope_sections`). The
+    angles are float32 products, as the reference's, then cast."""
     inv = rope_freqs(head_dim, theta, positions.device)
-    ang = positions.float()[..., None] * inv
+    pos = positions.float()
+    if positions.ndim == 3:
+        sec_id = torch.repeat_interleave(
+            torch.arange(3, device=pos.device),
+            torch.tensor(mrope_sections(inv.shape[0]), device=pos.device))
+        ang = pos[sec_id].permute(1, 2, 0) * inv         # [B, S, hd/2]
+    else:
+        ang = pos[..., None] * inv
     return (torch.cos(ang)[..., None, :].to(dtype),
             torch.sin(ang)[..., None, :].to(dtype))
 
@@ -99,7 +115,7 @@ def _rotate(x, cos, sin):
 
 
 def apply_rope(x, positions, theta: float):
-    """x: [B, S, H, hd]; positions: [B, S]."""
+    """x: [B, S, H, hd]; positions: [B, S] or [3, B, S] (M-RoPE)."""
     return _rotate(x, *rope_tables(positions, x.shape[-1], theta, x.dtype))
 
 
@@ -300,6 +316,40 @@ def swiglu(p, x, dtype=torch.bfloat16):
     g = x @ p["w_gate"].to(dtype)
     u = x @ p["w_up"].to(dtype)
     return (F.silu(g) * u) @ p["w_down"].to(dtype)
+
+
+def init_attention(gen, lead: tuple, d_model, n_heads, n_kv_heads, head_dim,
+                   dtype):
+    """q/k/v/o projections, stacked over the ``lead`` dims (``(L,)`` for
+    a layer stack, ``()`` for one block)."""
+    qd, kvd = n_heads * head_dim, n_kv_heads * head_dim
+    return {"wq": init_dense(gen, d_model, lead + (d_model, qd), dtype),
+            "wk": init_dense(gen, d_model, lead + (d_model, kvd), dtype),
+            "wv": init_dense(gen, d_model, lead + (d_model, kvd), dtype),
+            "wo": init_dense(gen, qd, lead + (qd, d_model), dtype)}
+
+
+def init_swiglu(gen, lead: tuple, d_model, d_ff, dtype):
+    return {"w_gate": init_dense(gen, d_model, lead + (d_model, d_ff), dtype),
+            "w_up": init_dense(gen, d_model, lead + (d_model, d_ff), dtype),
+            "w_down": init_dense(gen, d_ff, lead + (d_ff, d_model), dtype)}
+
+
+def init_gelu_mlp(gen, lead: tuple, d_model, d_ff, dtype):
+    dev = gen.device
+    return {"w_up": init_dense(gen, d_model, lead + (d_model, d_ff), dtype),
+            "b_up": torch.zeros(lead + (d_ff,), dtype=dtype, device=dev),
+            "w_down": init_dense(gen, d_ff, lead + (d_ff, d_model), dtype),
+            "b_down": torch.zeros(lead + (d_model,), dtype=dtype,
+                                  device=dev)}
+
+
+def gelu_mlp(p, x, dtype=torch.bfloat16):
+    """``jax.nn.gelu``'s default is the tanh approximation (the erf form
+    differs in the 4th digit)."""
+    h = F.gelu(x @ p["w_up"].to(dtype) + p["b_up"].to(dtype),
+               approximate="tanh")
+    return h @ p["w_down"].to(dtype) + p["b_down"].to(dtype)
 
 
 # ---------------------------------------------------------------------------

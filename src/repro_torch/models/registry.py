@@ -14,11 +14,15 @@ and slots:
     cache_rows(caches, rows) -> views of batch rows ``rows`` (a slot)
     reset_cache_rows(caches, rows) -> those rows ready for a new request
 
-Families ported: ``dense`` (``transformer.py``: phi4-mini-3.8b,
-h2o-danube-3-4b, phi3-medium-14b, internlm2-20b), ``moe`` (``moe.py``:
-qwen3-moe-235b-a22b, dbrx-132b) and ``ssm`` (``rwkv6.py``: rwkv6-3b).
-``ARCH_IDS`` lists every arch of the reference; the others (qwen2-vl-7b,
-zamba2-1.2b, whisper-small) raise ``NotImplementedError``.
+Every family of the reference is ported: ``dense`` (``transformer.py``:
+phi4-mini-3.8b, h2o-danube-3-4b, phi3-medium-14b, internlm2-20b), ``vlm``
+(``transformer.py`` with merged embeddings and M-RoPE positions:
+qwen2-vl-7b), ``moe`` (``moe.py``: qwen3-moe-235b-a22b, dbrx-132b),
+``ssm`` (``rwkv6.py``: rwkv6-3b), ``hybrid`` (``hybrid.py`` over
+``mamba2.py``: zamba2-1.2b) and ``audio`` (``encdec.py``: whisper-small).
+The serving loop's replica forms exist for the token-in families; ``vlm``
+and ``audio`` are served by ``prefill`` and ``decode`` only, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -43,25 +47,27 @@ _CONFIG_MODULES = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3p8b",
     "internlm2-20b": "repro_torch.configs.internlm2_20b",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
+    "whisper-small": "repro_torch.configs.whisper_small",
 }
 
-#: the arch ids the port runs, in ``ARCH_IDS`` order
+#: the arch ids the port runs, in ``ARCH_IDS`` order (all of them)
 PORTED_IDS = [a for a in ARCH_IDS if a in _CONFIG_MODULES]
 
 _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",
+    "vlm": "repro_torch.models.transformer",
     "moe": "repro_torch.models.moe",
+    "hybrid": "repro_torch.models.hybrid",
     "ssm": "repro_torch.models.rwkv6",
+    "audio": "repro_torch.models.encdec",
 }
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    if arch_id not in ARCH_IDS:
-        raise ValueError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
     if arch_id not in _CONFIG_MODULES:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP.md, queue 1 item "
-            f"8: the models zoo); have {PORTED_IDS}")
+        raise ValueError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
     return importlib.import_module(_CONFIG_MODULES[arch_id]).CONFIG
 
 
@@ -71,9 +77,9 @@ class ModelBundle:
 
     def __post_init__(self):
         if self.cfg.family not in _FAMILY_MODULES:
-            raise NotImplementedError(
-                f"model family {self.cfg.family!r} ({self.cfg.name}) is not "
-                "ported yet (ROADMAP.md, queue 1 item 8)")
+            raise ValueError(f"unknown model family {self.cfg.family!r} "
+                             f"({self.cfg.name}); have "
+                             f"{sorted(_FAMILY_MODULES)}")
         self.mod = importlib.import_module(_FAMILY_MODULES[self.cfg.family])
 
     # -- core fns ----------------------------------------------------------
@@ -109,16 +115,36 @@ class ModelBundle:
     # -- batch construction --------------------------------------------------
     def make_batch(self, kind: str, B: int, S: int,
                    gen: torch.Generator) -> dict:
-        """Concrete random token batch (smoke tests, the launch driver)."""
+        """Concrete random batch of every model input (smoke tests, the
+        launch drivers), with the reference's shapes: tokens; for ``vlm``
+        bf16 ``embeds`` (``0.02 * normal``) and ``[3, B, S]`` positions in
+        ``[0, max(S, 2))``; for ``audio`` bf16 ``enc_frames [B, S/2, D]``
+        and ``S/2`` tokens. Drawn from ``gen``, in name order."""
+        fam, D = self.cfg.family, self.cfg.d_model
         if kind in ("train", "prefill"):
-            shape = {"tokens": (B, S), "labels": (B, S)}
+            if fam == "vlm":
+                shape = {"embeds": (B, S, D), "positions": (3, B, S),
+                         "labels": (B, S)}
+            elif fam == "audio":
+                shape = {"enc_frames": (B, S // 2, D), "tokens": (B, S // 2),
+                         "labels": (B, S // 2)}
+            else:
+                shape = {"tokens": (B, S), "labels": (B, S)}
         elif kind == "decode":
-            shape = {"token": (B, 1)}
+            shape = ({"embeds": (B, 1, D), "positions": (3, B, 1)}
+                     if fam == "vlm" else {"token": (B, 1)})
         else:
             raise ValueError(kind)
-        return {name: torch.randint(0, self.cfg.vocab, s, generator=gen,
-                                    device=gen.device)
-                for name, s in sorted(shape.items())}
+        out = {}
+        for name, s in sorted(shape.items()):
+            if name in ("embeds", "enc_frames"):
+                out[name] = (0.02 * torch.randn(
+                    s, generator=gen, device=gen.device)).bfloat16()
+            else:
+                hi = self.cfg.vocab if name != "positions" else max(S, 2)
+                out[name] = torch.randint(0, hi, s, generator=gen,
+                                          device=gen.device)
+        return out
 
 
 def get_bundle(arch_id: str, reduced: bool = False, depth: int | None = None,

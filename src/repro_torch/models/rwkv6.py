@@ -30,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import ArchConfig
-from .transformer import layer
+from . import transformer as TF
 
 LOG_DECAY_FLOOR = -20.0
 DECAY_LORA = 64
@@ -223,7 +223,7 @@ def forward(params, tokens, *, cfg: ArchConfig, remat: bool = True):
     dtype = _dtype(cfg)
     x = L.embed(params["embed"], tokens, dtype)
     for i in range(cfg.n_layers):
-        blk = layer(params, i)
+        blk = TF.layer(params, i)
         if remat:
             x = checkpoint(_block_train, blk, x, cfg, dtype,
                            use_reentrant=False)
@@ -276,7 +276,7 @@ def _run_with_cache(params, x, caches: RwkvCache, cfg: ArchConfig, dtype):
     place with the new one; returns the final-normed hidden states."""
     for i in range(cfg.n_layers):
         c = RwkvCache(*(t[i] for t in caches))
-        x, new = block(layer(params, i), x, cfg, dtype, c)
+        x, new = block(TF.layer(params, i), x, cfg, dtype, c)
         for dst, src in zip(c, new):
             dst.copy_(src)
     return L.layernorm(params["ln_f"], x, cfg.norm_eps)
@@ -301,15 +301,11 @@ def decode_step(params, caches: RwkvCache, batch, *, cfg: ArchConfig):
 def prefill_replicas(reps, tokens, caches, *, cfg: ArchConfig):
     """Prefill ``tokens [B, S]`` on each replica against its own state.
     Returns logits ``[R, B, V]``."""
-    return torch.stack([prefill(p, {"tokens": tokens}, c, cfg=cfg)[0]
-                        for p, c in zip(reps, caches)])
+    return TF.prefill_each_replica(prefill, reps, tokens, caches, cfg)
 
 
 def decode_replicas(reps, caches, tokens, *, cfg: ArchConfig):
     """The serving loop's decode: each row of ``tokens [B, 1]`` (a slot) at
     B = 1 shapes on each replica. Returns logits ``[R, B, V]``."""
-    return torch.cat([
-        torch.stack([decode_step(p, cache_rows(c, slice(b, b + 1)),
-                                 {"token": tokens[b:b + 1]}, cfg=cfg)[0]
-                     for p, c in zip(reps, caches)])
-        for b in range(tokens.shape[0])], dim=1)
+    return TF.decode_each_slot(decode_step, cache_rows, reps, caches, tokens,
+                               cfg)

@@ -1,7 +1,10 @@
 """Dense decoder-only transformer (PyTorch port of
 ``repro.models.transformer``): ``init``; the training half (``forward`` with
 remat per block, ``logits_fn``, ``loss``); the inference half
-(``init_caches``, ``prefill``, ``decode_step``).
+(``init_caches``, ``prefill``, ``decode_step``). It serves the family
+``vlm`` too (qwen2-vl-7b): ``forward``, ``loss``, ``prefill`` and
+``decode_step`` take merged ``embeds`` in place of tokens and ``[3, B, S]``
+M-RoPE position ids, as the reference's do.
 
 Params keep the JAX tree and layout: ``blocks`` leaves are stacked
 ``[L, ...]`` and matrices are ``[in, out]``. The layer ``scan`` is a Python
@@ -36,12 +39,8 @@ def _norm(cfg: ArchConfig):
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype):
     """The stacked ``[L, ...]`` q/k/v/o projections of every block."""
-    Lyr, D, hd = cfg.n_layers, cfg.d_model, cfg.hd
-    H, kvH = cfg.n_heads, cfg.n_kv_heads
-    return {"wq": L.init_dense(gen, D, (Lyr, D, H * hd), dtype),
-            "wk": L.init_dense(gen, D, (Lyr, D, kvH * hd), dtype),
-            "wv": L.init_dense(gen, D, (Lyr, D, kvH * hd), dtype),
-            "wo": L.init_dense(gen, H * hd, (Lyr, H * hd, D), dtype)}
+    return L.init_attention(gen, (cfg.n_layers,), cfg.d_model, cfg.n_heads,
+                            cfg.n_kv_heads, cfg.hd, dtype)
 
 
 def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32):
@@ -54,32 +53,29 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32):
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=dev)
 
-    def dense(fan_in, shape):
-        return L.init_dense(gen, fan_in, shape, dtype)
-
     params = {
         "embed": L.init_embedding(gen, cfg.vocab, D, dtype),
         "blocks": {
             "ln_attn": {"scale": ones(Lyr, D)},
             "attn": init_attention(gen, cfg, dtype),
             "ln_mlp": {"scale": ones(Lyr, D)},
-            "mlp": {"w_gate": dense(D, (Lyr, D, Fd)),
-                    "w_up": dense(D, (Lyr, D, Fd)),
-                    "w_down": dense(Fd, (Lyr, Fd, D))},
+            "mlp": L.init_swiglu(gen, (Lyr,), D, Fd, dtype),
         },
         "ln_f": {"scale": ones(D)},
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"table": dense(D, (cfg.vocab, D))}
+        params["lm_head"] = {"table": L.init_dense(gen, D, (cfg.vocab, D),
+                                                   dtype)}
     return params
 
 
-def layer(params, i: int):
-    """Block ``i``'s params (views into the stacked ``[L, ...]`` leaves)."""
+def layer(params, i: int, stack: str = "blocks"):
+    """Block ``i``'s params (views into the stacked ``[L, ...]`` leaves of
+    ``params[stack]``)."""
     def walk(t):
         return {k: walk(v) for k, v in t.items()} if isinstance(t, dict) \
             else t[i]
-    return walk(params["blocks"])
+    return walk(params[stack])
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +172,29 @@ def reset_cache_rows(caches: L.KVCache, rows: slice) -> L.KVCache:
     return cache_rows(caches, rows)
 
 
+def prefill_each_replica(prefill_fn, reps, tokens, caches,
+                         cfg: ArchConfig):
+    """A state-carrying family's serving prefill: ``prefill_fn`` (its
+    ``prefill``) on each replica against its own caches. Returns logits
+    ``[R, B, V]``."""
+    return torch.stack([prefill_fn(p, {"tokens": tokens}, c, cfg=cfg)[0]
+                        for p, c in zip(reps, caches)])
+
+
+def decode_each_slot(decode_fn, rows_fn, reps, caches, tokens,
+                     cfg: ArchConfig):
+    """A state-carrying family's serving decode: each row of ``tokens [B,
+    1]`` (a slot) through ``decode_fn`` (its ``decode_step``) at B = 1
+    shapes on each replica, the slot's caches taken by ``rows_fn`` (its
+    ``cache_rows``), so a slot's tokens equal its own single-request run
+    bit for bit. Returns logits ``[R, B, V]``."""
+    return torch.cat([
+        torch.stack([decode_fn(p, rows_fn(c, slice(b, b + 1)),
+                               {"token": tokens[b:b + 1]}, cfg=cfg)[0]
+                     for p, c in zip(reps, caches)])
+        for b in range(tokens.shape[0])], dim=1)
+
+
 def _logits(params, hidden, cfg: ArchConfig):
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return L.unembed(table, hidden)
@@ -199,18 +218,12 @@ def _attention_mlp(xs, blocks, rope, cfg, dtype, attend, ffn):
     return out
 
 
-def prefill_replicas(reps, tokens, caches, *, cfg: ArchConfig,
-                     ffn=swiglu_ffn):
-    """Prefill ``tokens [B, S]`` on R replicas. ``reps``: list of R param
-    trees; ``caches``: list of R stacked caches, filled in place. Returns
-    last-token logits ``[R, B, V]`` float32."""
+def _prefill(reps, xs, rope, caches, cfg: ArchConfig, ffn):
+    """Every block over the replicas' inputs ``xs`` ([B, S, D] each),
+    filling their caches in place; the attention takes every replica's
+    rows in one launch. Returns last-token logits ``[R, B, V]``."""
     dtype = _dtype(cfg)
-    B, S = tokens.shape
     R = len(reps)
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, dtype)
-    xs = [L.embed(p["embed"], tokens, dtype) for p in reps]
-
     for i in range(cfg.n_layers):
         blocks = [layer(p, i) for p in reps]
 
@@ -229,17 +242,10 @@ def prefill_replicas(reps, tokens, caches, *, cfg: ArchConfig,
                         for p, x in zip(reps, xs)])
 
 
-def decode_replicas(reps, caches, tokens, *, cfg: ArchConfig,
-                    ffn=swiglu_ffn):
-    """One token ``[B, 1]`` per row against each replica's caches (each row
-    at its own position, its cache length). Returns logits ``[R, B, V]``
-    float32; caches are updated in place."""
+def _decode(reps, xs, rope, caches, cfg: ArchConfig, ffn):
+    """One position ``xs`` ([B, 1, D] each) against each replica's caches,
+    updated in place. Returns logits ``[R, B, V]``."""
     dtype = _dtype(cfg)
-    xs = [L.embed(p["embed"], tokens, dtype) for p in reps]
-    # each row's position is its cache length before this token's insert
-    positions = caches[0].length[0][:, None]              # [B, 1]
-    rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, dtype)
-
     for i in range(cfg.n_layers):
         blocks = [layer(p, i) for p in reps]
 
@@ -257,14 +263,63 @@ def decode_replicas(reps, caches, tokens, *, cfg: ArchConfig,
                         for p, x in zip(reps, xs)])
 
 
+def prefill_replicas(reps, tokens, caches, *, cfg: ArchConfig,
+                     ffn=swiglu_ffn):
+    """Prefill ``tokens [B, S]`` on R replicas. ``reps``: list of R param
+    trees; ``caches``: list of R stacked caches, filled in place. Returns
+    last-token logits ``[R, B, V]`` float32."""
+    dtype = _dtype(cfg)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, dtype)
+    xs = [L.embed(p["embed"], tokens, dtype) for p in reps]
+    return _prefill(reps, xs, rope, caches, cfg, ffn)
+
+
+def decode_replicas(reps, caches, tokens, *, cfg: ArchConfig,
+                    ffn=swiglu_ffn):
+    """One token ``[B, 1]`` per row against each replica's caches (each row
+    at its own position, its cache length). Returns logits ``[R, B, V]``
+    float32; caches are updated in place."""
+    dtype = _dtype(cfg)
+    xs = [L.embed(p["embed"], tokens, dtype) for p in reps]
+    # each row's position is its cache length before this token's insert
+    positions = caches[0].length[0][:, None]              # [B, 1]
+    rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, dtype)
+    return _decode(reps, xs, rope, caches, cfg, ffn)
+
+
+def _inputs(params, batch, key: str, cfg: ArchConfig):
+    """The activations of ``batch``: its ``embeds`` (the vlm family's
+    merged patch and text embeddings) or its token ids under ``key``."""
+    dtype = _dtype(cfg)
+    embeds = batch.get("embeds")
+    if embeds is None:
+        return L.embed(params["embed"], batch[key], dtype)
+    return embeds.to(dtype)
+
+
 def prefill(params, batch, caches, *, cfg: ArchConfig):
-    """Returns (last-token logits [B, V] float32, filled caches)."""
-    logits = prefill_replicas([params], batch["tokens"], [caches], cfg=cfg)
-    return logits[0], caches
+    """batch: {"tokens": [B, S]} or {"embeds": [B, S, D]}, optional
+    "positions" ([B, S], or [3, B, S] for M-RoPE; default 0 .. S-1).
+    Returns (last-token logits [B, V] float32, filled caches)."""
+    x = _inputs(params, batch, "tokens", cfg)
+    B, S = x.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, _dtype(cfg))
+    return _prefill([params], [x], rope, [caches], cfg, swiglu_ffn)[0], caches
 
 
 def decode_step(params, caches, batch, *, cfg: ArchConfig):
-    """batch: {"token": [B, 1]}. Returns (logits [B, V] float32, caches).
-    One new token against the KV cache."""
-    logits = decode_replicas([params], [caches], batch["token"], cfg=cfg)
-    return logits[0], caches
+    """batch: {"token": [B, 1]} or {"embeds": [B, 1, D]}, optional
+    "positions" ([B, 1] or [3, B, 1]; default each row's cache length).
+    Returns (logits [B, V] float32, caches). One new position against the
+    KV cache."""
+    x = _inputs(params, batch, "token", cfg)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = caches.length[0][:, None]
+    rope = L.rope_tables(positions, cfg.hd, cfg.rope_theta, _dtype(cfg))
+    return _decode([params], [x], rope, [caches], cfg, swiglu_ffn)[0], caches

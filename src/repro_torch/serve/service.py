@@ -13,12 +13,13 @@ row, and replicas are a loop over per-replica params in which each replica
 computes at the shapes a single replica would (so an R = 1 baseline and an
 R = 4 pool give bit-identical honest logits), except the prefill attention,
 which takes every replica's rows in one kernel launch. The families
-differ only inside the bundle: the MoE and RWKV6 decodes run each slot
-alone at B = 1 shapes (the MoE routes each slot on its own, as the JAX
-service's B = 1 slots do), and a slot's cache is reset before each prefill
-(``bundle.reset_cache_rows``): an RWKV6 state starts from zero for every
-request, where the JAX service carries the slot's last request's state
-into the next (ROADMAP Queue 3).
+differ only inside the bundle: the MoE, RWKV6 and hybrid (zamba2) decodes
+run each slot alone at B = 1 shapes (the MoE routes each slot on its own,
+as the JAX service's B = 1 slots do), and a slot's cache is reset before
+each prefill (``bundle.reset_cache_rows``): an RWKV6 or Mamba2 state
+starts from zero for every request, where the JAX service carries the
+slot's last request's state into the next (ROADMAP Queue 3). The vlm and
+audio families (embeddings or frames in) are refused, as in JAX.
 
 On top of the device loop: continuous batching
 (:class:`~repro_torch.serve.batcher.ContinuousBatcher`), divergence

@@ -19,11 +19,12 @@ def np_dtype_cast(a: np.ndarray, dtype: str):
 
 
 def numpy_params(cfg, seed: int = 0) -> dict:
-    """A param tree of ``cfg``'s family (dense, moe or ssm) in the JAX
-    layout, drawn with numpy: truncated-normal-like weights over
-    sqrt(fan_in), non-unit norm scales (and non-zero layernorm biases),
-    and, for RWKV6, a non-zero decay LoRA ``wB`` (zero at init, where it
-    would hide ``wA`` from every gradient)."""
+    """A param tree of ``cfg``'s family in the JAX layout, drawn with
+    numpy: truncated-normal-like weights over sqrt(fan_in), non-unit norm
+    scales (and non-zero layernorm and MLP biases); for RWKV6 a non-zero
+    decay LoRA ``wB`` (zero at init, where it would hide ``wA`` from every
+    gradient); for Mamba2 non-zero ``A_log``, ``conv_b`` and spread
+    ``dt_bias`` (constants at init)."""
     rng = np.random.default_rng(seed)
     L, D, hd = cfg.n_layers, cfg.d_model, cfg.hd
     H, kvH, Fd = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
@@ -39,32 +40,73 @@ def numpy_params(cfg, seed: int = 0) -> dict:
         return (1.0 + normal(0.1, *shape)).astype(np.float32)
 
     embed = {"table": normal(0.02, cfg.vocab, D)}
+
+    def ln(*lead):
+        return {"scale": scale(*lead, D), "bias": normal(0.1, *lead, D)}
+
+    def attn(lead, heads, kv_heads, head_dim):
+        return {"wq": dense(D, *lead, D, heads * head_dim),
+                "wk": dense(D, *lead, D, kv_heads * head_dim),
+                "wv": dense(D, *lead, D, kv_heads * head_dim),
+                "wo": dense(heads * head_dim, *lead, heads * head_dim, D)}
+
+    if cfg.family == "hybrid":
+        d_inner = cfg.ssm_expand * D
+        N, P = cfg.ssm_state, cfg.ssm_head_dim
+        Hs, C = d_inner // P, d_inner + 2 * cfg.ssm_state
+        heads = cfg.shared_attn_heads or H
+        sFd = cfg.shared_attn_d_ff or Fd
+        mamba = {"ln": {"scale": scale(L, D)},
+                 "in_proj": dense(D, L, D, 2 * d_inner + 2 * N + Hs),
+                 "conv_w": normal(0.1, L, cfg.ssm_conv, C),
+                 "conv_b": normal(0.1, L, C),
+                 "A_log": normal(0.5, L, Hs),
+                 "dt_bias": (-2.0 + normal(0.5, L, Hs)).astype(np.float32),
+                 "D_skip": scale(L, Hs),
+                 "gate_ln": {"scale": scale(L, d_inner)},
+                 "out_proj": dense(d_inner, L, d_inner, D)}
+        shared = {"ln_attn": {"scale": scale(D)},
+                  "attn": attn((), heads, heads, D // heads),
+                  "ln_mlp": {"scale": scale(D)},
+                  "mlp": {"w_gate": dense(D, D, sFd), "w_up": dense(D, D, sFd),
+                          "w_down": dense(sFd, sFd, D)}}
+        return {"embed": embed, "mamba": mamba, "shared": shared,
+                "ln_f": {"scale": scale(D)}}
+    if cfg.family == "audio":
+        def gelu_mlp(n):
+            return {"w_up": dense(D, n, D, Fd), "b_up": normal(0.1, n, Fd),
+                    "w_down": dense(Fd, n, Fd, D), "b_down": normal(0.1, n, D)}
+        Le = cfg.encoder_layers
+        return {"embed": embed, "pos_dec": normal(0.01, 65536, D),
+                "enc_blocks": {"ln_attn": ln(Le),
+                               "attn": attn((Le,), H, H, hd),
+                               "ln_mlp": ln(Le), "mlp": gelu_mlp(Le)},
+                "dec_blocks": {"ln_self": ln(L),
+                               "self_attn": attn((L,), H, H, hd),
+                               "ln_cross": ln(L),
+                               "cross_attn": attn((L,), H, H, hd),
+                               "ln_mlp": ln(L), "mlp": gelu_mlp(L)},
+                "ln_enc": ln(), "ln_f": ln()}
     if cfg.family == "ssm":
         K = cfg.ssm_head_dim
-
-        def ln():
-            return {"scale": scale(L, D), "bias": normal(0.1, L, D)}
 
         def mu():
             return rng.uniform(size=(L, D)).astype(np.float32)
 
-        blocks = {"ln1": ln(), "ln2": ln(), "mu_r": mu(), "mu_k": mu(),
+        blocks = {"ln1": ln(L), "ln2": ln(L), "mu_r": mu(), "mu_k": mu(),
                   "mu_v": mu(), "mu_w": mu(), "mu_g": mu(),
                   "Wr": dense(D, L, D, D), "Wk": dense(D, L, D, D),
                   "Wv": dense(D, L, D, D), "Wg": dense(D, L, D, D),
                   "w0": scale(L, D), "wA": dense(D, L, D, 64),
                   "wB": normal(0.3, L, 64, D), "u": normal(0.1, L, D // K, K),
-                  "ln_x": ln(), "Wo": dense(D, L, D, D), "mu_ck": mu(),
+                  "ln_x": ln(L), "Wo": dense(D, L, D, D), "mu_ck": mu(),
                   "mu_cr": mu(), "cWk": dense(D, L, D, Fd),
                   "cWv": dense(Fd, L, Fd, D), "cWr": dense(D, L, D, D)}
         return {"embed": embed, "blocks": blocks,
                 "ln_f": {"scale": scale(D), "bias": normal(0.1, D)}}
     blocks = {
         "ln_attn": {"scale": scale(L, D)},
-        "attn": {"wq": dense(D, L, D, H * hd),
-                 "wk": dense(D, L, D, kvH * hd),
-                 "wv": dense(D, L, D, kvH * hd),
-                 "wo": dense(H * hd, L, H * hd, D)},
+        "attn": attn((L,), H, kvH, hd),
         "ln_mlp": {"scale": scale(L, D)},
     }
     if cfg.family == "moe":

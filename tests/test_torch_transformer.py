@@ -1,5 +1,7 @@
 """Port's dense transformer (prefill + decode) vs the JAX package on the
 same numpy-drawn params converted with ``params_from_jax``."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,7 +11,7 @@ import torch
 from _torch_parity import CPU, jax_tree, numpy_params
 from repro.models.registry import get_bundle as jax_bundle
 from repro_torch.models.convert import params_from_jax
-from repro_torch.models.registry import get_bundle
+from repro_torch.models.registry import ModelBundle, get_bundle
 from repro_torch.models.transformer import cache_rows
 
 # f32: the same f32 arithmetic in another summation order (seen: 1.4e-6).
@@ -84,8 +86,14 @@ def test_rows_decode_at_independent_positions():
 
 
 def test_unported_arch_and_family_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_bundle("qwen2-vl-7b")
+    """Every arch of the reference is ported: an arch or a family the
+    registry does not know raises, as does a cache that does not split."""
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_bundle("qwen2-vl-72b")
+    cfg = dataclasses.replace(get_bundle("phi4-mini-3.8b").cfg,
+                              family="diffusion")
+    with pytest.raises(ValueError, match="unknown model family"):
+        ModelBundle(cfg)
     with pytest.raises(ValueError, match="divisible"):
         get_bundle("phi4-mini-3.8b", reduced=True).init_caches(
             1, max_len=10, n_chunks=4, device=CPU)

@@ -1,10 +1,11 @@
-"""The port's model zoo against the JAX package's: every ported config
-equals the reference's field for field, ``get_bundle`` builds every ported
-arch and refuses the rest, and the three dense configs of this slice and
-dbrx (reduced; h2o-danube-3-4b at window 64 over 128 tokens, so the window
-bites) match JAX's loss and gradients on shared numpy params; the MoE and
-RWKV6 presets (``lm/moe_tiny``, ``lm/rwkv_tiny``) run to the end on the
-CPU."""
+"""The port's model zoo against the JAX package's: every config equals
+the reference's field for field, ``get_bundle`` builds every arch,
+``params_from_jax`` checks each family's tree, and the three dense configs
+and dbrx (reduced; h2o-danube-3-4b at window 64 over 128 tokens, so the
+window bites) match JAX's loss and gradients on shared numpy params; the
+MoE and RWKV6 presets (``lm/moe_tiny``, ``lm/rwkv_tiny``) run to the end
+on the CPU. (The launchers' runs of the vlm, hybrid and audio families
+sit in those families' test files.)"""
 import dataclasses
 import json
 
@@ -31,29 +32,38 @@ def test_ported_config_equals_jax(arch):
 
 
 def test_registry_builds_every_ported_arch_and_refuses_the_rest():
+    """Every arch of the reference is ported (no "rest" is left): each id
+    of ``ARCH_IDS`` builds its family's bundle, and an unknown arch
+    raises."""
     assert registry.ARCH_IDS == jregistry.ARCH_IDS
-    assert sorted(registry.PORTED_IDS) == sorted(
-        ["dbrx-132b", "qwen3-moe-235b-a22b", "h2o-danube-3-4b",
-         "phi3-medium-14b", "phi4-mini-3.8b", "internlm2-20b", "rwkv6-3b"])
-    for arch in registry.PORTED_IDS:
+    assert registry.PORTED_IDS == registry.ARCH_IDS
+    for arch in registry.ARCH_IDS:
         b = registry.get_bundle(arch)
         assert b.cfg.name == arch and b.mod is not None
-    for arch in ("qwen2-vl-7b", "zamba2-1.2b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            registry.get_bundle(arch)
+        assert b.cfg.family == jregistry.get_config(arch).family
     with pytest.raises(ValueError, match="unknown arch"):
         registry.get_bundle("gpt-2")
 
 
 def test_params_from_jax_checks_the_tree_per_family():
-    """Each family's tree converts; a tree of another family or width is
-    refused with the leaf named (a MoE or RWKV tree has no
-    ``blocks/mlp``)."""
+    """Each family's tree converts (every leaf keeps its dtype); a tree of
+    another family or width is refused with the leaf named (a MoE or RWKV
+    tree has no ``blocks/mlp``, a dense one no ``mamba`` or
+    ``enc_blocks``)."""
     moe = registry.get_bundle("qwen3-moe-235b-a22b", reduced=True).cfg
     ssm = registry.get_bundle("rwkv6-3b", reduced=True).cfg
     dense = registry.get_bundle("phi4-mini-3.8b", reduced=True).cfg
-    for cfg in (moe, ssm, dense):
-        params_from_jax(numpy_params(cfg, 0), cfg, device=CPU)
+    hyb = registry.get_bundle("zamba2-1.2b", reduced=True).cfg
+    audio = registry.get_bundle("whisper-small", reduced=True).cfg
+    for cfg in (moe, ssm, dense, hyb, audio):
+        tree = numpy_params(cfg, 0)
+        got = params_from_jax(tree, cfg, device=CPU)
+        assert set(got) == set(tree)
+    half = params_from_jax(
+        {k: (v.astype(np.float16) if k == "pos_dec" else v)
+         for k, v in numpy_params(audio, 0).items()}, audio, device=CPU)
+    assert half["pos_dec"].dtype == torch.float16
+    assert half["embed"]["table"].dtype == torch.float32
     with pytest.raises(ValueError, match="blocks/mlp/w_down is missing"):
         params_from_jax(numpy_params(moe, 0), dense, device=CPU)
     with pytest.raises(ValueError, match="blocks/moe/router"):
@@ -61,6 +71,18 @@ def test_params_from_jax_checks_the_tree_per_family():
     with pytest.raises(ValueError, match="blocks/Wr"):
         params_from_jax(numpy_params(
             dataclasses.replace(ssm, d_model=64), 0), ssm, device=CPU)
+    with pytest.raises(ValueError, match="mamba/in_proj is missing"):
+        params_from_jax(numpy_params(dense, 0), hyb, device=CPU)
+    with pytest.raises(ValueError, match="shared/mlp/w_down is"):
+        params_from_jax(numpy_params(
+            dataclasses.replace(hyb, shared_attn_d_ff=128), 0), hyb,
+            device=CPU)
+    with pytest.raises(ValueError, match="enc_blocks/attn/wq is missing"):
+        params_from_jax(numpy_params(hyb, 0), audio, device=CPU)
+    with pytest.raises(ValueError, match="enc_blocks/attn/wq is"):
+        params_from_jax(numpy_params(
+            dataclasses.replace(audio, encoder_layers=3), 0), audio,
+            device=CPU)
 
 
 @pytest.mark.parametrize("arch,over,S", [
@@ -117,3 +139,4 @@ def test_zoo_presets_run_to_the_end_on_the_cpu(name):
     accs = [m["acc"] for m in res.logs] + [res.final["acc"]]
     assert np.all(np.isfinite(accs)) and accs[-1] > accs[0]
     json.dumps(res.to_dict())
+

@@ -1,7 +1,9 @@
-"""The MoE and RWKV6 families on the card (imports no JAX): the MoE's
-routing and combine bit-equal across two launches, with the CPU's routing
-indices; the RWKV6 WKV scan against the CPU's. Every test skips where CUDA
-is absent:
+"""The zoo's families on the card (imports no JAX): the MoE's routing and
+combine bit-equal across two launches, with the CPU's routing indices; the
+RWKV6 WKV scan and the Mamba2 SSD scan against the CPU's; the reduced
+rwkv6, zamba2, qwen2-vl and whisper models on the card against the CPU;
+whisper's one-row cross-attention over 1500 frames through the flash
+forward. Every test skips where CUDA is absent:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_zoo_cuda.py
 """
@@ -10,8 +12,9 @@ import pytest
 import torch
 
 from _torch_parity import CPU, require_cuda
-from repro_torch.models import moe, rwkv6
+from repro_torch.models import mamba2, moe, rwkv6
 from repro_torch.models.registry import get_bundle
+from repro_torch.serve.replica import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +116,83 @@ def test_rwkv_reduced_model_on_the_card_matches_the_cpu():
                 logits.append(lg)
         out[d.type] = torch.stack(logits).cpu()
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-3)
+
+
+def test_ssd_scan_on_the_card_matches_the_cpu():
+    """``ssd_chunked`` at zamba2-1.2b's heads (64 of 64, state 64) over
+    S = 300 (padded to 320) from a non-zero state: the card against the
+    CPU in float32."""
+    dev = require_cuda()
+    rng = np.random.default_rng(1)
+    B, S, H, P, N = 2, 300, 64, 64, 64
+
+    def a(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape))
+                                .astype(np.float32))
+    args = (a(B, S, H, P), torch.clamp(-torch.exp(a(B, S, H, scale=0.7)),
+                                       min=-20.0),
+            a(B, S, N), a(B, S, N), a(B, H, P, N, scale=0.3))
+    want = mamba2.ssd_chunked(*args, 64)
+    got = mamba2.ssd_chunked(*(t.to(dev) for t in args), 64)
+    torch.cuda.synchronize()
+    # float32 contractions over N = 64 and 64 steps a chunk, summed in
+    # other orders: atol scaled by the largest magnitude
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * w.abs().max().item())
+
+
+def _family_batch(tb, B, S, gen):
+    batch = tb.make_batch("prefill", B, S, gen)
+    batch.pop("labels")
+    return {k: (v.float() if v.is_floating_point() else v)
+            for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "qwen2-vl-7b",
+                                  "whisper-small"])
+def test_reduced_model_on_the_card_matches_the_cpu(arch):
+    """The reduced model in float32 (float32 caches), a prefill of 70
+    positions (whisper: 35 frames and 35 tokens) and 4 decode steps (vlm:
+    the last embedding at the next M-RoPE ids): the card's logits against
+    the CPU's."""
+    from repro_torch.launch.serve import decode_batch
+    dev = require_cuda()
+    tb = get_bundle(arch, reduced=True, act_dtype="float32")
+    params = tb.init(torch.Generator().manual_seed(0))
+    pf = _family_batch(tb, 2, 70, torch.Generator().manual_seed(1))
+    out = {}
+    for d in (CPU, dev):
+        p = tree_map(lambda t: t.to(d), params)
+        b = {k: v.to(d) for k, v in pf.items()}
+        c = tb.init_caches(2, 80, 4, dtype=torch.float32, device=d)
+        with torch.inference_mode():
+            lg, c = tb.prefill(p, b, c)
+            logits = [lg]
+            for i in range(4):
+                lg, c = tb.decode(p, c, decode_batch(
+                    tb, b, lg.argmax(-1)[:, None], i))
+                logits.append(lg)
+        out[d.type] = torch.stack(logits).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-3)
+
+
+def test_whisper_cross_attention_decode_through_the_flash_forward():
+    """A one-row query over 1500 frames (whisper-small's decode
+    cross-attention: 12 heads of 64, bf16, non-causal) through the flash
+    forward, against the plain version."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import layers
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((4, 1, 12, 64), generator=g, device=dev).bfloat16()
+    k = torch.randn((4, 1500, 12, 64), generator=g, device=dev).bfloat16()
+    v = torch.randn((4, 1500, 12, 64), generator=g, device=dev).bfloat16()
+    before = ops.flash_attention.launches
+    got = layers.blocked_attention(q, k, v, causal=False, cross=True,
+                                   q_block=1)
+    assert ops.flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
