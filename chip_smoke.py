@@ -136,13 +136,34 @@
    loss and gradients, prefill and 3 decode steps; zamba2 through the
    protocol for 2T + 1 steps, every MDA selection equal.
 
-Phases print on earlier lines; the line before the last holds the card's
-name and power limit, the one before it the kernels' JSON record, and the
-last line is ``{"ok": true, "device": {...}}``. Exits non-zero, with no
-result line, when CUDA is absent or any check fails.
+15. The protocol over ``torch.distributed`` ranks (rows 1-4, 7 and 8 on
+   every rank). (a) Phase 10's argv through ``launch/train.py`` on a
+   world-1 NCCL group (the (1, 1, 1) mesh): params bit-equal to phase 10's
+   after its 11 steps, or else within 1e-3 with every MDA selection equal
+   (it says which). (b) phi4-mini-3.8b at full width, depth 2, G = 4 on 2
+   ranks sharing the card over gloo (mesh (2, 1, 1), ``--mesh 2x1``), 3
+   steps: the per-rank memory reckoned from phase 10's peak first (the
+   tokens a group cut to 2 x 1024 if 2 ranks would pass 72 GB); finite
+   losses; per rank the peak memory, steps/s, bytes sent a step by tag
+   (pull + aggregate within 10 % of ``collective_volume_bytes(rep=2)``)
+   and the launches of each kernel (at least one a step). (c)
+   ``lm/tfm_tiny`` as phase 9 on 4 ranks (rep 4) on the card against the
+   single-card CPU run: every MDA selection equal, params within phase
+   9's tolerance. Each rank is a process spawned by
+   ``torch.multiprocessing``; one that fails fails the script.
+
+The profiler windows are read from their raw trace records in one pass
+(``trace_events``), not through ``key_averages()`` / ``events()``, whose
+parse took ~290 s of the script. Phases print on earlier lines; the line
+before the last holds the card's name and power limit, the one before it
+the kernels' JSON record (``launches`` over every main-path run,
+``mesh_launches`` phase 15's share), and the last line is ``{"ok": true,
+"device": {...}}``. Exits non-zero, with no result line, when CUDA is
+absent or any check fails.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -503,10 +524,18 @@ def profile_window(svc, prompts, max_new: int = 8):
                     lambda: svc.generate(prompts, max_new=max_new))
 
 
+def trace_events(prof) -> list:
+    """The window's raw trace records (``_KinetoEvent``), read as they come:
+    no ``FunctionEvent`` is built and no tree, the parse
+    ``key_averages()`` and ``events()`` make, which took minutes on the
+    long windows."""
+    return list(prof.profiler.kineto_results.events())
+
+
 def _profile(label: str, fn, keep: bool = False):
     """Run ``fn`` under torch.profiler: device busy share of the wall time
-    and the kernels that take the most device time (with ``keep``, also the
-    profiler and the wall in µs)."""
+    and the kernels that take the most device time, from one pass over the
+    raw records (with ``keep``, also the records and the wall in µs)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -514,21 +543,26 @@ def _profile(label: str, fn, keep: bool = False):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    events = trace_events(prof)
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name: dict = {}
     # kernels only: a record_function range also shows on the device's
     # timeline, as a span that would count its gaps as busy
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.is_user_annotation]
-    busy_us = sum(e.self_device_time_total for e in events)
+    for e in events:
+        if e.device_type() == cuda and not e.is_user_annotation():
+            ns, n = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    busy_us = sum(ns for ns, _ in by_name.values()) / 1e3
     log(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}% of wall); "
-        f"the trace's parse {time.perf_counter() - t0:.1f} s")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
-            f"{e.count:6d} x  {e.key[:90]}")
+        f"the trace's parse {time.perf_counter() - t0:.1f} s "
+        f"({len(events)} records)")
+    for name, (ns, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                )[:10]:
+        log(f"[profile]   {ns / 1e6:9.2f} ms {n:6d} x  {name[:90]}")
     if keep:
-        return busy_us / wall_us, prof, wall_us
+        return busy_us / wall_us, events, wall_us
     return busy_us / wall_us
 
 
@@ -1086,16 +1120,16 @@ def _token_tables(rng, G, q_w, q_ps, T, steps):
             np.stack([pick(q_ps, True) for _ in range(steps // T)]))
 
 
-def protocol_reference_phase(dev, preset: str = "lm/tfm_tiny",
-                             arch: str = "phi4-mini-3.8b", **over):
-    """``preset``'s model (``arch`` reduced, f32 activations, ``over``
-    config fields) through the ProtocolEngine: card vs CPU."""
+def _tiny_protocol(preset: str = "lm/tfm_tiny",
+                   arch: str = "phi4-mini-3.8b", **over) -> dict:
+    """``preset``'s protocol with an ALIE worker on ``arch`` reduced (f32
+    activations, ``over`` config fields): its bundle, config, schedule,
+    2T + 1 steps of numpy quorum tables and token batches, and the initial
+    state on the CPU."""
     import dataclasses
 
-    from repro_torch.agg import registry
     from repro_torch.core import protocol
     from repro_torch.core.attacks import ByzantineSpec
-    from repro_torch.core.quorum import TraceDelivery
     from repro_torch.exp import presets
     from repro_torch.models.registry import get_bundle
     e = presets.get(preset)
@@ -1106,55 +1140,87 @@ def protocol_reference_phase(dev, preset: str = "lm/tfm_tiny",
     bundle = get_bundle(arch, reduced=True, act_dtype="float32", **over)
     rng = np.random.default_rng(SEED)
     tables = _token_tables(rng, G, pcfg.q_workers, pcfg.q_servers, T, steps)
-    spec = e.to_dict()
     toks = rng.integers(0, bundle.cfg.vocab,
-                        (steps, G, spec["batch"], 65))
-    batches = {"tokens": torch.from_numpy(toks[..., :-1]),
-               "labels": torch.from_numpy(toks[..., 1:])}
-    init = protocol.make_init_fn(bundle, pcfg, "cpu")(SEED)
-    mda = registry.get("mda")
+                        (steps, G, e.to_dict()["batch"], 65))
+    return dict(preset=preset, bundle=bundle, pcfg=pcfg, tables=tables,
+                schedule=e.build_schedule(), steps=steps,
+                batches={"tokens": torch.from_numpy(toks[..., :-1]),
+                         "labels": torch.from_numpy(toks[..., 1:])},
+                init=protocol.make_init_fn(bundle, pcfg, "cpu")(SEED))
+
+
+def _tiny_run(run: dict, d, mesh=None):
+    """``_tiny_protocol``'s run on device ``d`` (on ``mesh``'s ranks):
+    the whole final params on the CPU, every server's MDA selection per
+    step, and the wall seconds."""
+    import dataclasses
+
+    from repro_torch.agg import registry
+    from repro_torch.core import protocol
+    from repro_torch.core.quorum import TraceDelivery
+    pcfg = run["pcfg"]
+    eng = protocol.ProtocolEngine(
+        run["bundle"], pcfg, run["schedule"], with_attack=True,
+        delivery=TraceDelivery(*run["tables"], T=pcfg.T, device=d),
+        device=d, mesh=mesh)
+    init = run["init"]
+    state = protocol.shard_state(init._replace(
+        params=init.params.clone().to(d),
+        gen=torch.Generator(d).manual_seed(1)), mesh)
+    mda, picked = registry.get("mda"), []
+
+    def record(d2, f, **kw):
+        w = mda.weights_from_d2(d2, f, **kw)
+        picked.append((w > 0).cpu())
+        return w
+
+    registry._REGISTRY["mda"] = dataclasses.replace(
+        mda, weights_from_d2=record)
+    try:
+        t0 = time.perf_counter()
+        state, _ = eng.run(state, {k: v.to(d) for k, v in
+                                   run["batches"].items()})
+        params = protocol.whole_state(state).params.cpu()
+        wall = time.perf_counter() - t0
+    finally:
+        registry._REGISTRY["mda"] = mda
+    return params, picked, wall
+
+
+def protocol_reference_phase(dev, preset: str = "lm/tfm_tiny",
+                             arch: str = "phi4-mini-3.8b", **over):
+    """``preset``'s model (``arch`` reduced, f32 activations, ``over``
+    config fields) through the ProtocolEngine: card vs CPU."""
+    run = _tiny_protocol(preset, arch, **over)
     out, sels = {}, {}
     for key, d in (("cpu", torch.device("cpu")), ("card", dev)):
-        eng = protocol.ProtocolEngine(
-            bundle, pcfg, e.build_schedule(), with_attack=True,
-            delivery=TraceDelivery(*tables, T=T, device=d), device=d)
-        state = init._replace(params=init.params.clone().to(d),
-                              gen=torch.Generator(d).manual_seed(1))
-        picked = sels[key] = []
+        out[key], sels[key], wall = _tiny_run(run, d)
+        log(f"[protocol-ref] {preset} {key}: {run['steps']} steps in "
+            f"{wall:.1f} s")
+    return _tiny_compare(run, out, sels, "protocol-ref", "card")
 
-        def record(d2, f, **kw):
-            w = mda.weights_from_d2(d2, f, **kw)
-            picked.append((w > 0).cpu())
-            return w
 
-        registry._REGISTRY["mda"] = dataclasses.replace(
-            mda, weights_from_d2=record)
-        try:
-            t0 = time.perf_counter()
-            state, _ = eng.run(state, {k: v.to(d) for k, v in
-                                       batches.items()})
-            out[key] = state.params.cpu()
-            wall = time.perf_counter() - t0
-        finally:
-            registry._REGISTRY["mda"] = mda
-        log(f"[protocol-ref] {preset} {key}: {steps} steps in {wall:.1f} s")
-    if not torch.isfinite(out["card"]).all():
-        raise AssertionError("non-finite params on the card")
-    same = (len(sels["cpu"]) == len(sels["card"]) == steps
+def _tiny_compare(run, out, sels, tag, key):
+    """Gate ``out[key]`` against ``out["cpu"]``: every MDA selection equal,
+    params within float32 summation-order drift."""
+    steps, G = run["steps"], run["pcfg"].n_groups
+    if not torch.isfinite(out[key]).all():
+        raise AssertionError(f"{tag}: non-finite params on the card")
+    same = (len(sels["cpu"]) == len(sels[key]) == steps
             and all(torch.equal(a, b) for a, b in zip(sels["cpu"],
-                                                      sels["card"])))
-    err = (out["card"] - out["cpu"]).abs().max().item()
-    log(f"[protocol-ref] {preset} f32 (P = {out['cpu'].shape[1]}, G = "
-        f"{G}, ALIE x1), {steps} steps, 2 gathers: card kernels vs CPU plain "
-        f"versions max|params diff|={err:.3g} (max|param| "
+                                                      sels[key])))
+    err = (out[key] - out["cpu"]).abs().max().item()
+    log(f"[{tag}] {run['preset']} f32 (P = {out['cpu'].shape[1]}, G = "
+        f"{G}, ALIE x1), {steps} steps, 2 gathers: {key} (kernels) vs CPU "
+        f"(plain versions) max|params diff|={err:.3g} (max|param| "
         f"{out['cpu'].abs().max().item():.3g}); every MDA selection matched "
         f"({steps} steps x {G} servers): {same}")
     if not same:
-        raise AssertionError("an MDA selection differs between the card and "
-                             "the CPU")
+        raise AssertionError(f"{tag}: an MDA selection differs between the "
+                             "card and the CPU")
     # float32 sums in other orders (cuBLAS, the flash kernels' tiles, the
     # Gram kernel's chunks), carried through 11 steps of training
-    torch.testing.assert_close(out["card"], out["cpu"], rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(out[key], out["cpu"], rtol=1e-3, atol=1e-4)
     return err
 
 
@@ -1242,6 +1308,39 @@ def protocol_kernel_rows(dev, G: int, P: int, chunk_bytes: int):
     return rows
 
 
+@contextlib.contextmanager
+def _selections():
+    """Every step's MDA quorum weights ``[G, G]`` of the protocol runs
+    inside the block (kept on the device until the block ends: no sync)."""
+    from repro_torch.core import protocol
+    qw, picked = protocol.quorum_weights, []
+
+    def record(*a, **kw):
+        w = qw(*a, **kw)
+        picked.append(w.clone())
+        return w
+
+    protocol.quorum_weights = record
+    try:
+        yield picked
+    finally:
+        protocol.quorum_weights = qw
+        picked[:] = [w.cpu() for w in picked]
+
+
+def fingerprint(x: torch.Tensor) -> list[int]:
+    """Per-row int64 sums of a float32 stack's bits, each weighted by its
+    column mod 65521 plus 1: any change of a bit changes a row's sum (the
+    equality of two ``[G, P]`` stacks without a second copy on the card)."""
+    bits = x.view(torch.int32)
+    out = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+    for c0 in range(0, x.shape[1], 2**26):
+        c = bits[:, c0:c0 + 2**26].long()
+        w = (torch.arange(c0, c0 + c.shape[1], device=x.device) % 65521) + 1
+        out += (c * w).sum(dim=1)
+    return out.tolist()
+
+
 def protocol_train_phase(dev):
     """phi4-mini-3.8b at full width, depth 2, G = 4, through the training
     launcher (``launch/train.py``); launches counted from 0 around the
@@ -1255,11 +1354,16 @@ def protocol_train_phase(dev):
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
-    run = train.main(PROTO_ARGV)
+    with _selections() as picked:
+        run = train.main(PROTO_ARGV)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = {k: c.launches for k, c in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    # phase 15 (a) runs these steps again through the mesh path
+    reference = dict(fingerprint=fingerprint(run.state.params),
+                     host=run.state.params.cpu(), selections=picked,
+                     peak_gb=peak_gb, P=run.n_params)
     losses = [loss for _, loss in run.losses]
     warm = run.step_s[1:]
     log(f"[protocol] phi4-mini-3.8b depth 2 full width (P = "
@@ -1310,7 +1414,8 @@ def protocol_train_phase(dev):
         + json.dumps([(m["step"], round(m["acc"], 4)) for m in res.logs]))
     if not np.isfinite(res.final["acc"]):
         raise AssertionError("lm/tfm_tiny: non-finite eval loss")
-    return got, rows, dict(peak_gb=peak_gb, busy=busy), state
+    return got, rows, dict(peak_gb=peak_gb, busy=busy,
+                           reference=reference), state
 
 
 
@@ -1864,45 +1969,63 @@ def zoo_serve_phase(dev, arch: str, depth, tag: str, window_new: int,
                      peak_gb=peak_gb)
 
 
-def scan_share(prof, name: str = "wkv_chunked") -> dict:
+def scan_share(events, name: str = "wkv_chunked") -> dict:
     """What the ``name`` ranges (the scan's forward and its remat
     recompute) and the backward nodes of the ops they ran (matched by
     autograd sequence number) cost: their kernels' device time (the
     ranges' own spans on the device's timeline left out), the host time
-    the union of their intervals covers, and their kernel launches."""
+    the union of their intervals covers, and their kernel launches. From
+    the raw records (:func:`trace_events`): an op is inside a range when it
+    ran on the range's thread within its interval; a kernel and its launch
+    belong to the op whose correlation id they link to."""
+    import bisect
     cpu = torch.autograd.DeviceType.CPU
-    evs = prof.events()
-    ranges = [e for e in evs if e.name == name and e.device_type == cpu]
+    ops: dict = {}                      # thread -> [(start, end, id, seq)]
+    kernel_ns: dict = {}                # linked id -> device ns
+    launches: dict = {}                 # linked id -> kernel launches
+    ranges, roots = [], []
+    for e in events:
+        link = e.linked_correlation_id()
+        if e.device_type() != cpu:
+            if not e.is_user_annotation() and e.name() != name:
+                kernel_ns[link] = kernel_ns.get(link, 0) + e.duration_ns()
+            continue
+        if link > 0:                    # a runtime call made for an op
+            if "LaunchKernel" in e.name():
+                launches[link] = launches.get(link, 0) + 1
+            continue
+        rec = (e.start_ns(), e.end_ns(), e.correlation_id(), e.sequence_nr())
+        ops.setdefault(e.start_thread_id(), []).append(rec)
+        if e.name() == name:
+            ranges.append((e.start_thread_id(), rec))
+        elif e.name().startswith("autograd::engine::evaluate"):
+            roots.append((e.start_thread_id(), rec))
+    for v in ops.values():
+        v.sort()
+    starts = {t: [r[0] for r in v] for t, v in ops.items()}
 
-    def subtree(roots):
-        seen, stack = {}, list(roots)
-        while stack:
-            e = stack.pop()
-            if e.id not in seen:
-                seen[e.id] = e
-                stack.extend(e.cpu_children)
-        return seen
+    def inside(thread, rec):
+        v = ops[thread]
+        lo = bisect.bisect_left(starts[thread], rec[0])
+        hi = bisect.bisect_right(starts[thread], rec[1])
+        return [r for r in v[lo:hi] if r[1] <= rec[1]]
 
-    fwd = subtree(ranges)
-    seqs = {e.sequence_nr for e in fwd.values() if e.sequence_nr >= 0}
-    bwd_roots = [e for e in evs
-                 if e.name.startswith("autograd::engine::evaluate")
-                 and e.sequence_nr in seqs]
-    bwd = {k: e for k, e in subtree(bwd_roots).items() if k not in fwd}
+    fwd = {r[2]: r for t, rec in ranges for r in inside(t, rec)}
+    seqs = {r[3] for r in fwd.values() if r[3] >= 0}
+    bwd_roots = [(t, rec) for t, rec in roots if rec[3] in seqs]
+    bwd = {r[2]: r for t, rec in bwd_roots for r in inside(t, rec)
+           if r[2] not in fwd}
 
     def device_us(part):
-        return sum(k.duration for e in part.values() for k in e.kernels
-                   if k.name != name)
+        return sum(kernel_ns.get(i, 0) for i in part) / 1e3
 
-    host_us, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end)
-                       for e in ranges + bwd_roots):
-        host_us += max(0.0, b - max(a, end))
+    host_ns, end = 0, float("-inf")
+    for a, b in sorted(rec[:2] for _, rec in ranges + bwd_roots):
+        host_ns += max(0, b - max(a, end))
         end = max(end, b)
     return dict(calls=len(ranges), fwd_device_us=device_us(fwd),
-                bwd_device_us=device_us(bwd), host_us=host_us,
-                launches=sum("LaunchKernel" in e.name
-                             for e in (*fwd.values(), *bwd.values())))
+                bwd_device_us=device_us(bwd), host_us=host_ns / 1e3,
+                launches=sum(launches.get(i, 0) for i in (*fwd, *bwd)))
 
 
 def zoo_train_phase(dev):
@@ -1965,9 +2088,9 @@ def zoo_train_phase(dev):
             for b in extra:
                 state = run.step(state, b)
 
-        busy, prof, wall_us = _profile("protocol rwkv6-3b depth 2, 2 steps",
-                                       two_steps, keep=True)
-        sh = scan_share(prof)
+        busy, events, wall_us = _profile(
+            "protocol rwkv6-3b depth 2, 2 steps", two_steps, keep=True)
+        sh = scan_share(events)
         dev_ms = (sh["fwd_device_us"] + sh["bwd_device_us"]) / 1e3
         log(f"[zoo-train] the WKV scan in that window: {sh['calls']} calls "
             f"(forward and remat recompute), device {dev_ms:.1f} ms "
@@ -1979,7 +2102,7 @@ def zoo_train_phase(dev):
             f"{sh['launches'] / 2:.0f} launches a step")
     finally:
         rwkv6.wkv_chunked = scan
-    del run, extra, state, prof
+    del run, extra, state, events
     gc.collect()
     torch.cuda.empty_cache()
     return got, dict(peak_gb=peak_gb, busy=busy, scan=sh)
@@ -2206,9 +2329,9 @@ def hybrid_train_phase(dev):
             for b in extra:
                 state = run.step(state, b)
 
-        busy, prof, wall_us = _profile(f"protocol {cfg.name} depth 12, 2 "
-                                       f"steps", two_steps, keep=True)
-        sh = scan_share(prof, "ssd_chunked")
+        busy, events, wall_us = _profile(f"protocol {cfg.name} depth 12, 2 "
+                                         f"steps", two_steps, keep=True)
+        sh = scan_share(events, "ssd_chunked")
         dev_ms = (sh["fwd_device_us"] + sh["bwd_device_us"]) / 1e3
         log(f"[hybrid-train] the SSD scan in that window: {sh['calls']} "
             f"calls (forward and remat recompute), device {dev_ms:.1f} ms "
@@ -2220,7 +2343,7 @@ def hybrid_train_phase(dev):
             f"{sh['launches'] / 2:.0f} launches a step")
     finally:
         mamba2.ssd_chunked = scan
-    del run, extra, state, prof
+    del run, extra, state, events
     gc.collect()
     torch.cuda.empty_cache()
     return got, dict(peak_gb=peak_gb, busy=busy, scan=sh)
@@ -2441,6 +2564,225 @@ def zoo2_reference_phase(dev):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the protocol over torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2          # (b): ranks sharing the card over gloo
+MESH_STEPS = 3
+MESH_BUDGET_GB = 72.0   # what (b)'s ranks may take of the card together
+# kernel rows 1-4, 7 and 8: every one runs on every rank each step
+MESH_KERNELS = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv",
+                "cwise_median", "gram", "subset_diameters")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _mesh_rank(rank: int, world: int, port: int, task: str, tmp: str):
+    """One rank of phase 15 (b) or (c), spawned: joins a gloo world whose
+    ranks share the card (the rule of ``repro_torch.device.dist_backend``),
+    runs ``task`` and writes what it measured to ``tmp``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+    dev = tmesh.init_distributed("cuda", rank=rank, world=world,
+                                 init_method=f"tcp://localhost:{port}")
+    try:
+        counters = _proto_counters()
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = (_mesh_train_rank if task == "train" else _mesh_tiny_rank)(
+            dev, rank, tmp)
+        torch.cuda.synchronize()
+        out.update(launches={k: c.launches for k, c in counters.items()},
+                   peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        with open(os.path.join(tmp, f"{task}_{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_train_rank(dev, rank: int, tmp: str) -> dict:
+    from repro_torch.launch import train
+    with open(os.path.join(tmp, "argv.json")) as fh:
+        run = train.main(json.load(fh))
+    mesh = run.state.mesh
+    return dict(step_s=run.step_s, sent=run.sent, losses=run.losses,
+                mesh=mesh.sizes, backend=mesh.backend, P=run.n_params)
+
+
+def _mesh_tiny_rank(dev, rank: int, tmp: str) -> dict:
+    from repro_torch.launch import mesh as tmesh
+    run = _tiny_protocol()
+    mesh = tmesh.make_protocol_mesh(run["pcfg"].n_groups)
+    params, picked, wall = _tiny_run(run, dev, mesh)
+    if rank == 0:
+        torch.save(params, os.path.join(tmp, "tiny_params.pt"))
+    return dict(selections=[p.tolist() for p in picked], wall=wall,
+                mesh=mesh.sizes, backend=mesh.backend)
+
+
+def _spawn_ranks(task: str, world: int, tmp: str) -> list[dict]:
+    """``world`` rank processes on the card (``torch.multiprocessing``,
+    spawned); a rank that raises fails the phase."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    mp.start_processes(_mesh_rank, args=(world, _free_port(), task, tmp),
+                       nprocs=world, start_method="spawn", join=True)
+    log(f"[mesh] {task}: {world} ranks ran in {time.perf_counter() - t0:.1f}"
+        f" s (their start included)")
+    outs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{task}_{r}.json")) as fh:
+            outs.append(json.load(fh))
+    return outs
+
+
+def mesh_phase(dev, reference: dict) -> dict:
+    """Phase 15: (a) phase 10's run through the mesh path on a world-1 NCCL
+    group, against phase 10; (b) phi4-mini-3.8b at full width, depth 2, G
+    = 4 on ranks sharing the card over gloo; (c) ``lm/tfm_tiny`` on 4 ranks
+    (rep 4) on the card against the single-card CPU run. Returns the
+    kernel launches of the three runs, by key."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core.protocol import ProtocolConfig, \
+        collective_volume_bytes
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import train
+    total: dict = {}
+
+    def add(got):
+        for k in MESH_KERNELS:
+            total[k] = total.get(k, 0) + got[k]
+
+    # (a) ------------------------------------------------------------------
+    t0 = time.perf_counter()
+    tmesh.init_distributed("cuda", rank=0, world=1,
+                           init_method=f"tcp://localhost:{_free_port()}")
+    counters = _proto_counters()
+    for c in counters.values():
+        c.launches = 0
+    try:
+        with _selections() as picked:
+            run = train.main(PROTO_ARGV)
+        torch.cuda.synchronize()
+        mesh = run.state.mesh
+        got = {k: c.launches for k, c in counters.items()}
+        fp = fingerprint(run.state.params)
+        same = (len(picked) == len(reference["selections"]) == PROTO_STEPS
+                and all(torch.equal(a > 0, b > 0) for a, b in
+                        zip(picked, reference["selections"])))
+        err = 0.0
+        if fp != reference["fingerprint"]:
+            host = reference["host"]
+            for c0 in range(0, host.shape[1], 2**26):
+                err = max(err, (run.state.params[:, c0:c0 + 2**26] - host[
+                    :, c0:c0 + 2**26].to(dev)).abs().max().item())
+    finally:
+        dist.destroy_process_group()
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(got)
+    log(f"[mesh] (a) phase 10's argv on a world-1 {mesh.backend} group, "
+        f"mesh {mesh.sizes}: {time.perf_counter() - t0:.1f} s; params "
+        f"bit-equal to phase 10: {fp == reference['fingerprint']}"
+        + ("" if fp == reference["fingerprint"] else
+           f" (max|diff| {err:.3g})")
+        + f"; every MDA selection equal ({PROTO_STEPS} steps x 4 servers): "
+        f"{same}; launches " + json.dumps(got))
+    if mesh.backend != "nccl" or not same:
+        raise AssertionError(f"phase 15 (a): backend {mesh.backend}, "
+                             f"selections equal {same}")
+    # the same tolerance as phase 9's card against CPU, at phase 10's scale
+    if err > 1e-3:
+        raise AssertionError(f"phase 15 (a): params differ by {err}")
+
+    # (b) ------------------------------------------------------------------
+    P, G, R = reference["P"], 4, MESH_RANKS
+    stacks = G * P * (4 + 2 + 4)          # f32 replicas and grads, bf16 pull
+    per_rank = reference["peak_gb"] * 1e9 - stacks + stacks / R
+    batch = 4 if R * per_rank <= MESH_BUDGET_GB * 1e9 else 2
+    log(f"[mesh] (b) reckoning from phase 10's peak "
+        f"{reference['peak_gb']:.1f} GB, of it the [G, P] stacks "
+        f"{stacks / 1e9:.1f} GB: a rank holds 1/{R} of the stacks, "
+        f"{per_rank / 1e9:.1f} GB, {R} ranks {R * per_rank / 1e9:.1f} GB "
+        f"against {MESH_BUDGET_GB:.0f} GB: "
+        + ("4 x 1024 tokens a group, as phase 10" if batch == 4 else
+           "cut to 2 x 1024 tokens a group (the width stays)"))
+    argv = list(PROTO_ARGV)
+    argv[argv.index("--steps") + 1] = str(MESH_STEPS)
+    argv[argv.index("--batch-per-group") + 1] = str(batch)
+    argv += ["--mesh", f"{R}x1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "argv.json"), "w") as fh:
+            json.dump(argv, fh)
+        outs = _spawn_ranks("train", R, tmp)
+    pcfg = ProtocolConfig.derive(G)
+    model = collective_volume_bytes(pcfg, P, rep=R)
+    for r, o in enumerate(outs):
+        add(o["launches"])
+        warm = o["step_s"][1:]
+        scatter = [b.get("pull", 0) + b.get("aggregate", 0)
+                   for b in o["sent"]]
+        log(f"[mesh] (b) rank {r} of {R} ({o['backend']}, mesh "
+            f"{o['mesh']}, P = {o['P']:,}): peak device memory "
+            f"{o['peak_gb']:.1f} GB; {len(warm) / sum(warm):.4f} steps/s "
+            f"after the first (steps {[round(x, 2) for x in o['step_s']]}"
+            f" s); bytes sent a step by tag {o['sent']} (gloo through the "
+            f"host on one card: not a link's rate); pull + aggregate "
+            f"{scatter} against collective_volume_bytes(rep={R}) {model}; "
+            f"launches " + json.dumps(o["launches"]))
+        if o["mesh"] != {"rep": R, "fsdp": 1, "model": 1} \
+                or o["backend"] != "gloo":
+            raise AssertionError(f"phase 15 (b) rank {r}: {o['mesh']}, "
+                                 f"{o['backend']}")
+        if any(abs(b - model) > 0.1 * model for b in scatter):
+            raise AssertionError(f"phase 15 (b) rank {r}: {scatter} bytes "
+                                 f"against the model's {model}")
+        for k in MESH_KERNELS:
+            if o["launches"][k] < MESH_STEPS:
+                raise AssertionError(f"phase 15 (b) rank {r}: {k} launched "
+                                     f"{o['launches'][k]} times in "
+                                     f"{MESH_STEPS} steps")
+    losses = [x for _, x in outs[0]["losses"]]
+    log(f"[mesh] (b) losses (rank 0) {losses}; peak memory of the {R} ranks "
+        f"together {sum(o['peak_gb'] for o in outs):.1f} GB")
+    if len(losses) != MESH_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"phase 15 (b): losses {losses}")
+
+    # (c) ------------------------------------------------------------------
+    run = _tiny_protocol()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = _spawn_ranks("tiny", 4, tmp)
+        ranks = torch.load(os.path.join(tmp, "tiny_params.pt"))
+    cpu, sels, wall = _tiny_run(run, torch.device("cpu"))
+    picked = [torch.tensor(p) for p in outs[0]["selections"]]
+    for r, o in enumerate(outs):
+        add(o["launches"])
+        if o["mesh"] != {"rep": 4, "fsdp": 1, "model": 1} or any(
+                not torch.equal(torch.tensor(p), q)
+                for p, q in zip(o["selections"], picked)):
+            raise AssertionError(f"phase 15 (c) rank {r}: mesh {o['mesh']}"
+                                 ", or its selections differ from rank 0's")
+    log(f"[mesh] (c) lm/tfm_tiny on 4 ranks ({outs[0]['backend']}, mesh "
+        f"{outs[0]['mesh']}) {outs[0]['wall']:.1f} s, on the CPU {wall:.1f}"
+        f" s; launches a rank " + json.dumps(outs[0]["launches"]))
+    _tiny_compare(run, {"cpu": cpu, "ranks": ranks},
+                  {"cpu": sels, "ranks": picked}, "mesh", "ranks")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs an "
@@ -2450,6 +2792,7 @@ def main() -> int:
     from repro_torch import device as devmod
     from repro_torch.kernels import _build
 
+    t_start = time.perf_counter()
     dev = devmod.resolve("cuda")
     card = card_line()
     log(f"[card] {card} | torch {torch.__version__} (CUDA "
@@ -2486,7 +2829,7 @@ def main() -> int:
                      if k != "cwise_median"})
     bwd_rows = flash_bwd_phase(dev)
     protocol_reference_phase(dev)
-    proto_launches, proto_rows, _, state = protocol_train_phase(dev)
+    proto_launches, proto_rows, proto, state = protocol_train_phase(dev)
     for k, v in proto_launches.items():
         launches[k] = launches.get(k, 0) + v
     # phase 12 (a) on phase 10's state, before phase 11 takes the card
@@ -2528,8 +2871,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     zoo_launches.append(zoo2_reference_phase(dev))              # (f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 15: the protocol over torch.distributed ranks
+    mesh_launches = mesh_phase(dev, proto.pop("reference"))
     for part in (ckpt_launches, netsim_launches, resume_launches,
-                 elastic_launches, *zoo_launches):
+                 elastic_launches, *zoo_launches, mesh_launches):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
 
@@ -2572,11 +2919,13 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/{src}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": launches[name],
+            "mesh_launches": mesh_launches.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"]})
+    log(f"[smoke] chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,12 @@ saved leaf by leaf under the JAX ``ByzState``'s names (plus the port's own
 ``restore_consolidated`` collapses the replica axis with the coordinate-wise
 median — the checkpoint-level analogue of DMC: a corrupted replica in the
 checkpoint is outvoted.
+
+A ``ByzState`` spread over the ranks of a mesh is saved by every rank: the
+stacks are gathered whole, rank 0 writes the same replica-stacked files as
+one card does, and all ranks meet at a barrier. ``restore`` into a
+``like`` with a mesh reads the files on every rank and keeps its rows and
+columns.
 """
 from __future__ import annotations
 
@@ -119,6 +125,17 @@ def save(ckpt_dir: str, step: int, state, *, meta: dict | None = None) -> str:
     is a JSON-compatible dict stored verbatim in the manifest (the elastic
     runner records the active groups there)."""
     final = step_dir(ckpt_dir, step)
+    mesh = state.mesh if isinstance(state, protocol.ByzState) else None
+    if mesh is not None and mesh.n_ranks > 1:
+        leaves = _leaf_paths(state)          # the gathers: every rank
+        if mesh.rank == 0:
+            _write(ckpt_dir, final, step, leaves, meta)
+        mesh.barrier()
+        return final
+    return _write(ckpt_dir, final, step, _leaf_paths(state), meta)
+
+
+def _write(ckpt_dir: str, final: str, step: int, leaves, meta) -> str:
     tmp = final + ".tmp"
     os.makedirs(ckpt_dir, exist_ok=True)
     _gc_orphan_tmp(ckpt_dir)
@@ -126,7 +143,7 @@ def save(ckpt_dir: str, step: int, state, *, meta: dict | None = None) -> str:
     manifest = {"step": step, "leaves": {}}
     if meta is not None:
         manifest["meta"] = meta
-    for name, leaf in _leaf_paths(state):
+    for name, leaf in leaves:
         arr, dtype = _to_numpy(leaf)
         fname = name.replace("/", "__") + ".npy"
         _save_leaf(os.path.join(tmp, fname), arr, dtype)
@@ -172,7 +189,8 @@ def restore(ckpt_dir: str, step: int, like, device=None, *,
     ``like`` is a nested dict (its keys name the leaves; other leaves of
     the checkpoint are ignored) or a ``ByzState`` (its ``tree`` names the
     params; see :func:`repro_torch.core.protocol.state_from_leaves`, which
-    ``params_only`` is passed to). The stored shapes must match."""
+    ``params_only`` is passed to; with its ``mesh`` the state is this
+    rank's block). The stored shapes must match."""
     dev = resolve(device)
     d = step_dir(ckpt_dir, step)
     manifest = read_manifest(ckpt_dir, step)
@@ -184,7 +202,7 @@ def restore(ckpt_dir: str, step: int, like, device=None, *,
     if isinstance(like, protocol.ByzState):
         state = protocol.state_from_leaves(read, leaves, dev, tree=like.tree,
                                            params_only=params_only)
-        return state, manifest["step"]
+        return protocol.shard_state(state, like.mesh), manifest["step"]
 
     def walk(t, path):
         if isinstance(t, dict):

@@ -1,14 +1,16 @@
-"""Distributed ByzSGD on one card — the port of ``repro.core.protocol``.
+"""Distributed ByzSGD — the port of ``repro.core.protocol``.
 
-The JAX package maps the paper's server/worker protocol onto a
-('rep', 'fsdp', 'model') mesh: 'rep' indexes G = n_groups co-located
-worker+server groups (the failure domains), each holding a server replica
-and computing a worker gradient on its share of the batch. This port runs
-the same protocol with the G groups co-located on ONE device, with no mesh:
+The paper's server/worker protocol on a ('rep', 'fsdp', 'model') mesh of
+``torch.distributed`` ranks (:mod:`repro_torch.launch.mesh`): 'rep' indexes
+the ranks that hold the G = n_groups co-located worker+server groups (the
+failure domains), G/rep groups a rank; 'fsdp' splits each group's replica
+into K contiguous column ranges. Without a mesh (or on the ``(1, 1, 1)``
+mesh) the G groups share one device and every collective below is the
+identity: the single-card engine.
 
   * scatter step = pull (per-worker masked Median over the delivered server
     replicas, or the §5 round-robin pull with its distance filter)
-    -> per-group gradients (a loop over the G groups)
+    -> per-group gradients (a loop over the rank's groups)
     -> the gradient rule (MDA) per server over its delivered quorum, as
        selection weights from one Gram of the gradient stack
     -> local update (the optimizer registry);
@@ -17,19 +19,37 @@ the same protocol with the G groups co-located on ONE device, with no mesh:
 
 Layout: the replica stack, the pulled view and the gradient stack are each
 ONE flat ``[G, P]`` tensor in the JAX package's leaf order
-(:class:`~repro_torch.core.simulator.FlatTree`, carried in the state), so
-the Gram is one launch over ``[G, P]`` and a group's model is a dict of
-views into its row. The masked pull, the DMC gather and the gradient
-aggregation stream by column chunks of at most ``chunk_bytes``: a
-per-receiver gather of the whole ``[G_recv, q, P]`` stack would not fit a
-card at full width. The steps update the state's tensors in place (the JAX
-steps are pure; on one card the replica stack is the largest tensor there
-is, and a second copy would not fit at full width).
+(:class:`~repro_torch.core.simulator.FlatTree`, carried in the state); a
+rank holds the block ``[G/rep, P_k]`` of it that :func:`state_layout`
+names, so the slice is the same for every model family. A group's model is
+a dict of views into its row. The masked pull, the DMC gather and the
+gradient aggregation stream by column chunks of at most ``chunk_bytes``;
+on a mesh each chunk of the rank's columns is all-gathered over 'rep' into
+``[G, c]`` and the coordinate-wise rule runs for the rank's receivers
+('fsdp' ranks need nothing from each other there). The steps update the
+state's tensors in place (the JAX steps are pure; on one card the replica
+stack is the largest tensor there is, and a second copy would not fit at
+full width).
 
-Engines: the JAX package's 'naive' and 'sharded' engines differ in how the
-aggregation's collectives are laid out across the mesh; on one device there
-are no collectives, so both run the same code here. The mesh,
-``state_shardings`` and ``torch.distributed`` wait for the multi-GPU port.
+Per-group gradients on a mesh: the pulled row is all-gathered over 'fsdp',
+each 'fsdp' rank differentiates its contiguous part of the group's batch
+rows, weighted by its share of the rows (of the tokens: every row has the
+same length), and the parts are summed to column shards in rank order.
+Attacks see all G rows of a chunk after the gather (the adversary is
+omniscient); a stochastic attack, or random's leaf norm, gathers the whole
+stack to every rank and draws at full size from the shared generator, so
+every rank's draws are the single card's. The Gram follows
+``repro.agg.tree``: an all-to-all over 'rep' puts all G rows of 1/rep of
+the rank's columns on each rank, the Gram kernel makes a partial ``[G,
+G]`` there, and the partials are gathered and summed in rank order, so
+every rank makes the same MDA selection.
+
+Engines: 'naive' all-gathers each gradient chunk over 'rep' and forms the
+rank's receivers' weighted sums; 'sharded' forms the partial weighted sums
+of the rank's own senders and reduces them over 'rep' (an all-to-all, then
+a sum in rank order: the sum over senders keeps its order, where a
+``reduce_scatter`` would sum in an order the backend picks). On one device
+there are no collectives and both run the same code.
 
 :class:`ProtocolEngine` is the eager counterpart of the JAX fused epochs:
 the DMC gather at the T boundary driven by the carried step counter,
@@ -46,6 +66,8 @@ import torch
 from .. import agg
 from .. import optim as _optim
 from ..device import resolve
+from ..launch.mesh import AXES, ITEM_17, Mesh
+from . import attacks as _attacks
 from .attacks import ByzantineSpec, inject_gradients, inject_models
 from .quorum import UniformDelivery
 from .simulator import FlatTree, coordinatewise_diameter_sum, l2_diameter
@@ -131,10 +153,12 @@ class ProtocolConfig:
 
 class ByzState(NamedTuple):
     params: torch.Tensor          # [G, P] replicas, flat in JAX leaf order
+                                  # (a rank's [G/rep, P_k] block on a mesh)
     t: int                        # host step counter
     gen: torch.Generator          # quorums and stochastic attacks
     opt: Any = ()                 # per-replica optimizer state
     tree: FlatTree | None = None  # the model's leaves in the flat layout
+    mesh: Mesh | None = None      # the ranks the stack is spread over
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -163,6 +187,238 @@ def _rebuild(tree: FlatTree, leaves: list) -> dict:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
     return out
+
+
+# ---------------------------------------------------------------------------
+# the stack on a mesh
+# ---------------------------------------------------------------------------
+
+
+class Layout(NamedTuple):
+    """A rank's block of the flat ``[G, P]`` stack: replica rows ``[r0,
+    r1)``, columns ``[k0, k1)``, and the K + 1 column bounds of every 'fsdp'
+    rank's range."""
+    rows: tuple[int, int]
+    cols: tuple[int, int]
+    bounds: tuple[int, ...]
+
+
+def state_layout(mesh: Mesh | None, n_groups: int, P: int) -> Layout:
+    """Rows and columns of this rank's block: G/rep consecutive replica
+    rows at its 'rep' coordinate, and the k-th of K near-equal contiguous
+    column ranges of the flat ``P`` at its 'fsdp' coordinate k. A layout,
+    never a semantic: the rules are coordinate-wise or read distances, so
+    where a column lives changes no result beyond summation order.
+
+    Why there is no per-leaf table (the reference's ``leaf_spec``,
+    ``state_shardings``, ``body_spec``): on the flat layout a leaf is a
+    column range, so 'rep' and 'fsdp' have nothing to decide per leaf. The
+    table picks which dim of a leaf the 'model' axis splits (column- or
+    row-parallel), and waits for that axis (ROADMAP.md Queue 1 item
+    17)."""
+    sizes = mesh.sizes if mesh is not None else {}
+    rep, K = sizes.get("rep", 1), sizes.get("fsdp", 1)
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(f"state_layout: {ITEM_17}")
+    if n_groups % rep:
+        raise ValueError(f"rep={rep} must divide n_groups={n_groups}")
+    gl = n_groups // rep
+    r = mesh.coord("rep") if rep > 1 else 0
+    k = mesh.coord("fsdp") if K > 1 else 0
+    bounds = tuple(i * P // K for i in range(K + 1))
+    return Layout((r * gl, (r + 1) * gl), (bounds[k], bounds[k + 1]), bounds)
+
+
+_SINGLE = Mesh(AXES, (1, 1, 1))
+
+
+class _Ranks:
+    """One rank's view of a ``[G, P]`` stack on ``mesh``: the collectives
+    the steps make, each counted on the mesh under a tag. On the ``(1, 1,
+    1)`` mesh (``trivial``) every one is the identity on the whole
+    stack."""
+
+    def __init__(self, mesh: Mesh | None, n_groups: int, P: int,
+                 chunk_bytes: int):
+        self.mesh = mesh or _SINGLE
+        self.G = n_groups
+        self.chunk_bytes = chunk_bytes
+        self.lay = state_layout(self.mesh, self.G, P)
+        self.rep, self.K = self.mesh.size("rep"), self.mesh.size("fsdp")
+        self.trivial = self.rep == self.K == 1
+        self.r0, self.r1 = self.lay.rows
+        self.k0, self.k1 = self.lay.cols
+
+    # -- rows over 'rep' ----------------------------------------------------
+    def rows(self, local: torch.Tensor, tag: str, inject=None, tree=None):
+        """``(chunks, rows_of)``: ``rows_of(c0, c1)`` is ``[G, c1 - c0]``,
+        every replica's entries at the rank's columns ``c0:c1`` (local
+        indices), with ``inject(stack, tree)`` (an attack) applied. Chunks
+        of the rank's columns are gathered over 'rep' one at a time; a
+        stochastic attack, or any attack on the single card, runs once on
+        the whole stack (gathered whole on a mesh), eagerly, so its draws
+        come where the single card's do."""
+        pk = local.shape[1]
+        coordinatewise = inject is not None and inject.coordinatewise
+        if self.trivial or (inject is not None and not coordinatewise):
+            full = local
+            if inject is not None:
+                full = inject(local if self.trivial
+                              else self.gather_all(local, "attack"), tree)
+                if not self.trivial:
+                    full = full[:, self.k0:self.k1]
+            return [(0, pk)], lambda c0, c1: full[:, c0:c1]
+
+        def rows_of(c0, c1):
+            x = self.mesh.all_gather(local[:, c0:c1], "rep", tag)
+            return inject(x, None) if inject is not None else x
+
+        return (_chunks(pk, self.G, local.element_size(), self.chunk_bytes),
+                rows_of)
+
+    def rows_sum(self, partial: torch.Tensor, tag: str) -> torch.Tensor:
+        """``[G, c]`` partials (rows in receiver order) -> this rank's
+        receivers' ``[G/rep, c]``: the partials of every 'rep' rank summed
+        in rank order, in float32."""
+        recv = self.mesh.all_to_all(partial, "rep", tag)
+        recv = recv.view(self.rep, -1, partial.shape[1])
+        out = recv[0].float()
+        for j in range(1, self.rep):
+            out += recv[j]
+        return out
+
+    # -- columns over 'fsdp' ------------------------------------------------
+    def _padded(self, x: torch.Tensor, bounds, width: int) -> torch.Tensor:
+        """``[K, n, width]``: block k holds ``x``'s columns ``bounds[k]:
+        bounds[k+1]``, zero-padded."""
+        out = x.new_zeros((self.K, x.shape[0], width))
+        for k in range(self.K):
+            a, b = bounds[k], bounds[k + 1]
+            out[k, :, :b - a] = x[:, a:b]
+        return out
+
+    def cols_gather(self, x: torch.Tensor, tag: str) -> torch.Tensor:
+        """``[n, P_k]`` on each 'fsdp' rank -> ``[n, P]``."""
+        if self.K == 1:
+            return x
+        b = self.lay.bounds
+        width = max(b[i + 1] - b[i] for i in range(self.K))
+        pad = x.new_zeros((x.shape[0], width))
+        pad[:, :x.shape[1]] = x
+        blocks = self.mesh.all_gather(pad, "fsdp", tag).view(
+            self.K, x.shape[0], width)
+        return torch.cat([blocks[k, :, :b[k + 1] - b[k]]
+                          for k in range(self.K)], dim=1)
+
+    def cols_sum(self, x: torch.Tensor, tag: str) -> torch.Tensor:
+        """``[n, P]`` on each 'fsdp' rank -> this rank's columns of their
+        sum, added in rank order (float32)."""
+        if self.K == 1:
+            return x.float()
+        b = self.lay.bounds
+        width = max(b[i + 1] - b[i] for i in range(self.K))
+        recv = self.mesh.all_to_all(
+            self._padded(x, b, width).view(-1, width), "fsdp", tag)
+        recv = recv.view(self.K, x.shape[0], width)[..., :self.k1 - self.k0]
+        out = recv[0].float()
+        for j in range(1, self.K):
+            out += recv[j]
+        return out
+
+    def scalars_sum(self, v: torch.Tensor, tag: str) -> torch.Tensor:
+        """Per-row partial sums ``[n]`` over this rank's columns -> the sums
+        over all columns, added in 'fsdp' rank order."""
+        if self.K == 1:
+            return v
+        parts = self.mesh.all_gather(v[None], "fsdp", tag)
+        out = parts[0].clone()
+        for j in range(1, self.K):
+            out += parts[j]
+        return out
+
+    # -- whole stacks -------------------------------------------------------
+    def gather_all(self, local: torch.Tensor, tag: str) -> torch.Tensor:
+        """The whole ``[G, P]`` stack on every rank (attacks, metrics,
+        checkpoints at test scale)."""
+        return self.cols_gather(self.mesh.all_gather(local, "rep", tag), tag)
+
+    def row(self, local: torch.Tensor, g: int, tag: str) -> torch.Tensor:
+        """Replica row ``g`` whole (``[P]``) on every rank."""
+        if self.trivial:
+            return local[g]
+        gl = self.r1 - self.r0
+        owner = g // gl
+        x = (local[g - self.r0] if self.r0 <= g < self.r1
+             else local.new_empty(local.shape[1]))
+        if self.rep > 1:
+            self.mesh.broadcast(x, "rep", tag, src=owner)
+        return self.cols_gather(x[None], tag)[0]
+
+    def gram(self, local: torch.Tensor) -> torch.Tensor:
+        """``[G, G]`` float32 Gram of the whole gradient stack, the same on
+        every rank. Each column chunk of the rank's block is spread by an
+        all-to-all over 'rep' (rank j gets every rank's rows of the chunk's
+        j-th part: all G rows, zero-padded), the Gram kernel adds the
+        partial of each, and the ranks' partials are gathered and summed in
+        rank order."""
+        if self.trivial:
+            return agg.tree_gram(local)
+        gl, pk = local.shape
+        total = torch.zeros((self.G, self.G), dtype=torch.float32,
+                            device=local.device)
+        for c0, c1 in _chunks(pk, self.G, 4, self.chunk_bytes):
+            width = -(-(c1 - c0) // self.rep)
+            bounds = [min(c0 + j * width, c1) for j in range(self.rep + 1)]
+            send = local.new_zeros((self.rep, gl, width))
+            for j in range(self.rep):
+                a, b = bounds[j], bounds[j + 1]
+                send[j, :, :b - a] = local[:, a:b]
+            recv = self.mesh.all_to_all(send.view(-1, width), "rep", "gram")
+            total += agg.tree_gram(recv.float())
+        parts = self.mesh.all_gather(total[None], "fsdp", "gram")
+        parts = self.mesh.all_gather(parts, "rep", "gram")
+        out = parts[0].clone()
+        for j in range(1, parts.shape[0]):
+            out += parts[j]
+        return out
+
+    # -- batches ------------------------------------------------------------
+    def batch_part(self, batch, n_micro: int):
+        """``(part, share)``: this rank's groups' rows of the batch (leaves
+        ``[G, B, ...]``, or ``[n_micro, G, B, ...]``) and its contiguous
+        'fsdp' part of each group's B rows, with that part's share of the
+        rows."""
+        if self.trivial:
+            return batch, 1.0
+        ga = 1 if n_micro > 1 else 0
+        leaves = batch.values() if isinstance(batch, dict) else batch
+        B = next(iter(leaves)).shape[ga + 1]
+        k = self.mesh.coord("fsdp") if self.K > 1 else 0
+        b0, b1 = k * B // self.K, (k + 1) * B // self.K
+
+        def cut(v):
+            return v.narrow(ga, self.r0, self.r1 - self.r0).narrow(
+                ga + 1, b0, b1 - b0)
+
+        part = ({n: cut(v) for n, v in batch.items()}
+                if isinstance(batch, dict) else tuple(cut(v) for v in batch))
+        return part, (b1 - b0) / B
+
+
+class _Attack:
+    """An attack on a stack, ``(stack, tree) -> stack``: gradients or
+    models, with the configuration's spec and the run's generator."""
+
+    def __init__(self, kind: str, spec: ByzantineSpec, gen):
+        name = spec.worker_attack if kind == "grads" else spec.server_attack
+        table = (_attacks.GRADIENT_ATTACKS if kind == "grads"
+                 else _attacks.MODEL_ATTACKS)
+        self.kind, self.spec, self.gen = kind, spec, gen
+        self.coordinatewise = table[name] not in _attacks._STOCHASTIC
+
+    def __call__(self, stack, tree):
+        inject = inject_gradients if self.kind == "grads" else inject_models
+        return inject(stack, self.spec, self.gen, tree=tree)
 
 
 # ---------------------------------------------------------------------------
@@ -304,27 +560,36 @@ def group_grads(bundle, tree: FlatTree, pulled: torch.Tensor, batch,
     return out
 
 
-def _roundrobin_pull(models: torch.Tensor, own: torch.Tensor, t: int,
-                     eta: float, cfg: ProtocolConfig, out: torch.Tensor):
+def _roundrobin_pull(rows, own: torch.Tensor, t: int, eta: float,
+                     cfg: ProtocolConfig, out: torch.Tensor, ranks: _Ranks):
     """The §5 synchronous pull: worker g takes replica ``(g + t + 1) % G``
     and keeps it iff its squared distance to its own replica is within the
-    Outliers bound anchored locally, else its own replica."""
-    G, P = own.shape
+    Outliers bound anchored locally, else its own replica. ``rows`` is
+    ``_Ranks.rows``' ``(chunks, rows_of)`` over the (attacked) replicas;
+    ``own`` the rank's own rows; the distances add over 'fsdp' ranks."""
+    G = cfg.n_groups
+    Gl, pk = own.shape
     idx = (torch.arange(G, device=own.device) + t + 1) % G
-    chunks = _chunks(P, 2 * G, 4, cfg.chunk_bytes)
-    d2g = torch.zeros(G, dtype=torch.float32, device=own.device)
-    n2g = torch.zeros(G, dtype=torch.float32, device=own.device)
+    mine = idx[ranks.r0:ranks.r1]
+    chunks, rows_of = rows
+    if len(chunks) == 1:
+        chunks = _chunks(pk, 2 * G, 4, cfg.chunk_bytes)
+    d2g = torch.zeros(Gl, dtype=torch.float32, device=own.device)
+    n2g = torch.zeros(Gl, dtype=torch.float32, device=own.device)
     for c0, c1 in chunks:
         ow = own[:, c0:c1].float()
-        d2g += torch.sum((models[idx, c0:c1].float() - ow) ** 2, dim=1)
+        d2g += torch.sum((rows_of(c0, c1)[mine].float() - ow) ** 2, dim=1)
         n2g += torch.sum(ow ** 2, dim=1)
+    d2g = ranks.scalars_sum(d2g, "pull")
+    n2g = ranks.scalars_sum(n2g, "pull")
     growth = ((3.0 * cfg.T + 2.0) * (G - cfg.f_workers)
               / (4.0 * max(cfg.f_workers, 1)))
     eta_t = torch.tensor(eta, dtype=torch.float32, device=own.device)
     bound2 = (eta_t * growth) ** 2 * n2g + 1e-6
     ok = (d2g <= bound2)[:, None]
     for c0, c1 in chunks:
-        out[:, c0:c1] = torch.where(ok, models[idx, c0:c1], own[:, c0:c1])
+        out[:, c0:c1] = torch.where(ok, rows_of(c0, c1)[mine],
+                                    own[:, c0:c1])
     return out
 
 
@@ -333,11 +598,13 @@ def _roundrobin_pull(models: torch.Tensor, own: torch.Tensor, t: int,
 # ---------------------------------------------------------------------------
 
 
-def make_init_fn(bundle, pcfg: ProtocolConfig, device=None):
+def make_init_fn(bundle, pcfg: ProtocolConfig, device=None, mesh=None):
     """Returns ``init(seed) -> ByzState``: one model drawn from a generator
     seeded with ``seed``, cast to the bundle's ``param_dtype`` and
-    replicated into the ``[G, P]`` stack (one copy, leaf by leaf), a fresh
-    run generator (``seed + 1``) and the optimizer's per-replica state."""
+    replicated into the ``[G, P]`` stack (one copy, leaf by leaf; on a
+    ``mesh`` every rank draws the whole model and keeps its block), a fresh
+    run generator (``seed + 1``, the same stream on every rank) and the
+    optimizer's per-replica state."""
     dev = resolve(device)
     pdt = _dtype(bundle.cfg.param_dtype)
     opt = _optim.get(pcfg.optimizer)
@@ -345,14 +612,17 @@ def make_init_fn(bundle, pcfg: ProtocolConfig, device=None):
     def init(seed: int) -> ByzState:
         p0 = bundle.init(torch.Generator(device=dev).manual_seed(seed))
         tree = FlatTree.from_params(p0)
-        params = torch.empty((pcfg.n_groups, tree.size), dtype=pdt,
-                             device=dev)
+        (r0, r1), (k0, k1), _ = state_layout(mesh, pcfg.n_groups, tree.size)
+        params = torch.empty((r1 - r0, k1 - k0), dtype=pdt, device=dev)
         for leaf, (off, size) in zip(tree.leaves(p0), tree.spans()):
-            params[:, off:off + size] = leaf.reshape(-1).to(pdt)
+            a, b = max(off, k0), min(off + size, k1)
+            if a < b:
+                params[:, a - k0:b - k0] = leaf.reshape(-1)[a - off:b - off]\
+                    .to(pdt)
         del p0
         return ByzState(params=params, t=0,
                         gen=torch.Generator(device=dev).manual_seed(seed + 1),
-                        opt=opt.init(params), tree=tree)
+                        opt=opt.init(params), tree=tree, mesh=mesh)
 
     return init
 
@@ -367,16 +637,86 @@ def _buffer(bufs: dict, name: str, shape, dtype, device) -> torch.Tensor:
     return b
 
 
+def _masks(idx: torch.Tensor, G: int) -> torch.Tensor:
+    """``[G_recv, q]`` delivered indices -> ``[G_recv, G]`` bool masks."""
+    masks = torch.zeros((idx.shape[0], G), dtype=torch.bool,
+                        device=idx.device)
+    return masks.scatter_(1, idx.long(), True)
+
+
+def _pull_rows(ranks: _Ranks, rows, masks, cfg, rule, out) -> None:
+    """The masked ``rule`` for the rank's receivers over ``rows``' chunks
+    into ``out`` (``[G/rep, P_k]``)."""
+    chunks, rows_of = rows
+    mine = masks[ranks.r0:ranks.r1]
+    for c0, c1 in chunks:
+        masked_pull(rows_of(c0, c1), mine, cfg, rule=rule,
+                    out=out[:, c0:c1])
+
+
+def _group_grads(bundle, tree, pulled, batch, cfg, ranks, bufs, out):
+    """Per-group gradients of the rank's groups into ``out`` (``[G/rep,
+    P_k]``). With 'fsdp' ranks the pulled rows are gathered whole, each rank
+    differentiates its part of the batch rows weighted by its share, and
+    the parts are summed to column shards in rank order."""
+    n_micro = cfg.grad_microbatches
+    part, share = ranks.batch_part(batch, n_micro)
+    if ranks.K == 1:
+        return group_grads(bundle, tree, pulled, part, n_micro, out)
+    whole = _buffer(bufs, "grads_whole", (out.shape[0], tree.size),
+                    out.dtype, out.device)
+    if share > 0:
+        group_grads(bundle, tree, ranks.cols_gather(pulled, "fsdp"), part,
+                    n_micro, whole).mul_(share)
+    else:
+        whole.zero_()
+    out.copy_(ranks.cols_sum(whole, "fsdp"))
+    return out
+
+
+def _attack_grads(grads, attack, tree, ranks) -> None:
+    """The gradient attack on the stack, in place on the rank's rows."""
+    if ranks.trivial:
+        inject_gradients(grads, attack.spec, attack.gen, tree=tree,
+                         inplace=True)
+        return
+    chunks, rows_of = ranks.rows(grads, "attack", attack, tree)
+    for c0, c1 in chunks:
+        grads[:, c0:c1] = rows_of(c0, c1)[ranks.r0:ranks.r1]
+
+
+def _aggregate(grads, weights, cfg, ranks) -> torch.Tensor:
+    """``G_hat`` for the rank's receivers, in place on ``grads``:
+    ``naive`` gathers each chunk over 'rep' and forms its receivers' sums;
+    ``sharded`` forms its senders' partial sums for every receiver and
+    reduces them over 'rep' in rank order. In ``cfg.exchange_dtype``."""
+    if ranks.rep == 1:
+        return aggregate_gradients(grads, weights, cfg, out=grads)
+    dt = _dtype(cfg.exchange_dtype)
+    w = weights.to(dt)
+    for c0, c1 in _chunks(grads.shape[1], cfg.n_groups, grads.element_size(),
+                          cfg.chunk_bytes):
+        if cfg.engine == "naive":
+            full = ranks.mesh.all_gather(grads[:, c0:c1], "rep", "aggregate")
+            grads[:, c0:c1] = torch.matmul(w[ranks.r0:ranks.r1], full.to(dt))
+        else:
+            part = torch.matmul(w[:, ranks.r0:ranks.r1],
+                                grads[:, c0:c1].to(dt))
+            grads[:, c0:c1] = ranks.rows_sum(part, "aggregate")
+    return grads
+
+
 def make_scatter_step(bundle, pcfg: ProtocolConfig, lr_schedule,
-                      with_attack: bool = False, delivery=None):
+                      with_attack: bool = False, delivery=None, mesh=None):
     """One ByzSGD scatter step ``(state, batch) -> state``; batch leaves
-    ``[G, per_group, ...]`` (``[n_micro, G, ...]`` with micro-batches).
+    ``[G, per_group, ...]`` (``[n_micro, G, ...]`` with micro-batches):
+    every rank of a ``mesh`` passes the whole batch and keeps its part.
 
     ``delivery`` is a :class:`~repro_torch.core.quorum.UniformDelivery`
     (the default) or a :class:`~repro_torch.core.quorum.TraceDelivery`
-    replaying quorum tables. The pulled view (in the model's ``act_dtype``,
-    as the JAX step casts it) and the gradient stack are scratch buffers
-    kept across steps."""
+    replaying quorum tables; every rank draws the full tables. The pulled
+    view (in the model's ``act_dtype``, as the JAX step casts it) and the
+    gradient stack are scratch buffers kept across steps."""
     G = pcfg.n_groups
     delivery = delivery or UniformDelivery(G, G, pcfg.q_workers,
                                            pcfg.q_servers)
@@ -388,35 +728,35 @@ def make_scatter_step(bundle, pcfg: ProtocolConfig, lr_schedule,
 
     def scatter_step(state: ByzState, batch) -> ByzState:
         params, gen, dev = state.params, state.gen, state.params.device
+        ranks = _Ranks(mesh, G, state.tree.size, pcfg.chunk_bytes)
         eta = lr_schedule(state.t)
 
         # 1. worker pull -----------------------------------------------------
-        models = params
-        if with_attack and byz.server_attack:
-            models = inject_models(params, byz, gen, tree=state.tree)
+        inject = (_Attack("models", byz, gen)
+                  if with_attack and byz.server_attack else None)
+        rows = ranks.rows(params, "pull", inject, state.tree)
         pdt = act if params.dtype == torch.float32 else params.dtype
         pulled = _buffer(bufs, "pulled", params.shape, pdt, dev)
         if pcfg.pull == "roundrobin":
-            _roundrobin_pull(models, params, state.t, eta, pcfg, pulled)
+            _roundrobin_pull(rows, params, state.t, eta, pcfg, pulled, ranks)
         else:
-            pull_idx = delivery.pull_indices(gen, state.t, dev)
-            masks = torch.zeros((G, G), dtype=torch.bool, device=dev)
-            masks.scatter_(1, pull_idx.long(), True)
-            masked_pull(models, masks, pcfg, out=pulled)
-        del models
+            masks = _masks(delivery.pull_indices(gen, state.t, dev), G)
+            _pull_rows(ranks, rows, masks, pcfg, None, pulled)
+        del rows
 
         # 2. per-group worker gradients --------------------------------------
         grads = _buffer(bufs, "grads", params.shape, xdt, dev)
-        group_grads(bundle, state.tree, pulled, batch,
-                    pcfg.grad_microbatches, grads)
+        _group_grads(bundle, state.tree, pulled, batch, pcfg, ranks, bufs,
+                     grads)
         if with_attack and byz.worker_attack:
-            inject_gradients(grads, byz, gen, tree=state.tree, inplace=True)
+            _attack_grads(grads, _Attack("grads", byz, gen), state.tree,
+                          ranks)
 
         # 3. gradient rule (MDA by default) per server over its quorum -------
         push_idx = delivery.push_indices(gen, state.t, dev)
-        d2 = agg.rules.sqdists_from_gram(agg.tree_gram(grads))
+        d2 = agg.rules.sqdists_from_gram(ranks.gram(grads))
         weights = quorum_weights(d2, push_idx, pcfg.f_workers, pcfg)
-        g_hat = aggregate_gradients(grads, weights, pcfg, out=grads)
+        g_hat = _aggregate(grads, weights, pcfg, ranks)
 
         # 4. local update ----------------------------------------------------
         new_params, new_opt = optimizer.update(g_hat, state.opt, params, eta)
@@ -426,7 +766,7 @@ def make_scatter_step(bundle, pcfg: ProtocolConfig, lr_schedule,
 
 
 def make_gather_step(pcfg: ProtocolConfig, with_attack: bool = False,
-                     delivery=None):
+                     delivery=None, mesh=None):
     """DMC: servers exchange replicas and apply the masked ``gather_gar``
     (Median by default) every T steps, in place on the replica stack."""
     G = pcfg.n_groups
@@ -435,28 +775,26 @@ def make_gather_step(pcfg: ProtocolConfig, with_attack: bool = False,
 
     def gather_step(state: ByzState) -> ByzState:
         params, dev = state.params, state.params.device
-        idx = delivery.gather_indices(state.gen, state.t, dev)
-        masks = torch.zeros((G, G), dtype=torch.bool, device=dev)
-        masks.scatter_(1, idx.long(), True)
-        models = params
-        if with_attack and pcfg.byz.server_attack:
-            models = inject_models(params, pcfg.byz, state.gen,
-                                   tree=state.tree)
-        masked_pull(models, masks, pcfg, rule=pcfg.gather_gar, out=params)
+        ranks = _Ranks(mesh, G, state.tree.size, pcfg.chunk_bytes)
+        masks = _masks(delivery.gather_indices(state.gen, state.t, dev), G)
+        inject = (_Attack("models", pcfg.byz, state.gen)
+                  if with_attack and pcfg.byz.server_attack else None)
+        rows = ranks.rows(params, "gather", inject, state.tree)
+        _pull_rows(ranks, rows, masks, pcfg, pcfg.gather_gar, params)
         return state
 
     return gather_step
 
 
 def make_train_step(bundle, pcfg: ProtocolConfig, lr_schedule,
-                    with_attack: bool = False, delivery=None):
+                    with_attack: bool = False, delivery=None, mesh=None):
     """Scatter, then the DMC gather iff the advanced counter hits a
     multiple of T."""
     delivery = delivery or UniformDelivery(
         pcfg.n_groups, pcfg.n_groups, pcfg.q_workers, pcfg.q_servers)
     scatter = make_scatter_step(bundle, pcfg, lr_schedule, with_attack,
-                                delivery)
-    gather = make_gather_step(pcfg, with_attack, delivery)
+                                delivery, mesh)
+    gather = make_gather_step(pcfg, with_attack, delivery, mesh)
 
     def train_step(state: ByzState, batch) -> ByzState:
         state = scatter(state, batch)
@@ -471,21 +809,84 @@ def make_train_step(bundle, pcfg: ProtocolConfig, lr_schedule,
 
 
 def consolidate(params: torch.Tensor, pcfg: ProtocolConfig | None = None,
-                chunk_bytes: int | None = None) -> torch.Tensor:
+                chunk_bytes: int | None = None, *, mesh: Mesh | None = None,
+                n_params: int | None = None) -> torch.Tensor:
     """Median of the replicas -> one ``[P]`` serving model (DMC applied
     once, full delivery), streamed by column chunks (``pcfg``'s, or the
-    default's without one)."""
+    default's without one). On a ``mesh`` (``params`` a rank's block of a
+    stack of ``pcfg.n_groups`` rows and ``n_params`` columns) each chunk of
+    the rank's columns is gathered over 'rep' and the medians over 'fsdp':
+    every rank gets the whole model."""
     cb = chunk_bytes or (pcfg or ProtocolConfig).chunk_bytes
-    G, P = params.shape
-    out = torch.empty(P, dtype=params.dtype, device=params.device)
-    for c0, c1 in _chunks(P, G, 4, cb):
-        out[c0:c1] = agg.dispatch.cwise_median(params[:, c0:c1].float())
-    return out
+    G = pcfg.n_groups if mesh is not None else params.shape[0]
+    ranks = _Ranks(mesh, G, n_params or params.shape[1], cb)
+    chunks, rows_of = ranks.rows(params, "consolidate")
+    if ranks.trivial:
+        chunks = _chunks(params.shape[1], G, 4, cb)
+    out = torch.empty(params.shape[1], dtype=params.dtype,
+                      device=params.device)
+    for c0, c1 in chunks:
+        out[c0:c1] = agg.dispatch.cwise_median(rows_of(c0, c1).float())
+    return ranks.cols_gather(out[None], "consolidate")[0]
 
 
 # ---------------------------------------------------------------------------
 # ByzState <-> checkpoint leaves
 # ---------------------------------------------------------------------------
+
+
+def replica(state: ByzState, g: int, *, everywhere: bool = True):
+    """Replica ``g``'s whole flat row ``[P]`` on every rank (a collective
+    on a mesh: every rank calls it; a view of the stack off one). With
+    ``everywhere=False`` only the ranks that hold the row's columns get it
+    (gathered over their 'fsdp' line, no broadcast over 'rep'); the others
+    get ``None``."""
+    mesh = state.mesh
+    G = state.params.shape[0] * (mesh.size("rep") if mesh else 1)
+    ranks = _Ranks(mesh, G, state.tree.size, ProtocolConfig.chunk_bytes)
+    if everywhere:
+        return ranks.row(state.params, g, "metrics")
+    if not ranks.r0 <= g < ranks.r1:
+        return None
+    return ranks.cols_gather(state.params[g - ranks.r0][None], "metrics")[0]
+
+
+def _on_ranks(mesh: Mesh | None) -> bool:
+    return mesh is not None and mesh.size("rep") * mesh.size("fsdp") > 1
+
+
+def whole_state(state: ByzState) -> ByzState:
+    """The state with its stacks (params and AdamW's moments) gathered
+    whole, ``[G, P]``, on every rank of its mesh (a collective: every rank
+    calls it); the state itself off a mesh."""
+    if not _on_ranks(state.mesh):
+        return state
+    mesh = state.mesh
+    ranks = _Ranks(mesh, state.params.shape[0] * mesh.size("rep"),
+                   state.tree.size, ProtocolConfig.chunk_bytes)
+    opt = state.opt
+    if opt:
+        opt = type(opt)(ranks.gather_all(opt.m, "checkpoint"),
+                        ranks.gather_all(opt.v, "checkpoint"), opt.count)
+    return state._replace(params=ranks.gather_all(state.params, "checkpoint"),
+                          opt=opt, mesh=None)
+
+
+def shard_state(state: ByzState, mesh: Mesh | None) -> ByzState:
+    """A whole state's block for this rank of ``mesh`` (copies of its rows
+    and columns of each stack)."""
+    if not _on_ranks(mesh):
+        return state._replace(mesh=mesh)
+    (r0, r1), (k0, k1), _ = state_layout(mesh, state.params.shape[0],
+                                         state.tree.size)
+
+    def cut(x):
+        return x[r0:r1, k0:k1].clone()
+
+    opt = state.opt
+    if opt:
+        opt = type(opt)(cut(opt.m), cut(opt.v), opt.count)
+    return state._replace(params=cut(state.params), opt=opt, mesh=mesh)
 
 
 def checkpoint_leaves(state: ByzState) -> list[tuple[str, Any]]:
@@ -495,7 +896,9 @@ def checkpoint_leaves(state: ByzState) -> list[tuple[str, Any]]:
     ``[2]``, the generator's seed: a JAX restore of a port checkpoint reads
     it and starts a new stream), AdamW's ``.opt/.m/<path>``,
     ``.opt/.v/<path>`` and ``.opt/.count``; then the port's own ``.gen``,
-    the generator's state (uint8), which a JAX restore ignores."""
+    the generator's state (uint8), which a JAX restore ignores. On a mesh
+    the stacks are gathered whole first (every rank calls this)."""
+    state = whole_state(state)
     tree = state.tree
     G = state.params.shape[0]
 
@@ -634,13 +1037,19 @@ class ProtocolEngine:
     the engine is the single-host ``EpochEngine``'s protocol: the two agree
     step for step on a G = n_workers = n_servers cluster.
     ``pull="roundrobin"`` is the protocol's own §5 formulation.
+
+    On a ``mesh`` every rank runs the engine on its block; the metrics read
+    group 0's whole replica (broadcast from its 'rep' rank) and, with
+    ``track_delta``, the whole stack (gathered: test scale), so every rank
+    returns the same buffers.
     """
 
     def __init__(self, bundle, pcfg: ProtocolConfig, lr_schedule, *,
                  delivery=None, with_attack: bool = False,
                  acc_fn: Callable | None = None,
                  eval_set: tuple | None = None, track_delta: bool = False,
-                 metrics_every: int = 1, device=None):
+                 metrics_every: int = 1, device=None,
+                 mesh: Mesh | None = None):
         if (acc_fn is None) != (eval_set is None):
             raise ValueError("acc_fn and eval_set must be given together")
         if metrics_every < 1:
@@ -656,27 +1065,41 @@ class ProtocolEngine:
         self.eval_set = eval_set
         self.track_delta = track_delta
         self.metrics_every = metrics_every
+        self.mesh = mesh
         self.scatter = make_scatter_step(bundle, pcfg, lr_schedule,
-                                         with_attack, self.delivery)
-        self.gather = make_gather_step(pcfg, with_attack, self.delivery)
+                                         with_attack, self.delivery, mesh)
+        self.gather = make_gather_step(pcfg, with_attack, self.delivery,
+                                       mesh)
 
     def init_state(self, seed: int) -> ByzState:
-        return make_init_fn(self.bundle, self.cfg, self.device)(seed)
+        return make_init_fn(self.bundle, self.cfg, self.device,
+                            self.mesh)(seed)
+
+    def _ranks(self, state: ByzState) -> _Ranks:
+        return _Ranks(self.mesh, self.cfg.n_groups, state.tree.size,
+                      self.cfg.chunk_bytes)
 
     def _acc(self, state: ByzState):
+        row = replica(state, 0)
         with torch.no_grad():
-            return self.acc_fn(state.tree.unflatten(state.params[0]),
-                               *self.eval_set)
+            return self.acc_fn(state.tree.unflatten(row), *self.eval_set)
+
+    def diameters(self, state: ByzState) -> tuple:
+        """(Delta_t, the L2 diameter) of the honest replicas."""
+        h = self.cfg.n_groups - self.cfg.byz.n_byz_servers
+        ranks = self._ranks(state)
+        full = (state.params if ranks.trivial
+                else ranks.gather_all(state.params, "metrics"))
+        return coordinatewise_diameter_sum(full, h), l2_diameter(full, h)
 
     def run_epoch(self, state: ByzState, batches, bufs: dict, at: int):
         """``L`` steps over ``batches`` (leaves ``[L, G, ...]``), writing
         step ``at + i``'s metrics into ``bufs`` on the device."""
-        h = self.cfg.n_groups - self.cfg.byz.n_byz_servers
         leaves = batches.values() if isinstance(batches, dict) else batches
         L = next(iter(leaves)).shape[0]
         for i in range(L):
             state = self.scatter(state, _index(batches, i))
-            delta_pre = (coordinatewise_diameter_sum(state.params, h)
+            delta_pre = (self.diameters(state)[0]
                          if self.track_delta else None)
             if state.t % self.cfg.T == 0:
                 state = self.gather(state)
@@ -686,9 +1109,7 @@ class ProtocolEngine:
                 bufs["acc"][k] = self._acc(state)
             if self.track_delta:
                 bufs["delta_pre"][k] = delta_pre
-                bufs["delta"][k] = coordinatewise_diameter_sum(state.params,
-                                                               h)
-                bufs["l2_diam"][k] = l2_diameter(state.params, h)
+                bufs["delta"][k], bufs["l2_diam"][k] = self.diameters(state)
         return state
 
     def run(self, state: ByzState, batches=None, *, stream=None,
@@ -730,14 +1151,33 @@ class ProtocolEngine:
 
 
 def collective_volume_bytes(pcfg: ProtocolConfig, n_params: int,
-                            *, fsdp: int = 1) -> int:
+                            *, fsdp: int = 1, rep: int | None = None) -> int:
     """Modeled per-device cross-'rep' exchange (bytes) of one scatter
     step's payloads on a mesh: the masked Median pull all-gathers the
     ``[G, P]`` stack, ``(G-1)·P·itemsize``, and the ``[G, G] x [G, P]``
     aggregation moves as much again; with an 'fsdp' axis of size K each
-    device moves 1/K of it. On one card the groups share the device and
-    nothing crosses a link; the number says what the multi-GPU port's
-    collectives will carry."""
+    device moves 1/K of it. That is a mesh with rep = G (one group a
+    rank, the default); with ``rep`` ranks holding G/rep groups each, a
+    rank sends ``(rep-1)·(G/rep)`` rows in each exchange, ``2·(rep-1)·
+    (G/rep)·P·itemsize / K`` a step. On one card the groups share the
+    device and nothing crosses a link.
+
+    ``Mesh.sent`` counts what the ranks send; the model covers its tags
+    ``pull`` (the replicas move in their own dtype) and ``aggregate``. The
+    port's other exchanges, per rank, are outside it:
+
+    * ``gram`` — the all-to-all over 'rep' of the gradient block,
+      ``(rep-1)/rep · (G/rep) · P_k · 4`` bytes, and the ``[G, G]`` float32
+      partials gathered over 'fsdp' and 'rep';
+    * ``fsdp`` (K > 1) — the pulled rows gathered over 'fsdp', ``(K-1) ·
+      (G/rep) · ceil(P/K) · act_itemsize``, and the gradient parts summed
+      to column shards, ``(K-1)/K · (G/rep) · K·ceil(P/K) · itemsize``;
+    * ``gather`` — the DMC gather's ``(rep-1) · (G/rep) · P_k · itemsize``
+      on the steps that end a round;
+    * ``attack``, ``metrics``, ``consolidate``, ``checkpoint`` — the
+      adversary's gathers, group 0's replica and the diameters' stack,
+      the served model, a save's stacks."""
     itemsize = _dtype(pcfg.exchange_dtype).itemsize
     G = pcfg.n_groups
-    return 2 * (G - 1) * n_params * itemsize // fsdp
+    rep = G if rep is None else rep
+    return 2 * (rep - 1) * (G // rep) * n_params * itemsize // fsdp

@@ -4,6 +4,10 @@ The rule: an entry point runs on the GPU (``"cuda"``) unless its caller
 passes another device, and it raises when the GPU it was asked for is not
 there. There is no automatic fallback to the CPU — the CPU is used only when
 a caller asks for it (the tests do, with ``device="cpu"``).
+
+A rank of a ``torch.distributed`` run takes its device and its collectives
+backend by one rule (:func:`rank_device`, :func:`dist_backend`), decided
+from the world size and the card count, never by catching a failure.
 """
 from __future__ import annotations
 
@@ -22,6 +26,30 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
                 "the caller passes device='cpu'")
         set_numerics()
     return dev
+
+
+def rank_device(device, local_rank: int) -> torch.device:
+    """A rank's device: ``device`` resolved as above; a CUDA rank without an
+    index takes card ``local_rank % card count`` (ranks share the cards when
+    there are more of them than cards) and makes it the current card."""
+    dev = resolve(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def dist_backend(device: torch.device, world: int) -> str:
+    """The collectives backend of a ``world``-rank run on ``device``: gloo
+    for CPU ranks; NCCL for CUDA ranks when the world has no more ranks
+    than cards (NCCL refuses two ranks on one card); otherwise gloo, which
+    takes CUDA tensors for every collective the protocol makes
+    (``all_gather_into_tensor``, ``all_to_all_single``, ``broadcast``), so
+    no tensor is staged through the host."""
+    if torch.device(device).type == "cpu":
+        return "gloo"
+    return "nccl" if world <= torch.cuda.device_count() else "gloo"
 
 
 def set_numerics() -> None:

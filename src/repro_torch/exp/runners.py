@@ -10,14 +10,17 @@
     runner, and the cluster's accounting rides along in the result;
   * ``protocol`` — the spec lowered to ``ProtocolConfig`` (G = n_workers =
     n_servers co-located groups) and run through
-    :class:`repro_torch.core.protocol.ProtocolEngine` on one device: the MLP
-    problems on the mixture stream, the zoo archs on the token stream with
-    the negative eval loss as their ``acc``; with ``ckpt_every`` the run is
-    chunked at the checkpoint boundaries and saved at each;
+    :class:`repro_torch.core.protocol.ProtocolEngine` on the
+    ``make_protocol_mesh(G)`` mesh of the initialised ``torch.distributed``
+    world (one device without one): the MLP problems on the mixture
+    stream, the zoo archs on the token stream with the negative eval loss
+    as their ``acc``; with ``ckpt_every`` the run is chunked at the
+    checkpoint boundaries and saved at each;
   * ``elastic``  — the protocol chunked at the membership boundaries of the
     spec's plan (or of the named scenario's realized crash windows): the
     ``[G, P]`` stack re-formed per epoch, joiners seeded from the survivors'
-    median, checkpointed resume.
+    median, checkpointed resume (one rank: elastic membership over ranks is
+    ROADMAP.md Queue 1 item 18).
 
 Delivery is orthogonal to the runner: a ``delivery="trace"`` experiment
 trains stepwise, fused or through the protocol over the realized trace. All
@@ -250,10 +253,12 @@ def _concat(bufs: list[dict]) -> dict:
 def _run_protocol(e: Experiment, dev: torch.device, delivery=None,
                   netsim=None) -> RunResult:
     from ..core.protocol import ProtocolEngine
+    from ..launch.mesh import make_protocol_mesh
     pcfg = e.to_protocol_config()
     _need_ckpt_dir(e)
     bundle = e.build_bundle()
     G = pcfg.n_groups
+    mesh = make_protocol_mesh(G)
     if is_arch_model(e.model):
         stream = DeviceTokenStream(e.seed, DATA[e.data], G, e.batch, dev)
         acc = _lm_acc(bundle)
@@ -265,7 +270,7 @@ def _run_protocol(e: Experiment, dev: torch.device, delivery=None,
         bundle, pcfg, e.build_schedule(), delivery=delivery,
         with_attack=bool(e.byz.worker_attack or e.byz.server_attack),
         acc_fn=acc, eval_set=(ex, ey), track_delta=e.track_delta,
-        metrics_every=e.metrics_every, device=dev)
+        metrics_every=e.metrics_every, device=dev, mesh=mesh)
     state = eng.init_state(e.seed)
     t0 = time.time()
     if e.ckpt_every:
@@ -298,13 +303,11 @@ def _run_protocol(e: Experiment, dev: torch.device, delivery=None,
         if stal:
             m.update(stal)
         logs.append(m)
-    h = G - e.byz.n_byz_servers
     final = {"acc": float(eng._acc(state))}
     if e.track_delta:
-        final["delta"] = float(coordinatewise_diameter_sum(state.params, h))
-        final["l2_diam"] = float(l2_diameter(state.params, h))
+        final["delta"], final["l2_diam"] = map(float, eng.diameters(state))
     prov = provenance(e.spec_hash, dev)
-    prov["mesh"] = {"rep": 1, "fsdp": 1, "model": 1}
+    prov["mesh"] = mesh.sizes
     prov["protocol_engine"] = pcfg.engine
     return RunResult(e, logs, final, wall, prov, netsim=netsim, state=state,
                      buffers=mbuf)
@@ -340,11 +343,18 @@ def _run_elastic(e: Experiment, dev: torch.device) -> RunResult:
     bit."""
     import dataclasses as _dc
 
+    import torch.distributed as dist
+
     from ..checkpoint import checkpointer as ck
     from ..core import membership as _membership
     from ..core.protocol import ProtocolEngine
+    from ..launch.mesh import make_protocol_mesh
     from ..optim.adamw import AdamWState
 
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            "runner='elastic' runs on one rank: re-forming the 'rep' group "
+            "over torch.distributed ranks is ROADMAP.md Queue 1 item 18")
     pcfg0 = e.to_protocol_config()
     G0 = pcfg0.n_groups
     sync = e.variant == "sync"
@@ -469,7 +479,7 @@ def _run_elastic(e: Experiment, dev: torch.device) -> RunResult:
         final["delta"] = float(coordinatewise_diameter_sum(state.params, h))
         final["l2_diam"] = float(l2_diameter(state.params, h))
     prov = provenance(e.spec_hash, dev)
-    prov["mesh"] = {"rep": 1, "fsdp": 1, "model": 1}
+    prov["mesh"] = make_protocol_mesh(G0).sizes
     prov["protocol_engine"] = pcfg0.engine
     prov["membership"] = {
         "plan_source": plan_source,

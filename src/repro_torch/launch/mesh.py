@@ -1,0 +1,274 @@
+"""Rank meshes over ``torch.distributed`` — the port of ``repro.launch.mesh``.
+
+A :class:`Mesh` is the reference's device mesh with ranks in place of
+devices: axis names, a shape, this rank's coordinates (the rank's index in
+the row-major order of the shape, as ``devices.reshape(shape)`` places
+devices) and, for each axis longer than one, the process group of the line
+of ranks along it through this rank. Every group is created on every rank
+in one order (``torch.distributed.new_group`` must be), by
+:func:`make_protocol_mesh` and :func:`make_byz_mesh`.
+
+The protocol's view is ``('rep', 'fsdp', 'model')``: 'rep' indexes the
+ranks that hold the G groups' replicas (G/rep rows of the flat ``[G, P]``
+stack each), 'fsdp' splits a group's row into contiguous column ranges.
+The 'model' axis (tensor parallelism) is ROADMAP.md Queue 1 item 17: a
+mesh with ``model > 1`` is refused. With no process group initialised
+:func:`make_protocol_mesh` returns the ``(1, 1, 1)`` mesh, on which every
+collective is the identity: today's single-card engine.
+
+Every collective of the protocol goes through the mesh's methods, which
+count the bytes this rank sends, by tag (``Mesh.sent``): an all-gather of
+n ranks sends ``(n - 1)`` times the local block, an all-to-all ``(n - 1) /
+n`` of its buffer (the ring and pairwise models). Over gloo the tensors
+stay where they are, CUDA ones included: gloo takes every collective used
+here on CUDA tensors, so nothing is staged through the host.
+
+A rank joins a run by :func:`init_distributed`: from the environment that
+``torchrun`` sets, or from an explicit rank, world and rendezvous address.
+Its device and backend follow :func:`repro_torch.device.rank_device` and
+:func:`repro_torch.device.dist_backend`.
+"""
+from __future__ import annotations
+
+import collections
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..device import dist_backend, rank_device
+
+AXES = ("rep", "fsdp", "model")
+ITEM_17 = ("the 'model' axis (tensor parallelism) is ROADMAP.md Queue 1 "
+           "item 17; the port's mesh runs model = 1")
+
+
+class Mesh:
+    """Axis names, shape, this rank's coordinates and the process group of
+    each axis line through it (``None`` for an axis of size 1, or on a mesh
+    built without groups)."""
+
+    def __init__(self, axis_names, shape, *, rank: int = 0,
+                 groups: dict | None = None, backend: str | None = None):
+        self.axis_names = tuple(axis_names)
+        self.shape = tuple(int(n) for n in shape)
+        if len(self.axis_names) != len(self.shape):
+            raise ValueError(f"axes {self.axis_names} vs shape {self.shape}")
+        self.rank = int(rank)
+        self.coords = tuple(int(c) for c in
+                            np.unravel_index(self.rank, self.shape))
+        self.groups = dict(groups or {})
+        self.backend = backend
+        self.sent: collections.Counter = collections.Counter()
+
+    def __repr__(self):
+        return (f"Mesh({dict(zip(self.axis_names, self.shape))}, rank "
+                f"{self.rank} at {self.coords}, {self.backend})")
+
+    @property
+    def sizes(self) -> dict:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def n_ranks(self) -> int:
+        return int(np.prod(self.shape))
+
+    def size(self, axis: str) -> int:
+        return self.sizes.get(axis, 1)
+
+    def coord(self, axis: str) -> int:
+        return self.coords[self.axis_names.index(axis)]
+
+    @property
+    def dp_size(self) -> int:
+        """Total data-parallel slices R (pod x data; 'rep' x 'fsdp' on a
+        protocol mesh)."""
+        s = self.sizes
+        if "rep" in s:
+            return s["rep"] * s.get("fsdp", 1)
+        return s.get("pod", 1) * s["data"]
+
+    @property
+    def model_size(self) -> int:
+        return self.size("model")
+
+    # -- collectives (identity on an axis of size 1) ------------------------
+    def _group(self, axis: str):
+        if self.size(axis) > 1 and axis not in self.groups:
+            raise RuntimeError(f"{self}: no process group for axis {axis!r} "
+                               "(build it with make_protocol_mesh or "
+                               "make_byz_mesh)")
+        return self.groups.get(axis)
+
+    def all_gather(self, x: torch.Tensor, axis: str, tag: str):
+        """``[b, ...]`` on each rank of the axis line -> ``[n * b, ...]``,
+        the blocks in coordinate order."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        x = x.contiguous()
+        out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=self._group(axis))
+        self.sent[tag] += (n - 1) * x.numel() * x.element_size()
+        return out
+
+    def all_to_all(self, x: torch.Tensor, axis: str, tag: str):
+        """``[n * b, ...]``: block j goes to coordinate j; returns ``[n * b,
+        ...]`` whose block i came from coordinate i."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self._group(axis))
+        self.sent[tag] += (n - 1) * (x.numel() // n) * x.element_size()
+        return out
+
+    def broadcast(self, x: torch.Tensor, axis: str, tag: str, src: int = 0):
+        """``x`` of the line's coordinate ``src``, on every rank of the line
+        (in place)."""
+        n = self.size(axis)
+        if n == 1:
+            return x
+        group = self._group(axis)
+        src = dist.get_global_rank(group, src)
+        dist.broadcast(x, src, group=group)
+        if self.rank == src:
+            self.sent[tag] += (n - 1) * x.numel() * x.element_size()
+        return x
+
+    def barrier(self) -> None:
+        if self.n_ranks > 1:
+            dist.barrier()
+
+
+def _world() -> tuple[int, int]:
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def make_mesh(shape, axis_names) -> Mesh:
+    """A mesh of ``shape`` over every rank of the initialised world (one
+    rank without a process group), without process groups: the base a
+    protocol or serve view is carved from."""
+    rank, world = _world()
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"a {tuple(shape)} mesh needs {int(np.prod(shape))} "
+                         f"ranks; this world has {world}")
+    return Mesh(axis_names, shape, rank=rank,
+                backend=dist.get_backend() if dist.is_initialized() else None)
+
+
+def _with_groups(axis_names, shape) -> Mesh:
+    """A mesh over the world with one process group per line of every axis
+    longer than one, created in the same order on every rank."""
+    mesh = make_mesh(shape, axis_names)
+    ranks = np.arange(mesh.n_ranks).reshape(mesh.shape)
+    for i, axis in enumerate(mesh.axis_names):
+        if mesh.shape[i] == 1:
+            continue
+        lines = np.moveaxis(ranks, i, -1).reshape(-1, mesh.shape[i])
+        for line in lines:
+            g = dist.new_group([int(r) for r in line])
+            if mesh.rank in line:
+                mesh.groups[axis] = g
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The spec's production mesh: 16 x 16 ('data', 'model'), or 2 x 16 x
+    16 ('pod', 'data', 'model'): 256 or 512 ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = int(np.prod(shape))
+    _, world = _world()
+    if world != need:
+        raise ValueError(f"the production mesh {shape} needs {need} ranks; "
+                         f"this world has {world}")
+    return make_mesh(shape, axes)
+
+
+def make_byz_mesh(mesh: Mesh, n_groups: int) -> Mesh:
+    """The ('rep', 'fsdp', 'model') view over ``mesh``'s ranks: G groups of
+    R / G consecutive data slices each."""
+    R, M = mesh.dp_size, mesh.model_size
+    if M > 1:
+        raise NotImplementedError(f"make_byz_mesh: model = {M}: {ITEM_17}")
+    if R % n_groups:
+        raise ValueError(f"n_groups={n_groups} must divide dp slices R={R}")
+    return _with_groups(AXES, (n_groups, R // n_groups, 1))
+
+
+def protocol_mesh_shape(n_groups: int, world: int,
+                        fsdp: int | None = None) -> tuple[int, int, int]:
+    """The reference's rule (``repro.launch.mesh.make_protocol_mesh``):
+    'rep' is the largest divisor of G that ``world`` ranks can host, the
+    ranks left over form 'fsdp' (``fsdp`` overrides it), 'model' is 1."""
+    if world < 1:
+        raise ValueError("no ranks for the protocol mesh")
+    rep = max(d for d in range(1, min(n_groups, world) + 1)
+              if n_groups % d == 0)
+    K = world // rep if fsdp is None else fsdp
+    if rep * K > world:
+        raise ValueError(f"fsdp={K} needs {rep * K} ranks for rep={rep}, "
+                         f"have {world}")
+    return rep, K, 1
+
+
+def make_protocol_mesh(n_groups: int, world: int | None = None, *,
+                       fsdp: int | None = None) -> Mesh:
+    """The ('rep', 'fsdp', 'model') mesh of a G-group protocol run over the
+    initialised world (:func:`protocol_mesh_shape`); without a process
+    group, the ``(1, 1, 1)`` mesh. Every rank must hold a place in it: a
+    world the rule does not use whole (6 ranks at G = 4 use 4) is refused,
+    where the reference leaves devices idle."""
+    _, have = _world()
+    world = have if world is None else world
+    if world != have:
+        raise ValueError(f"make_protocol_mesh: world={world}, but "
+                         f"{have} ranks are initialised")
+    shape = protocol_mesh_shape(n_groups, world, fsdp)
+    if shape[0] * shape[1] != world:
+        raise ValueError(f"G={n_groups} on {world} ranks places a {shape} "
+                         f"mesh on {shape[0] * shape[1]} of them; launch "
+                         f"{shape[0] * shape[1]} ranks")
+    return _with_groups(AXES, shape)
+
+
+def make_serve_mesh(mesh: Mesh) -> Mesh:
+    """('data', 'model') flat view for serving (no replica axis)."""
+    R, M = mesh.dp_size, mesh.model_size
+    if M > 1:
+        raise NotImplementedError(f"make_serve_mesh: model = {M}: {ITEM_17}")
+    return make_mesh((R, M), ("data", "model"))
+
+
+def init_distributed(device=None, *, rank: int | None = None,
+                     world: int | None = None,
+                     init_method: str = "env://") -> torch.device:
+    """Join a ``torch.distributed`` run and return this rank's device.
+
+    Rank, world and local rank come from the environment ``torchrun`` sets
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, with ``MASTER_ADDR`` /
+    ``MASTER_PORT`` behind ``env://``) unless given (then the local rank is
+    the rank: one host). The device follows ``rank_device`` and the backend
+    ``dist_backend``; rank 0 prints the choice once. An initialised group
+    is kept, and only the device is resolved."""
+    env = os.environ
+    rank = int(env.get("RANK", 0)) if rank is None else rank
+    world = int(env.get("WORLD_SIZE", 1)) if world is None else world
+    local = int(env.get("LOCAL_RANK", rank))
+    dev = rank_device(device, local)
+    if dist.is_initialized():
+        return dev
+    backend = dist_backend(dev, world)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world)
+    if rank == 0:
+        cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        print(f"[mesh] {world} ranks on {dev.type} ({cards} cards): "
+              f"backend {backend}", flush=True)
+    return dev

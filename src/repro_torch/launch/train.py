@@ -1,6 +1,7 @@
 """End-to-end ByzSGD training launcher (port of ``repro.launch.train``): the
-distributed protocol with its G groups co-located on one card, Byzantine
-attack injection, the DMC cadence and loss logging.
+distributed protocol, its G groups co-located on one card or spread over
+``torch.distributed`` ranks, Byzantine attack injection, the DMC cadence
+and loss logging.
 
   python -m repro_torch.launch.train --arch phi4-mini-3.8b --depth 2 \\
       --groups 4 --T 5 --seq 1024 --batch-per-group 4 --steps 11 \\
@@ -12,13 +13,24 @@ attack injection, the DMC cadence and loss logging.
   python -m repro_torch.launch.train --reduced --device cpu --steps 7 \\
       --groups 4 --seq 32 --batch-per-group 2 --log-every 1 \\
       --ckpt-dir /tmp/ck --ckpt-every 5
+  # four ranks (rep 4), one group each, on the CPU over gloo
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
+      --reduced --device cpu --mesh 4x1 --groups 4 --steps 2
 
 ``--arch`` takes every arch of the reference (``models.registry.ARCH_IDS``)
 and feeds it the token stream; whisper-small (the audio family), whose
 loss reads encoder frames a token stream does not carry, is refused up
 front (the JAX launcher fails with a ``KeyError`` at its first step).
-Runs on the GPU; ``--device cpu`` is for smoke runs. Only ``--mesh 1x1`` is
-taken: a mesh over several cards needs the multi-GPU protocol port.
+Runs on the GPU; ``--device cpu`` is for smoke runs. ``--mesh DxM`` names
+the ('data', 'model') base mesh as the reference's launcher does: D ranks
+(``torchrun --nproc-per-node D``; by default the world's size), carved by
+``make_byz_mesh`` into G = ``--groups`` (default D) 'rep' groups of D / G
+'fsdp' ranks; M > 1 (the 'model' axis) is ROADMAP.md Queue 1 item 17 and
+refused. Where G does not divide D, the ranks hold G / D groups each
+(``make_protocol_mesh``), and on one rank the G groups share its device
+(the reference needs G devices). Rank 0 alone prints and writes the
+checkpoints; every rank takes part in their gathers. ``TrainRun.sent``
+holds the bytes this rank sent in each step, by tag.
 ``--depth`` keeps the arch's width and cuts its depth (``get_bundle(...,
 depth=...)``). With ``--ckpt-dir`` the run resumes from the latest
 checkpoint there (params, step counter and the run's generator; the token
@@ -29,11 +41,13 @@ after step i with i, one step late).
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from .. import device as devmod
 from ..checkpoint import checkpointer as ck
@@ -42,6 +56,8 @@ from ..core.attacks import ByzantineSpec
 from ..data.pipeline import DeviceTokenStream, TokenSpec
 from ..models.registry import ARCH_IDS, get_bundle
 from ..optim.schedules import inverse_linear
+from .mesh import (ITEM_17, init_distributed, make_byz_mesh, make_mesh,
+                   make_protocol_mesh)
 
 
 @dataclass
@@ -51,6 +67,7 @@ class TrainRun:
     may take more steps)."""
     losses: list = field(default_factory=list)
     step_s: list = field(default_factory=list)
+    sent: list = field(default_factory=list)
     n_params: int = 0
     state: Any = None
     step: Any = None
@@ -65,7 +82,8 @@ def parser() -> argparse.ArgumentParser:
                     help="override n_layers (the width stays)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--groups", type=int, default=None)
-    ap.add_argument("--mesh", default=None, help="only 1x1 on one card")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM data x model ranks (M = 1); default Wx1")
     ap.add_argument("--batch-per-group", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--T", type=int, default=10)
@@ -94,14 +112,32 @@ def protocol_config(G: int, T: int, engine: str = "sharded",
         byz=byz or ByzantineSpec())
 
 
+def _mesh(args):
+    """(this rank's device, the protocol mesh, G) of ``--mesh`` /
+    ``--groups`` over the ranks ``torchrun`` started."""
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    d, m = ((int(x) for x in args.mesh.split("x")) if args.mesh
+            else (world, 1))
+    if m > 1:
+        raise SystemExit(f"--mesh {args.mesh}: {ITEM_17}")
+    if d != world:
+        raise SystemExit(f"--mesh {d}x{m} needs {d} ranks (torchrun "
+                         f"--standalone --nproc-per-node {d}); this run has "
+                         f"{world}")
+    G = args.groups or d
+    dev = (init_distributed(args.device) if world > 1 or dist.is_initialized()
+           else devmod.resolve(args.device))
+    if d % G:
+        # more groups than ranks: G / D groups a rank (all G on one rank)
+        return dev, make_protocol_mesh(G), G
+    return dev, make_byz_mesh(make_mesh((d, m), ("data", "model")), G), G
+
+
 def main(argv=None) -> TrainRun:
     args = parser().parse_args(argv)
-    if args.mesh not in (None, "1x1"):
-        raise SystemExit(f"--mesh {args.mesh} needs the multi-GPU protocol "
-                         "port (ROADMAP.md, queue 1 item 9); one card takes "
-                         "--mesh 1x1")
-    dev = devmod.resolve(args.device)
-    G = args.groups or 1
+    dev, mesh, G = _mesh(args)
+    lead = mesh.rank == 0
     bundle = get_bundle(args.arch, reduced=args.reduced, depth=args.depth)
     if bundle.cfg.family == "audio":
         raise ValueError(f"{args.arch}: its loss reads batch['enc_frames'] "
@@ -118,24 +154,28 @@ def main(argv=None) -> TrainRun:
     t0 = time.perf_counter()
     latest = ck.latest_step(args.ckpt_dir) if args.ckpt_dir else None
     if latest is None:
-        state = protocol.make_init_fn(bundle, pcfg, dev)(0)
+        state = protocol.make_init_fn(bundle, pcfg, dev, mesh)(0)
     else:
         # the params tree comes from the manifest, so no second model is
         # initialized only to be overwritten
         state, _ = ck.restore(args.ckpt_dir, latest,
-                              protocol.ByzState(None, 0, None), dev)
-        print(f"[train] restored checkpoint at step {state.t} from "
-              f"{args.ckpt_dir}")
+                              protocol.ByzState(None, 0, None, mesh=mesh),
+                              dev)
+        if lead:
+            print(f"[train] restored checkpoint at step {state.t} from "
+                  f"{args.ckpt_dir}")
     start = state.t
     step = protocol.make_train_step(
         bundle, pcfg, inverse_linear(args.lr, 0.005),
-        with_attack=bool(args.worker_attack or args.server_attack))
+        with_attack=bool(args.worker_attack or args.server_attack),
+        mesh=mesh)
     devmod.synchronize(dev)
-    run = TrainRun(n_params=state.params.shape[1], step=step, bundle=bundle)
-    print(f"[train] {bundle.cfg.name}: {bundle.cfg.n_layers} layers, "
-          f"d_model {bundle.cfg.d_model}, {run.n_params / 1e6:.1f}M params x "
-          f"{G} groups (f_w={f_w}, f_ps={f_ps}), init "
-          f"{time.perf_counter() - t0:.1f}s")
+    run = TrainRun(n_params=state.tree.size, step=step, bundle=bundle)
+    if lead:
+        print(f"[train] {bundle.cfg.name}: {bundle.cfg.n_layers} layers, "
+              f"d_model {bundle.cfg.d_model}, {run.n_params / 1e6:.1f}M "
+              f"params x {G} groups (f_w={f_w}, f_ps={f_ps}) on mesh "
+              f"{mesh.sizes}, init {time.perf_counter() - t0:.1f}s")
 
     stream = DeviceTokenStream(0, TokenSpec(bundle.cfg.vocab, args.seq), G,
                                args.batch_per_group, dev)
@@ -144,25 +184,35 @@ def main(argv=None) -> TrainRun:
     for i in range(start, args.steps):
         batch = {k: v[0] for k, v in stream.next(1).items()}
         ts = time.perf_counter()
+        before = dict(mesh.sent)
         state = step(state, batch)
         devmod.synchronize(dev)
         run.step_s.append(time.perf_counter() - ts)
+        run.sent.append({k: v - before.get(k, 0)
+                         for k, v in mesh.sent.items()})
         if i % args.log_every == 0:
-            with torch.no_grad():
-                p0 = state.tree.unflatten(state.params[0])
-                loss = float(bundle.loss(p0, {k: v[0]
+            # rank 0 holds replica 0's rows: it alone computes the loss
+            row = protocol.replica(state, 0, everywhere=False)
+            if lead:
+                with torch.no_grad():
+                    loss = float(bundle.loss(state.tree.unflatten(row),
+                                             {k: v[0]
                                               for k, v in batch.items()}))
-            run.losses.append((i, loss))
-            print(f"[train] step {i:5d} loss {loss:8.4f} "
-                  f"({time.perf_counter() - t0:.1f}s)")
+                run.losses.append((i, loss))
+                print(f"[train] step {i:5d} loss {loss:8.4f} "
+                      f"({time.perf_counter() - t0:.1f}s)")
+            del row
         if args.ckpt_dir and (state.t % args.ckpt_every == 0
                               or state.t == args.steps):
             ck.save(args.ckpt_dir, state.t, state)
-            print(f"[train] checkpoint @ {state.t}")
-    p0 = protocol.consolidate(state.params, pcfg)
+            if lead:
+                print(f"[train] checkpoint @ {state.t}")
+    p0 = protocol.consolidate(state.params, pcfg, mesh=mesh,
+                              n_params=state.tree.size)
     devmod.synchronize(dev)
-    print(f"[train] done: {args.steps} steps, {p0.numel() / 1e6:.1f}M params,"
-          f" {time.perf_counter() - t0:.1f}s")
+    if lead:
+        print(f"[train] done: {args.steps} steps, {p0.numel() / 1e6:.1f}M "
+              f"params, {time.perf_counter() - t0:.1f}s")
     run.state = state
     return run
 

@@ -83,7 +83,11 @@ def _checked_leaves(cfg: ArchConfig) -> dict:
                 ("ln_enc", "bias"): (D,),
                 ("ln_f", "bias"): (D,)}
     attn = {("blocks", "attn", "wq"): (L, D, cfg.n_heads * cfg.hd),
-            ("blocks", "attn", "wk"): (L, D, cfg.n_kv_heads * cfg.hd)}
+            ("blocks", "attn", "wk"): (L, D, cfg.n_kv_heads * cfg.hd),
+            ("blocks", "ln_attn", "scale"): (L, D), ("ln_f", "scale"): (D,)}
+    if cfg.norm == "layernorm":
+        attn[("blocks", "ln_attn", "bias")] = (L, D)
+        attn[("ln_f", "bias")] = (D,)
     if cfg.family == "moe":
         E = cfg.n_experts
         return {**attn, ("blocks", "moe", "router"): (L, D, E),

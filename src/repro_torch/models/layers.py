@@ -57,6 +57,12 @@ def rmsnorm(p, x, eps=1e-5):
     return (xf * torch.rsqrt(var + eps) * p["scale"].float()).to(x.dtype)
 
 
+def init_rmsnorm(shape, dtype=torch.float32, device=None):
+    """``{"scale": ones}`` of ``shape`` (``[D]``, or ``[L, D]`` for stacked
+    blocks)."""
+    return {"scale": torch.ones(shape, dtype=dtype, device=device)}
+
+
 def init_layernorm(shape, dtype=torch.float32, device=None):
     """``{"scale": ones, "bias": zeros}`` of ``shape`` (``[D]``, or
     ``[L, D]`` for stacked blocks)."""

@@ -62,16 +62,13 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32):
     """Random params on ``gen.device`` in ``dtype``, the reference's tree
     (``blocks/moe`` in place of ``blocks/mlp``)."""
     Lyr, D, dev = cfg.n_layers, cfg.d_model, gen.device
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=dev)
-
+    init_norm = TF._norm_fns(cfg)[0]
     return {"embed": L.init_embedding(gen, cfg.vocab, D, dtype),
-            "blocks": {"ln_attn": {"scale": ones(Lyr, D)},
+            "blocks": {"ln_attn": init_norm((Lyr, D), dtype, dev),
                        "attn": TF.init_attention(gen, cfg, dtype),
-                       "ln_mlp": {"scale": ones(Lyr, D)},
+                       "ln_mlp": init_norm((Lyr, D), dtype, dev),
                        "moe": init_moe_ffn(gen, cfg, dtype)},
-            "ln_f": {"scale": ones(D)}}
+            "ln_f": init_norm(D, dtype, dev)}
 
 
 # ---------------------------------------------------------------------------

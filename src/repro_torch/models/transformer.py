@@ -27,10 +27,20 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.act_dtype)
 
 
-def _norm(cfg: ArchConfig):
+def _norm_fns(cfg: ArchConfig):
+    """``(init(shape, dtype, device), apply(p, x))`` of the config's norm,
+    as the reference's ``_norm_fns``: layernorm's ``{"scale", "bias"}`` or
+    rmsnorm's ``{"scale"}``."""
+    if cfg.norm == "layernorm":
+        return L.init_layernorm, lambda p, x: L.layernorm(p, x,
+                                                          eps=cfg.norm_eps)
     if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r}: only rmsnorm is ported")
-    return lambda p, x: L.rmsnorm(p, x, eps=cfg.norm_eps)
+        raise ValueError(f"norm {cfg.norm!r}: rmsnorm | layernorm")
+    return L.init_rmsnorm, lambda p, x: L.rmsnorm(p, x, eps=cfg.norm_eps)
+
+
+def _norm(cfg: ArchConfig):
+    return _norm_fns(cfg)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -49,19 +59,17 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32):
     float32 copy of the whole model never exists)."""
     Lyr, D, Fd = cfg.n_layers, cfg.d_model, cfg.d_ff
     dev = gen.device
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=dev)
+    init_norm = _norm_fns(cfg)[0]
 
     params = {
         "embed": L.init_embedding(gen, cfg.vocab, D, dtype),
         "blocks": {
-            "ln_attn": {"scale": ones(Lyr, D)},
+            "ln_attn": init_norm((Lyr, D), dtype, dev),
             "attn": init_attention(gen, cfg, dtype),
-            "ln_mlp": {"scale": ones(Lyr, D)},
+            "ln_mlp": init_norm((Lyr, D), dtype, dev),
             "mlp": L.init_swiglu(gen, (Lyr,), D, Fd, dtype),
         },
-        "ln_f": {"scale": ones(D)},
+        "ln_f": init_norm(D, dtype, dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = {"table": L.init_dense(gen, D, (cfg.vocab, D),

@@ -104,10 +104,14 @@ def numpy_params(cfg, seed: int = 0) -> dict:
                   "cWv": dense(Fd, L, Fd, D), "cWr": dense(D, L, D, D)}
         return {"embed": embed, "blocks": blocks,
                 "ln_f": {"scale": scale(D), "bias": normal(0.1, D)}}
+    def norm(*lead):
+        return ln(*lead) if cfg.norm == "layernorm" else {
+            "scale": scale(*lead, D)}
+
     blocks = {
-        "ln_attn": {"scale": scale(L, D)},
+        "ln_attn": norm(L),
         "attn": attn((L,), H, kvH, hd),
-        "ln_mlp": {"scale": scale(L, D)},
+        "ln_mlp": norm(L),
     }
     if cfg.family == "moe":
         E = cfg.n_experts
@@ -119,7 +123,7 @@ def numpy_params(cfg, seed: int = 0) -> dict:
         blocks["mlp"] = {"w_gate": dense(D, L, D, Fd),
                          "w_up": dense(D, L, D, Fd),
                          "w_down": dense(Fd, L, Fd, D)}
-    params = {"embed": embed, "blocks": blocks, "ln_f": {"scale": scale(D)}}
+    params = {"embed": embed, "blocks": blocks, "ln_f": norm()}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"table": dense(D, cfg.vocab, D)}
     return params

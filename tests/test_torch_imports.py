@@ -1,5 +1,5 @@
-"""The port stands alone: nothing under src/repro_torch/, tools/ or
-chip_smoke.py imports jax, any repro.* module (repro_torch.* is allowed) or
+"""The port stands alone: nothing under src/repro_torch/, tools/,
+chip_smoke.py or tests/_torch_dist_runner.py imports jax, any repro.* module (repro_torch.* is allowed) or
 the JAX package's benchmarks/ (netsim keeps its own copy of the byte
 model), and the chip smoke script refuses to run without a GPU."""
 import ast
@@ -13,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
-    (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
+    (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "tests" / "_torch_dist_runner.py"]
 
 
 def _imports(path: Path):
@@ -71,6 +72,8 @@ def test_scan_covers_the_package():
                 "repro_torch/core/simulator.py", "repro_torch/core/engine.py",
                 "repro_torch/core/protocol.py",
                 "repro_torch/launch/train.py",
+                "repro_torch/launch/mesh.py",
+                "repro_torch/core/compression.py",
                 "repro_torch/exp/runners.py",
                 "repro_torch/netsim/accounting.py",
                 "repro_torch/netsim/cluster.py",
