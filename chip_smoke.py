@@ -141,8 +141,8 @@
    world-1 NCCL group (the (1, 1, 1) mesh): params bit-equal to phase 10's
    after its 11 steps, or else within 1e-3 with every MDA selection equal
    (it says which). (b) phi4-mini-3.8b at full width, depth 2, G = 4 on 2
-   ranks sharing the card over gloo (mesh (2, 1, 1), ``--mesh 2x1``), 3
-   steps: the per-rank memory reckoned from phase 10's peak first (the
+   ranks sharing the card over gloo (mesh (2, 1, 1), ``--mesh 2x1``), 2
+   steps (3 before phase 16 took its share of the time limit): the per-rank memory reckoned from phase 10's peak first (the
    tokens a group cut to 2 x 1024 if 2 ranks would pass 72 GB); finite
    losses; per rank the peak memory, steps/s, bytes sent a step by tag
    (pull + aggregate within 10 % of ``collective_volume_bytes(rep=2)``)
@@ -151,13 +151,32 @@
    single-card CPU run: every MDA selection equal, params within phase
    9's tolerance. Each rank is a process spawned by
    ``torch.multiprocessing``; one that fails fails the script.
+16. The 'model' axis (tensor parallelism) over ranks sharing the card
+   over gloo (rows 1-4, 7 and 8 on the model-split ranks). (a)
+   phi4-mini-3.8b at full width and depth, random bf16 weights, through
+   ``launch/serve.py --mesh 1x2``: the prefill logits against the single
+   card's within rel-L2 2e-2 (beside bf16's own spread: the single card
+   with float32 activations), then phase 4's quorum run at
+   model 2 (4 replicas, replica 3 ``reversed``): token-identical to the
+   honest replica on the same mesh, replica 3 ejected, the flash forward
+   and the median launched on each rank, each rank's peak memory. (b)
+   phi4-mini-3.8b at full width, G = 4, through ``launch/train.py --mesh
+   4x2`` (8 ranks: rep 4, model 2); its depth, steps and tokens reckoned
+   first from the bytes a rank moves a step and the ranks' memory, and
+   printed: finite, falling losses, each step's pull + aggregate equal to
+   ``collective_volume_bytes`` on the rank's blocks and the 'model' tags
+   to ``model_volume_bytes``, rows 1-4, 7 and 8 launched each step. (c)
+   ``lm/tfm_tiny`` at (rep 4, fsdp 1, model 2) on the same 8 ranks
+   against the single-card CPU run (phase 15 (c)'s): every MDA selection
+   equal.
 
 The profiler windows are read from their raw trace records in one pass
 (``trace_events``), not through ``key_averages()`` / ``events()``, whose
 parse took ~290 s of the script. Phases print on earlier lines; the line
 before the last holds the card's name and power limit, the one before it
 the kernels' JSON record (``launches`` over every main-path run,
-``mesh_launches`` phase 15's share), and the last line is ``{"ok": true,
+``mesh_launches`` phase 15's share, ``tp_launches`` phase 16's), and the
+last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, with no result line, when CUDA is
 absent or any check fails.
 """
@@ -1166,7 +1185,8 @@ def _tiny_run(run: dict, d, mesh=None):
     init = run["init"]
     state = protocol.shard_state(init._replace(
         params=init.params.clone().to(d),
-        gen=torch.Generator(d).manual_seed(1)), mesh)
+        gen=torch.Generator(d).manual_seed(1)), mesh,
+        protocol.model_split(run["bundle"].cfg, init.tree, mesh))
     mda, picked = registry.get("mda"), []
 
     def record(d2, f, **kw):
@@ -1198,6 +1218,17 @@ def protocol_reference_phase(dev, preset: str = "lm/tfm_tiny",
         log(f"[protocol-ref] {preset} {key}: {run['steps']} steps in "
             f"{wall:.1f} s")
     return _tiny_compare(run, out, sels, "protocol-ref", "card")
+
+
+_TINY_CPU: dict = {}
+
+
+def _tiny_cpu(run: dict):
+    """``_tiny_run`` of ``run`` on the CPU, once a script (phases 15 (c)
+    and 16 (c) hold their ranks against the same run)."""
+    if run["preset"] not in _TINY_CPU:
+        _TINY_CPU[run["preset"]] = _tiny_run(run, torch.device("cpu"))
+    return _TINY_CPU[run["preset"]]
 
 
 def _tiny_compare(run, out, sels, tag, key):
@@ -2569,11 +2600,21 @@ def zoo2_reference_phase(dev):
 # ---------------------------------------------------------------------------
 
 MESH_RANKS = 2          # (b): ranks sharing the card over gloo
-MESH_STEPS = 3
+# 2 steps (3 before phase 16 took its share of the script's time limit)
+MESH_STEPS = 2
 MESH_BUDGET_GB = 72.0   # what (b)'s ranks may take of the card together
 # kernel rows 1-4, 7 and 8: every one runs on every rank each step
 MESH_KERNELS = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv",
                 "cwise_median", "gram", "subset_diameters")
+
+
+def _host_available_gb() -> float:
+    """The host's available memory (``MemAvailable``), GB."""
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
 
 
 def _free_port() -> int:
@@ -2598,8 +2639,19 @@ def _mesh_rank(rank: int, world: int, port: int, task: str, tmp: str):
         for c in counters.values():
             c.launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
-        out = (_mesh_train_rank if task == "train" else _mesh_tiny_rank)(
-            dev, rank, tmp)
+        try:
+            out = RANK_TASKS[task](dev, rank, tmp)
+        except BaseException:
+            # this rank's own error, printed before its peers' lost
+            # connections are
+            import traceback
+            free, card = torch.cuda.mem_get_info(dev)
+            print(f"[mesh] {task} rank {rank} of {world} failed (card: "
+                  f"{free / 1e9:.1f} of {card / 1e9:.1f} GB free, this "
+                  f"rank's peak {torch.cuda.max_memory_allocated(dev) / 1e9:.1f}"
+                  f" GB; host: {_host_available_gb():.1f} GB available):\n"
+                  + traceback.format_exc(), file=sys.stderr, flush=True)
+            raise
         torch.cuda.synchronize()
         out.update(launches={k: c.launches for k, c in counters.items()},
                    peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
@@ -2613,15 +2665,16 @@ def _mesh_train_rank(dev, rank: int, tmp: str) -> dict:
     from repro_torch.launch import train
     with open(os.path.join(tmp, "argv.json")) as fh:
         run = train.main(json.load(fh))
-    mesh = run.state.mesh
+    mesh, split = run.state.mesh, run.state.split
     return dict(step_s=run.step_s, sent=run.sent, losses=run.losses,
-                mesh=mesh.sizes, backend=mesh.backend, P=run.n_params)
+                mesh=mesh.sizes, backend=mesh.backend, P=run.n_params,
+                P_m=split.local.size if split else run.n_params)
 
 
-def _mesh_tiny_rank(dev, rank: int, tmp: str) -> dict:
+def _mesh_tiny_rank(dev, rank: int, tmp: str, model: int = 1) -> dict:
     from repro_torch.launch import mesh as tmesh
     run = _tiny_protocol()
-    mesh = tmesh.make_protocol_mesh(run["pcfg"].n_groups)
+    mesh = tmesh.make_protocol_mesh(run["pcfg"].n_groups, model=model)
     params, picked, wall = _tiny_run(run, dev, mesh)
     if rank == 0:
         torch.save(params, os.path.join(tmp, "tiny_params.pt"))
@@ -2766,7 +2819,7 @@ def mesh_phase(dev, reference: dict) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         outs = _spawn_ranks("tiny", 4, tmp)
         ranks = torch.load(os.path.join(tmp, "tiny_params.pt"))
-    cpu, sels, wall = _tiny_run(run, torch.device("cpu"))
+    cpu, sels, wall = _tiny_cpu(run)
     picked = [torch.tensor(p) for p in outs[0]["selections"]]
     for r, o in enumerate(outs):
         add(o["launches"])
@@ -2780,6 +2833,357 @@ def mesh_phase(dev, reference: dict) -> dict:
         f" s; launches a rank " + json.dumps(outs[0]["launches"]))
     _tiny_compare(run, {"cpu": cpu, "ranks": ranks},
                   {"cpu": sels, "ranks": picked}, "mesh", "ranks")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the 'model' axis (tensor parallelism) over ranks on the card
+# ---------------------------------------------------------------------------
+
+TP_ARCH = "phi4-mini-3.8b"
+# (a): the launcher's prefill and 8 decode steps, then phase 4's quorum run
+TP_SERVE_ARGV = ["--arch", TP_ARCH, "--batch", "4", "--prefill", "1024",
+                 "--decode", "8"]
+TP_LOGIT_TOL = 2e-2     # rel-L2 of (a)'s prefill logits, model 2 vs one rank
+# (b): depth, steps and tokens reckoned from the bytes a rank moves a step,
+# at the gloo rate of 8 ranks sharing one H100 80GB HBM3 (700 W) and its
+# host (a second step of depth 1 moved 9.72 GB a rank in 19.1 s: 0.51
+# GB/s; phase 15 (b): 0.51-0.65 GB/s a rank with 2), within a time budget
+TP_RATE = 0.5e9
+TP_BUDGET_S = 45.0
+TP_MEM_GB = 72.0        # what (b)'s 8 ranks may take of the card together
+TP_SEQ = 512
+# one step of phase 10's lr 0.002 overshoots at this width (its loss rises
+# at step 1): a smaller one keeps a few steps' losses falling
+TP_LR = "0.0005"
+
+
+def _dense_tree(cfg):
+    """The dense family's :class:`FlatTree` at ``cfg`` from shapes alone
+    (meta tensors: nothing is allocated)."""
+    from repro_torch.core.simulator import FlatTree
+    L_, D, F_, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
+    qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+
+    def m(*shape):
+        return torch.empty(shape, device="meta")
+
+    tree = {"embed": {"table": m(V, D)}, "ln_f": {"scale": m(D)},
+            "blocks": {"ln_attn": {"scale": m(L_, D)},
+                       "ln_mlp": {"scale": m(L_, D)},
+                       "attn": {"wq": m(L_, D, qd), "wk": m(L_, D, kvd),
+                                "wv": m(L_, D, kvd), "wo": m(L_, qd, D)},
+                       "mlp": {"w_gate": m(L_, D, F_), "w_up": m(L_, D, F_),
+                               "w_down": m(L_, F_, D)}}}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"table": m(V, D)}
+    return FlatTree.from_params(tree)
+
+
+def _bf16_spread(dev, want) -> float:
+    """A yardstick for 16 (a): the launcher's weights and prompts (seeds 0
+    and 1) prefilled on one card with float32 activations, against
+    ``want``, the bf16 batch's last-token logits (rel-L2): how far bf16
+    arithmetic itself moves these logits."""
+    import dataclasses
+
+    from repro_torch.models.registry import ModelBundle, get_bundle
+    bundle = ModelBundle(dataclasses.replace(get_bundle(TP_ARCH).cfg,
+                                             act_dtype="float32"))
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16)
+    pf = bundle.make_batch("prefill", 4, 1024,
+                           torch.Generator(device=dev).manual_seed(1))
+    caches = bundle.init_caches(4, max_len=1025, n_chunks=1, device=dev)
+    got = bundle.prefill(params, pf, caches)[0].float().cpu()
+    del params, caches
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _tp_serve_rank(dev, rank: int, tmp: str) -> dict:
+    """16 (a) on one rank of the (1, 2) serve mesh: ``launch/serve.py
+    --mesh 1x2``, then phase 4's quorum run and its honest replica."""
+    from repro_torch.core.attacks import ByzantineSpec
+    from repro_torch.core.simulator import FlatTree
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import serve, steps
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.serve import QuorumService, ReplicaPool
+    from repro_torch.serve.replica import tree_map
+    stats: dict = {}
+    t0 = time.perf_counter()
+    ids = serve.main(TP_SERVE_ARGV + ["--mesh", "1x2"], stats=stats)
+    launcher_s = time.perf_counter() - t0
+    if rank == 0:
+        torch.save(stats["logits"], os.path.join(tmp, "tp_logits.pt"))
+    bundle = get_bundle(TP_ARCH)
+    cfg = bundle.cfg
+    smesh = tmesh.make_serve_mesh(tmesh.make_mesh((1, 2), ("data", "model")))
+    rules = steps.serve_rules(smesh, cfg)
+    with torch.inference_mode():
+        params = bundle.init(torch.Generator(device=dev).manual_seed(SEED),
+                             dtype=torch.bfloat16)
+        specs = steps.serve_param_sharding(FlatTree.from_params(params),
+                                           smesh, cfg)
+        pool = ReplicaPool.from_params(params, N_REPLICAS, f=F_BYZ).shard(
+            specs, smesh)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        honest = ReplicaPool(params=tree_map(lambda l: l[:1], pool.params),
+                             f=0, sharded=True)
+        pool = pool.corrupt(ByzantineSpec(server_attack="reversed",
+                                          n_byz_servers=1))
+        rng = np.random.default_rng(SEED)
+        lens = rng.integers(64, 1025, size=N_REQUESTS)
+        prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+        kw = dict(n_slots=N_SLOTS, n_chunks=4, rule="median", rules=rules,
+                  max_len=-(-(int(lens.max()) + MAX_NEW + 1) // 64) * 64)
+        svc = QuorumService(pool, bundle, **kw)
+        t0 = time.perf_counter()
+        outs = svc.generate(prompts, max_new=MAX_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = svc.report()
+        base = QuorumService(honest, bundle, **kw).generate(prompts,
+                                                            max_new=MAX_NEW)
+    return dict(ids=ids.tolist(), launcher_s=launcher_s,
+                prefill_s=stats["prefill_s"], tok_s_launcher=stats["tok_s"],
+                quorum=outs, honest=base, ejections=rep["ejections"],
+                wall=wall, tok_s=rep["tok_s"], mesh=smesh.sizes,
+                backend=smesh.backend, sent=dict(smesh.sent),
+                w_gate=list(svc.pool.params["blocks"]["mlp"]["w_gate"]
+                            .shape))
+
+
+def _tp_train_rank(dev, rank: int, tmp: str) -> dict:
+    """16 (b), then (c) in the same 8 ranks (one start for both): each
+    part's launches counted from 0, its peak memory from a reset."""
+    counters = _proto_counters()
+    out = {}
+    for part, fn in (("train", _mesh_train_rank),
+                     ("tiny", lambda *a: _mesh_tiny_rank(*a, model=2))):
+        for c in counters.values():
+            c.launches = 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out[part] = fn(dev, rank, tmp)
+        torch.cuda.synchronize()
+        out[part].update(
+            launches={k: c.launches for k, c in counters.items()},
+            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    return out
+
+
+RANK_TASKS = {"train": _mesh_train_rank, "tiny": _mesh_tiny_rank,
+              "tp_serve": _tp_serve_rank, "tp_train": _tp_train_rank}
+
+
+def _tp_reckon(pcfg, cfg):
+    """16 (b)'s depth, steps and tokens: the first of (depth, steps, rows
+    of ``TP_SEQ`` tokens a group) from (2, 3, 4) down to (1, 2, 1) whose
+    bytes a rank a step at ``TP_RATE`` fit ``TP_BUDGET_S`` and whose 8
+    ranks fit ``TP_MEM_GB`` of the card, each reckoned and printed: a
+    rank holds the whole f32 model while it draws it, then its blocks'
+    f32 replica and gradient and bf16 pull (10 bytes a value) and ~3
+    float32 copies of a sequence chunk's vocab-parallel logits, the
+    streamed chunks' buffers and the loss's gradients of the vocab
+    table's block (~2 GB) and its context (~1 GB), a fifth more for the
+    allocator's fragments (8 ranks at depth 1, 2 x 512 tokens held ~9.4
+    GB each of one H100 80GB HBM3)."""
+    import dataclasses
+
+    from repro_torch.core import protocol
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.Mesh(tmesh.AXES, (4, 1, 2))
+    cands = [(d, s, b) for d in (2, 1) for s in (3, 2) for b in (4, 2, 1)]
+    for depth, steps, batch in cands:
+        c = dataclasses.replace(cfg, n_layers=depth)
+        tree = _dense_tree(c)
+        P_m = protocol.model_split(c, tree, mesh).local.size
+        scatter = protocol.collective_volume_bytes(pcfg, P_m)
+        gram = 3 * -(-P_m // 4) * 4
+        tp = sum(protocol.model_volume_bytes(c, 2, batch * TP_SEQ).values())
+        step_b = scatter + gram + tp
+        secs = steps * step_b / TP_RATE
+        logits = 3 * batch * min(TP_SEQ, 512) * (c.vocab // 2) * 4
+        mem = 8 * 1.2 * (max(4 * tree.size + 4 * P_m, 10 * P_m + logits)
+                         + 3e9)
+        log(f"[tp] (b) reckoning depth {depth}, {steps} steps, {batch} x "
+            f"{TP_SEQ} tokens: P = {tree.size:,}, a rank's blocks P_m = "
+            f"{P_m:,}; a step sends pull + aggregate {scatter / 1e9:.2f} GB "
+            f"(collective_volume_bytes), the Gram's all-to-all "
+            f"{gram / 1e9:.2f} GB, the 'model' tags {tp / 1e9:.3f} GB: "
+            f"{step_b / 1e9:.2f} GB, {secs:.0f} s at {TP_RATE / 1e9:.2f} "
+            f"GB/s a rank (budget {TP_BUDGET_S:.0f} s); 8 ranks "
+            f"{mem / 1e9:.1f} GB (budget {TP_MEM_GB:.0f} GB)")
+        if secs <= TP_BUDGET_S and mem <= TP_MEM_GB * 1e9 \
+                or (depth, steps, batch) == cands[-1]:
+            return depth, steps, batch
+
+
+def tp_phase(dev, parts: str = "ab") -> dict:
+    """Phase 16: the 'model' axis on ranks sharing the card over gloo. (a)
+    phi4-mini-3.8b at full width and depth, random bf16 weights, through
+    ``launch/serve.py --mesh 1x2``: the prefill logits against the
+    single-card launcher's (rel-L2 under ``TP_LOGIT_TOL``), then phase 4's
+    quorum run at model 2 token-identical to the honest replica on the
+    same mesh, replica 3 ejected, the flash forward and the median
+    launched on each rank. (b) phi4-mini-3.8b at full width, G = 4,
+    through ``launch/train.py --mesh 4x2`` (8 ranks: rep 4, model 2), its
+    depth, steps and tokens reckoned first: finite, falling losses; each
+    step's pull + aggregate equal to ``collective_volume_bytes`` on the
+    rank's blocks, the 'model' tags equal to ``model_volume_bytes``; rows
+    1-4, 7 and 8 launched each step. (c) ``lm/tfm_tiny`` at (rep 4, fsdp 1,
+    model 2) on 8 ranks against the single-card CPU run: every MDA
+    selection equal; (b) and (c) share one start of 8 ranks. Returns the
+    kernel launches of the runs; ``parts`` names the parts to run, ``a``
+    and ``b`` (with (c)); ``tools/tp_phase.py`` runs them alone."""
+    import tempfile
+
+    from repro_torch.core.protocol import (collective_volume_bytes,
+                                           model_volume_bytes)
+    from repro_torch.launch import serve, train
+    from repro_torch.models.registry import get_bundle
+    total: dict = {}
+
+    def add(got):
+        for k in MESH_KERNELS:
+            total[k] = total.get(k, 0) + got.get(k, 0)
+
+    # (a) ------------------------------------------------------------------
+    if "a" in parts:
+        t0 = time.perf_counter()
+        stats: dict = {}
+        with torch.inference_mode():
+            ids1 = serve.main(TP_SERVE_ARGV, stats=stats)
+            spread = _bf16_spread(dev, stats["logits"])
+        want = stats["logits"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            outs = _spawn_ranks("tp_serve", 2, tmp)
+            got = torch.load(os.path.join(tmp, "tp_logits.pt"))
+        rel = ((got - want).norm() / want.norm()).item()
+        mx = (got - want).abs().max().item()
+        same_tok = int((got.argmax(-1) == want.argmax(-1)).sum())
+        o = outs[0]
+        log(f"[tp] (a) {TP_ARCH} full width and depth, bf16, "
+            f"launch/serve.py --mesh 1x2 ({o['backend']}, mesh "
+            f"{o['mesh']}): prefill 4 x 1024 in {o['prefill_s']:.2f} s "
+            f"(one rank: {stats['prefill_s']:.2f} s), decode "
+            f"{o['tok_s_launcher']:.2f} tok/s (one rank: "
+            f"{stats['tok_s']:.2f}); prefill logits against the single "
+            f"card: rel-L2 {rel:.3e} (gate {TP_LOGIT_TOL}; one card's bf16 "
+            f"against its float32 activations: {spread:.3e}), max|diff| "
+            f"{mx:.4g} (max|logit| {want.abs().max().item():.4g}), greedy "
+            f"token equal in {same_tok} of {want.shape[0]} rows; decoded "
+            f"ids equal to the single card's: {o['ids'] == ids1.tolist()}")
+        if rel > TP_LOGIT_TOL or not torch.isfinite(got).all():
+            raise AssertionError(f"phase 16 (a): prefill logits rel-L2 "
+                                 f"{rel}")
+        for r, o in enumerate(outs):
+            add(o["launches"])
+            log(f"[tp] (a) rank {r}: quorum run {o['wall']:.2f} s "
+                f"({o['tok_s']:.2f} tok/s), ejections {o['ejections']}, peak "
+                f"device memory {o['peak_gb']:.1f} GB, w_gate block "
+                f"{o['w_gate']}, bytes sent by tag {o['sent']}; launches "
+                + json.dumps(o["launches"]))
+            if o["quorum"] != o["honest"] or \
+                    o["quorum"] != outs[0]["quorum"]:
+                raise AssertionError(f"phase 16 (a) rank {r}: the quorum "
+                                     "run differs from the honest replica")
+            if [i for _, i in o["ejections"]] != [N_REPLICAS - 1]:
+                raise AssertionError(f"phase 16 (a) rank {r}: ejections "
+                                     f"{o['ejections']}")
+            for k in ("flash_attention", "cwise_median"):
+                if o["launches"][k] <= 0:
+                    raise AssertionError(f"phase 16 (a) rank {r}: {k} not "
+                                         "launched")
+        log(f"[tp] (a) token-identical to the honest replica on the mesh "
+            f"({N_REQUESTS} requests x {MAX_NEW} tokens), replica "
+            f"{N_REPLICAS - 1} ejected: {time.perf_counter() - t0:.1f} s")
+
+    # (b) and (c): one start of 8 ranks -------------------------------------
+    if "b" in parts:
+        t0 = time.perf_counter()
+        cfg = get_bundle(TP_ARCH).cfg
+        G = 4
+        pcfg = train.protocol_config(G, 5)
+        depth, steps, batch = _tp_reckon(pcfg, cfg)
+        argv = ["--arch", TP_ARCH, "--depth", str(depth), "--groups", str(G),
+                "--T", "5", "--seq", str(TP_SEQ), "--batch-per-group",
+                str(batch), "--steps", str(steps), "--lr", TP_LR,
+                "--log-every", "1", "--mesh", "4x2"]
+        free, card = torch.cuda.mem_get_info(dev)
+        log(f"[tp] (b) launch/train.py {' '.join(argv)}; the card has "
+            f"{free / 1e9:.1f} of {card / 1e9:.1f} GB free (this process "
+            f"holds {torch.cuda.memory_reserved(dev) / 1e9:.1f} GB)")
+        run = _tiny_protocol()
+        with tempfile.TemporaryDirectory() as tmp:
+            with open(os.path.join(tmp, "argv.json"), "w") as fh:
+                json.dump(argv, fh)
+            outs = _spawn_ranks("tp_train", 8, tmp)
+            ranks = torch.load(os.path.join(tmp, "tiny_params.pt"))
+        import dataclasses
+        c = dataclasses.replace(cfg, n_layers=depth)
+        tp_want = model_volume_bytes(c, 2, batch * TP_SEQ)
+        for r, o in enumerate(o["train"] for o in outs):
+            add(o["launches"])
+            exact = collective_volume_bytes(pcfg, o["P_m"])
+            model = collective_volume_bytes(pcfg, o["P"], model=2)
+            warm = o["step_s"][1:] or o["step_s"]
+            scatter = [b.get("pull", 0) + b.get("aggregate", 0)
+                       for b in o["sent"]]
+            log(f"[tp] (b) rank {r} of 8 ({o['backend']}, mesh "
+                f"{o['mesh']}, P = {o['P']:,}, P_m = {o['P_m']:,}): peak "
+                f"device memory {o['peak_gb']:.1f} GB; "
+                f"{len(warm) / sum(warm):.4f} steps/s after the first "
+                f"(steps {[round(x, 2) for x in o['step_s']]} s); bytes a "
+                f"step by tag {o['sent']}; pull + aggregate "
+                f"{scatter} against collective_volume_bytes(n_params=P_m) "
+                f"{exact} (model=2: {model}); the 'model' tags' formula "
+                f"{tp_want}; launches " + json.dumps(o["launches"]))
+            if o["mesh"] != {"rep": 4, "fsdp": 1, "model": 2}:
+                raise AssertionError(f"phase 16 (b) rank {r}: {o['mesh']}")
+            if any(b != exact for b in scatter):
+                raise AssertionError(f"phase 16 (b) rank {r}: {scatter} "
+                                     f"bytes against {exact}")
+            for sent in o["sent"]:
+                for tag, n in tp_want.items():
+                    if sent.get(tag) != n:
+                        raise AssertionError(f"phase 16 (b) rank {r}: {tag} "
+                                             f"{sent.get(tag)} against {n}")
+            for k in MESH_KERNELS:
+                if o["launches"][k] < steps:
+                    raise AssertionError(
+                        f"phase 16 (b) rank {r}: {k} launched "
+                        f"{o['launches'][k]} times in {steps} steps")
+        losses = [x for _, x in outs[0]["train"]["losses"]]
+        log(f"[tp] (b) losses (rank 0) {losses}; peak memory of the 8 ranks "
+            f"together {sum(o['train']['peak_gb'] for o in outs):.1f} GB")
+        if (len(losses) != steps or not np.all(np.isfinite(losses))
+                or not losses[-1] < losses[0]):
+            raise AssertionError(f"phase 16 (b): losses {losses}")
+        # (c) on the same ranks
+        cpu, sels, wall = _tiny_cpu(run)
+        picked = [torch.tensor(p) for p in outs[0]["tiny"]["selections"]]
+        for r, o in enumerate(o["tiny"] for o in outs):
+            add(o["launches"])
+            if o["mesh"] != {"rep": 4, "fsdp": 1, "model": 2} or any(
+                    not torch.equal(torch.tensor(p), q)
+                    for p, q in zip(o["selections"], picked)):
+                raise AssertionError(f"phase 16 (c) rank {r}: mesh "
+                                     f"{o['mesh']}, or its selections "
+                                     "differ from rank 0's")
+        o = outs[0]["tiny"]
+        log(f"[tp] (c) lm/tfm_tiny on 8 ranks ({o['backend']}, mesh "
+            f"{o['mesh']}) {o['wall']:.1f} s, on the CPU {wall:.1f} s; "
+            f"launches a rank " + json.dumps(o["launches"]))
+        _tiny_compare(run, {"cpu": cpu, "ranks": ranks},
+                      {"cpu": sels, "ranks": picked}, "tp", "ranks")
+        log(f"[tp] (b) and (c): {time.perf_counter() - t0:.1f} s")
     return total
 
 
@@ -2875,8 +3279,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 15: the protocol over torch.distributed ranks
     mesh_launches = mesh_phase(dev, proto.pop("reference"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 16: the 'model' axis over ranks
+    t16 = time.perf_counter()
+    tp_launches = tp_phase(dev)
+    log(f"[tp] phase 16 took {time.perf_counter() - t16:.1f} s")
     for part in (ckpt_launches, netsim_launches, resume_launches,
-                 elastic_launches, *zoo_launches, mesh_launches):
+                 elastic_launches, *zoo_launches, mesh_launches,
+                 tp_launches):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
 
@@ -2920,6 +3331,7 @@ def main() -> int:
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": launches[name],
             "mesh_launches": mesh_launches.get(name, 0),
+            "tp_launches": tp_launches.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

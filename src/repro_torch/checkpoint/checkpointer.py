@@ -24,10 +24,11 @@ median — the checkpoint-level analogue of DMC: a corrupted replica in the
 checkpoint is outvoted.
 
 A ``ByzState`` spread over the ranks of a mesh is saved by every rank: the
-stacks are gathered whole, rank 0 writes the same replica-stacked files as
-one card does, and all ranks meet at a barrier. ``restore`` into a
-``like`` with a mesh reads the files on every rank and keeps its rows and
-columns.
+stacks are gathered whole (over 'rep', 'fsdp' and 'model', the 'model'
+blocks joined leaf by leaf), rank 0 writes the same replica-stacked files
+as one card does, and all ranks meet at a barrier. ``restore`` into a
+``like`` with a mesh (and, with a 'model' axis, its ``split``) reads the
+files on every rank and keeps its rows, blocks and columns.
 """
 from __future__ import annotations
 
@@ -202,7 +203,8 @@ def restore(ckpt_dir: str, step: int, like, device=None, *,
     if isinstance(like, protocol.ByzState):
         state = protocol.state_from_leaves(read, leaves, dev, tree=like.tree,
                                            params_only=params_only)
-        return protocol.shard_state(state, like.mesh), manifest["step"]
+        return (protocol.shard_state(state, like.mesh, like.split),
+                manifest["step"])
 
     def walk(t, path):
         if isinstance(t, dict):

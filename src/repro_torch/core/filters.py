@@ -57,6 +57,13 @@ def lipschitz_cutoff(hist: LipschitzHistory, n_ps: int, f_ps: int):
                              interpolation="linear")
 
 
+def lipschitz_pass(k, hist: LipschitzHistory, n_ps: int, f_ps: int):
+    """``k <= quantile_{(n_ps-f_ps)/n_ps}{K}``; accepts while a history is
+    empty."""
+    kp = lipschitz_cutoff(hist, n_ps, f_ps)
+    return torch.isnan(kp) | (k <= kp)
+
+
 def outliers_bound(t: int, big_t: int, eta_anchor, gnorm_anchor, n_w: int,
                    f_w: int):
     """Eq. (14): eta_{T(t mod T)} ||g_{T(t mod T)}|| *

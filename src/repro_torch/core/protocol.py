@@ -3,7 +3,10 @@
 The paper's server/worker protocol on a ('rep', 'fsdp', 'model') mesh of
 ``torch.distributed`` ranks (:mod:`repro_torch.launch.mesh`): 'rep' indexes
 the ranks that hold the G = n_groups co-located worker+server groups (the
-failure domains), G/rep groups a rank; 'fsdp' splits each group's replica
+failure domains), G/rep groups a rank; 'model' (tensor parallelism, the
+dense and vlm families) gives each rank, for every leaf, its coordinate's
+block along the dim the per-leaf table picks (:func:`leaf_spec`,
+:class:`ModelSplit`); 'fsdp' splits the rank's flat row of those blocks
 into K contiguous column ranges. Without a mesh (or on the ``(1, 1, 1)``
 mesh) the G groups share one device and every collective below is the
 identity: the single-card engine.
@@ -42,7 +45,14 @@ every rank's draws are the single card's. The Gram follows
 ``repro.agg.tree``: an all-to-all over 'rep' puts all G rows of 1/rep of
 the rank's columns on each rank, the Gram kernel makes a partial ``[G,
 G]`` there, and the partials are gathered and summed in rank order, so
-every rank makes the same MDA selection.
+every rank makes the same MDA selection. With 'model' ranks each rank's
+partial covers its blocks (a leaf whole on every 'model' rank counts at
+coordinate 0 only), and the partials are summed over 'fsdp', 'rep' and
+'model' in rank order; the coordinate-wise rules, the attacks on gathered
+rows and the update stay on the rank's coordinates. A group's gradient is
+then the tensor-parallel loss of :mod:`repro_torch.models.transformer`
+under :func:`repro_torch.launch.steps.train_rules`, each 'model' rank
+differentiating into its blocks.
 
 Engines: 'naive' all-gathers each gradient chunk over 'rep' and forms the
 rank's receivers' weighted sums; 'sharded' forms the partial weighted sums
@@ -60,6 +70,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Callable, NamedTuple
 
+import math
+
 import numpy as np
 import torch
 
@@ -67,6 +79,7 @@ from .. import agg
 from .. import optim as _optim
 from ..device import resolve
 from ..launch.mesh import AXES, ITEM_17, Mesh
+from ..models import sharding as _sharding
 from . import attacks as _attacks
 from .attacks import ByzantineSpec, inject_gradients, inject_models
 from .quorum import UniformDelivery
@@ -159,6 +172,7 @@ class ByzState(NamedTuple):
     opt: Any = ()                 # per-replica optimizer state
     tree: FlatTree | None = None  # the model's leaves in the flat layout
     mesh: Mesh | None = None      # the ranks the stack is spread over
+    split: "ModelSplit | None" = None   # each leaf's 'model' block (M > 1)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -194,6 +208,223 @@ def _rebuild(tree: FlatTree, leaves: list) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# Explicit per-leaf layout table (Megatron conventions), matched by the
+# leaf's final path component, as the reference's. COLUMN-parallel ([..,
+# D_in, D_out]): 'model' on the OUTPUT dim. ROW-parallel ([.., D_out
+# contraction, D]): 'model' on the contraction dim. Tables: 'model' on the
+# vocab. 'fsdp' takes the complementary dim (the port's 'fsdp' splits the
+# flat row instead, so only the 'model' dim sets a rank's block).
+_COL_LEAVES = {"w_gate", "w_up", "cWk"}
+_ROW_LEAVES = {"wo", "w_down", "out_proj", "Wo", "cWv", "wB", "in_proj",
+               "Wr", "Wk", "Wv", "Wg", "cWr", "wA"}
+_TABLE_LEAVES = {"table", "pos_dec"}
+# wq/wk/wv: decided per arch by ``attn_overrides``
+
+
+def _place(body, picks, M, K):
+    """picks: ((axis_name, dim_index), ...) — applied iff divisible."""
+    spec = [None] * len(body)
+    for name, idx in picks:
+        size = M if name == "model" else K
+        if size <= 1:
+            continue
+        i = idx % len(body)
+        if spec[i] is None and body[i] % size == 0 and body[i] >= size:
+            spec[i] = name
+    return spec
+
+
+def _body_spec(body, M: int, K: int, name: str, overrides) -> list:
+    mode = (overrides or {}).get(name)
+    if mode == "col" and len(body) >= 2:
+        return _place(body, (("model", -1), ("fsdp", -2)), M, K)
+    if mode == "row" and len(body) >= 2:
+        return _place(body, (("model", -2), ("fsdp", -1)), M, K)
+    if name in _COL_LEAVES and len(body) >= 2:
+        return _place(body, (("model", -1), ("fsdp", -2)), M, K)
+    if name in (_ROW_LEAVES | _TABLE_LEAVES) and len(body) >= 2:
+        return _place(body, (("model", -2), ("fsdp", -1)), M, K)
+    # fallback: the largest divisible dims; a size-1 axis claims none, and
+    # 'model' takes a dim of a 2-D or larger body only
+    spec = [None] * len(body)
+    order = sorted(range(len(body)), key=lambda i: -body[i])
+    m_at = next((i for i in order if body[i] % M == 0 and body[i] >= M
+                 and len(body) >= 2), None) if M > 1 else None
+    if m_at is not None:
+        spec[m_at] = "model"
+    k_at = next((i for i in order
+                 if i != m_at and body[i] % K == 0 and body[i] >= K), None)
+    if k_at is not None and K > 1:
+        spec[k_at] = "fsdp"
+    return spec
+
+
+def leaf_spec(shape: tuple, mesh, *, leading_rep: bool = True,
+              name: str = "", overrides: dict | None = None) -> tuple:
+    """The reference's per-leaf spec of a replica-stacked leaf (``[G,
+    *body]`` with ``leading_rep``): for each dim the mesh axis it is split
+    over, or ``None``. ``mesh`` needs ``axis_names`` and ``shape``
+    (:class:`~repro_torch.launch.mesh.Mesh`)."""
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    body = list(shape[1:]) if leading_rep else list(shape)
+    spec = _body_spec(body, sizes["model"], sizes["fsdp"], name, overrides)
+    return ("rep", *spec) if leading_rep else tuple(spec)
+
+
+def attn_overrides(cfg, mesh) -> dict:
+    """``wq`` column-parallel (its head dim over 'model') when the heads
+    divide M, and ``wk`` / ``wv`` when the kv heads do; otherwise
+    row-parallel (the input dim, as the reference's table for all three).
+    The reference keeps all three row-parallel because the column layout
+    hit an XLA SPMD SIGFPE (``repro/core/protocol.py:233-243``); a row
+    split would cost a reduction of q, k and v in every block (ROADMAP.md
+    Queue 3). ``mesh``: a mesh or its 'model' size."""
+    M = mesh if isinstance(mesh, int) else mesh.size("model")
+    return {"wq": "col" if cfg.n_heads % M == 0 else "row",
+            "wk": "col" if cfg.n_kv_heads % M == 0 else "row",
+            "wv": "col" if cfg.n_kv_heads % M == 0 else "row"}
+
+
+def state_shardings(tree: FlatTree, mesh, overrides: dict | None = None
+                    ) -> list:
+    """:func:`leaf_spec` of each leaf of a replica-stacked ``tree``; a
+    scalar or a leaf of at most 2 values stays whole (``()``)."""
+    return [() if len(shape) == 0 or math.prod(shape) <= 2 else
+            leaf_spec((1,) + shape, mesh, name=path[-1],
+                      overrides=overrides)
+            for path, shape in zip(tree.paths, tree.shapes)]
+
+
+def body_spec(body_shape: tuple, mesh) -> tuple:
+    """A replica body's spec (no leading axes): 'model' on the largest
+    divisible dim, 'fsdp' on the next."""
+    sizes = mesh.sizes
+    M, K = sizes["model"], sizes["fsdp"]
+    body = list(body_shape)
+    spec: list = [None] * len(body)
+    order = sorted(range(len(body)), key=lambda i: -body[i])
+    m_at = next((i for i in order if body[i] % M == 0 and body[i] >= M),
+                None) if M > 1 else None
+    if m_at is not None:
+        spec[m_at] = "model"
+    k_at = next((i for i in order
+                 if i != m_at and body[i] % K == 0 and body[i] >= K), None)
+    if k_at is not None and K > 1:
+        spec[k_at] = "fsdp"
+    return tuple(spec)
+
+
+def _replicaless_spec(shape, mesh) -> tuple:
+    """A consolidated (serving) leaf's spec: no 'rep' axis; ('rep',
+    'fsdp') together on the fsdp-eligible dim."""
+    sizes = mesh.sizes
+    M, RK = sizes["model"], sizes["rep"] * sizes["fsdp"]
+    body = list(shape)
+    spec: list = [None] * len(body)
+    order = sorted(range(len(body)), key=lambda i: -body[i])
+    m_at = next((i for i in order if body[i] % M == 0 and body[i] >= M), None)
+    if m_at is not None:
+        spec[m_at] = "model"
+    k_at = next((i for i in order
+                 if i != m_at and body[i] % RK == 0 and body[i] >= RK), None)
+    if k_at is not None:
+        spec[k_at] = ("rep", "fsdp")
+    return tuple(spec)
+
+
+def model_dims(tree: FlatTree, M: int, overrides: dict | None) -> list:
+    """For each leaf of ``tree`` the dim :func:`leaf_spec` splits over
+    'model' at size M (``None``: whole on every 'model' rank)."""
+    out = []
+    for path, shape in zip(tree.paths, tree.shapes):
+        if M == 1 or len(shape) == 0 or math.prod(shape) <= 2:
+            out.append(None)
+            continue
+        spec = _body_spec(list(shape), M, 1, path[-1], overrides)
+        out.append(spec.index("model") if "model" in spec else None)
+    return out
+
+
+class ModelSplit:
+    """The 'model' axis's cut of a model's flat layout: for each leaf of
+    ``tree`` the dim split over M ranks (``dims``), and this rank's
+    coordinate m. ``local`` is the tree of the rank's blocks, whose flat
+    row (``local.size`` values) is what 'rep' and 'fsdp' lay out."""
+
+    def __init__(self, tree: FlatTree, dims: list, M: int, m: int):
+        self.tree, self.dims, self.M, self.m = tree, list(dims), M, m
+        for path, d in zip(tree.paths, self.dims):
+            if d == 0 and path[0] == "blocks":
+                raise NotImplementedError(
+                    f"{'/'.join(path)}: the 'model' axis would split the "
+                    "layer stack")
+        self.local = FlatTree(tree.paths, [
+            s if d is None else s[:d] + (s[d] // M,) + s[d + 1:]
+            for s, d in zip(tree.shapes, self.dims)])
+
+    def block(self, leaf: torch.Tensor, i: int, m: int | None = None,
+              lead: int = 0) -> torch.Tensor:
+        """Leaf ``i``'s block at coordinate ``m`` (this rank's by
+        default) of ``leaf [*lead dims, *shape]`` (a view)."""
+        d = self.dims[i]
+        if d is None:
+            return leaf
+        n = self.local.shapes[i][d]
+        return leaf.narrow(lead + d, (self.m if m is None else m) * n, n)
+
+    def cut(self, flat: torch.Tensor, m: int | None = None) -> torch.Tensor:
+        """``[..., P]`` whole rows -> ``[..., P_m]``, the blocks at
+        coordinate ``m`` (this rank's by default)."""
+        pre = tuple(flat.shape[:-1])
+        parts = [self.block(flat[..., off:off + size].reshape(pre + shape),
+                            i, m, len(pre)).reshape(pre + (-1,))
+                 for i, (shape, (off, size)) in enumerate(
+                     zip(self.tree.shapes, self.tree.spans()))]
+        return torch.cat(parts, dim=-1)
+
+    def join(self, blocks: torch.Tensor) -> torch.Tensor:
+        """``[M, ..., P_m]`` (every coordinate's rows) -> ``[..., P]``."""
+        pre = tuple(blocks.shape[1:-1])
+        parts = []
+        for i, (shape, (off, size)) in enumerate(
+                zip(self.local.shapes, self.local.spans())):
+            seg = blocks[..., off:off + size]
+            d = self.dims[i]
+            if d is None:
+                parts.append(seg[0])
+                continue
+            seg = seg.reshape((self.M,) + pre + shape)
+            parts.append(torch.cat(list(seg.unbind(0)), dim=len(pre) + d)
+                         .reshape(pre + (-1,)))
+        return torch.cat(parts, dim=-1)
+
+    def owned(self, device=None) -> torch.Tensor | None:
+        """``[P_m]`` float mask of the columns this rank counts in sums
+        over every coordinate (a Gram, a norm): a leaf whole on every
+        'model' rank counts at coordinate 0 only. ``None`` at m = 0."""
+        if self.m == 0:
+            return None
+        mask = torch.ones(self.local.size, device=device)
+        for d, (off, size) in zip(self.dims, self.local.spans()):
+            if d is None:
+                mask[off:off + size] = 0
+        return mask
+
+
+def model_split(cfg, tree: FlatTree, mesh: Mesh | None) -> ModelSplit | None:
+    """The :class:`ModelSplit` of a model of config ``cfg`` on ``mesh``
+    (``None`` without a 'model' axis). The families of
+    :data:`repro_torch.models.registry.MODEL_AXIS_FAMILIES` take one; any
+    other model is refused, naming ROADMAP.md Queue 1 item 17."""
+    if mesh is None or mesh.size("model") == 1:
+        return None
+    from ..models.registry import check_model_axis
+    check_model_axis(cfg, mesh.size("model"))
+    M = mesh.size("model")
+    return ModelSplit(tree, model_dims(tree, M, attn_overrides(cfg, M)), M,
+                      mesh.coord("model"))
+
+
 class Layout(NamedTuple):
     """A rank's block of the flat ``[G, P]`` stack: replica rows ``[r0,
     r1)``, columns ``[k0, k1)``, and the K + 1 column bounds of every 'fsdp'
@@ -206,20 +437,16 @@ class Layout(NamedTuple):
 def state_layout(mesh: Mesh | None, n_groups: int, P: int) -> Layout:
     """Rows and columns of this rank's block: G/rep consecutive replica
     rows at its 'rep' coordinate, and the k-th of K near-equal contiguous
-    column ranges of the flat ``P`` at its 'fsdp' coordinate k. A layout,
-    never a semantic: the rules are coordinate-wise or read distances, so
-    where a column lives changes no result beyond summation order.
-
-    Why there is no per-leaf table (the reference's ``leaf_spec``,
-    ``state_shardings``, ``body_spec``): on the flat layout a leaf is a
-    column range, so 'rep' and 'fsdp' have nothing to decide per leaf. The
-    table picks which dim of a leaf the 'model' axis splits (column- or
-    row-parallel), and waits for that axis (ROADMAP.md Queue 1 item
-    17)."""
+    column ranges of the flat ``P`` at its 'fsdp' coordinate k — with a
+    'model' axis, ``P`` is the size of the rank's flat row of blocks
+    (``ModelSplit.local``). A layout, never a semantic: the rules are
+    coordinate-wise or read distances, so where a column lives changes no
+    result beyond summation order. The per-leaf table
+    (:func:`leaf_spec`) decides the 'model' blocks only: on the flat
+    layout a leaf is a column range, so 'rep' and 'fsdp' have nothing to
+    decide per leaf."""
     sizes = mesh.sizes if mesh is not None else {}
     rep, K = sizes.get("rep", 1), sizes.get("fsdp", 1)
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(f"state_layout: {ITEM_17}")
     if n_groups % rep:
         raise ValueError(f"rep={rep} must divide n_groups={n_groups}")
     gl = n_groups // rep
@@ -236,18 +463,47 @@ class _Ranks:
     """One rank's view of a ``[G, P]`` stack on ``mesh``: the collectives
     the steps make, each counted on the mesh under a tag. On the ``(1, 1,
     1)`` mesh (``trivial``) every one is the identity on the whole
-    stack."""
+    stack. With a 'model' axis ``split`` (:class:`ModelSplit`) names the
+    rank's blocks, and P is the whole model's size."""
 
     def __init__(self, mesh: Mesh | None, n_groups: int, P: int,
-                 chunk_bytes: int):
+                 chunk_bytes: int, split: ModelSplit | None = None):
         self.mesh = mesh or _SINGLE
         self.G = n_groups
         self.chunk_bytes = chunk_bytes
-        self.lay = state_layout(self.mesh, self.G, P)
+        self.M = self.mesh.size("model")
+        if self.M > 1 and split is None:
+            raise NotImplementedError(
+                f"a 'model' axis of {self.M} needs the model's per-leaf "
+                f"split (protocol.model_split): {ITEM_17}")
+        self.split = split if self.M > 1 else None
+        self.P = P
+        self.lay = state_layout(self.mesh, self.G,
+                                split.local.size if self.split else P)
         self.rep, self.K = self.mesh.size("rep"), self.mesh.size("fsdp")
-        self.trivial = self.rep == self.K == 1
+        self.trivial = self.rep == self.K == self.M == 1
         self.r0, self.r1 = self.lay.rows
         self.k0, self.k1 = self.lay.cols
+
+    @property
+    def local_tree(self) -> FlatTree | None:
+        """The tree of the rank's flat row (its 'model' blocks), ``None``
+        without a 'model' axis (the state's own tree)."""
+        return self.split.local if self.split else None
+
+    def owned(self, device) -> torch.Tensor | None:
+        """The rank's columns' weights in a sum over every column: 0 on a
+        leaf whole on every 'model' rank away from coordinate 0, else 1
+        (``None``: all 1)."""
+        if self.split is None or self.split.m == 0:
+            return None
+        return self.split.owned(device)[self.k0:self.k1]
+
+    def to_local(self, whole: torch.Tensor) -> torch.Tensor:
+        """``[n, P]`` whole rows -> the rank's columns ``[n, P_k]``."""
+        if self.split is not None:
+            whole = self.split.cut(whole)
+        return whole[:, self.k0:self.k1]
 
     # -- rows over 'rep' ----------------------------------------------------
     def rows(self, local: torch.Tensor, tag: str, inject=None, tree=None):
@@ -266,7 +522,7 @@ class _Ranks:
                 full = inject(local if self.trivial
                               else self.gather_all(local, "attack"), tree)
                 if not self.trivial:
-                    full = full[:, self.k0:self.k1]
+                    full = self.to_local(full)
             return [(0, pk)], lambda c0, c1: full[:, c0:c1]
 
         def rows_of(c0, c1):
@@ -327,20 +583,31 @@ class _Ranks:
 
     def scalars_sum(self, v: torch.Tensor, tag: str) -> torch.Tensor:
         """Per-row partial sums ``[n]`` over this rank's columns -> the sums
-        over all columns, added in 'fsdp' rank order."""
-        if self.K == 1:
-            return v
-        parts = self.mesh.all_gather(v[None], "fsdp", tag)
-        out = parts[0].clone()
-        for j in range(1, self.K):
-            out += parts[j]
-        return out
+        over all columns, added in 'fsdp' then 'model' rank order (a
+        caller weighs its partials by :meth:`owned`)."""
+        for axis, n in (("fsdp", self.K), ("model", self.M)):
+            if n > 1:
+                parts = self.mesh.all_gather(v[None], axis, tag)
+                v = parts[0].clone()
+                for j in range(1, n):
+                    v += parts[j]
+        return v
 
     # -- whole stacks -------------------------------------------------------
+    def model_join(self, rows: torch.Tensor, tag: str) -> torch.Tensor:
+        """``[n, P_m]`` (the rank's flat row of 'model' blocks) -> ``[n,
+        P]``, gathered over 'model' and joined leaf by leaf."""
+        if self.split is None:
+            return rows
+        return self.split.join(self.mesh.all_gather(rows[None], "model",
+                                                    tag))
+
     def gather_all(self, local: torch.Tensor, tag: str) -> torch.Tensor:
         """The whole ``[G, P]`` stack on every rank (attacks, metrics,
         checkpoints at test scale)."""
-        return self.cols_gather(self.mesh.all_gather(local, "rep", tag), tag)
+        return self.model_join(
+            self.cols_gather(self.mesh.all_gather(local, "rep", tag), tag),
+            tag)
 
     def row(self, local: torch.Tensor, g: int, tag: str) -> torch.Tensor:
         """Replica row ``g`` whole (``[P]``) on every rank."""
@@ -352,7 +619,7 @@ class _Ranks:
              else local.new_empty(local.shape[1]))
         if self.rep > 1:
             self.mesh.broadcast(x, "rep", tag, src=owner)
-        return self.cols_gather(x[None], tag)[0]
+        return self.model_join(self.cols_gather(x[None], tag), tag)[0]
 
     def gram(self, local: torch.Tensor) -> torch.Tensor:
         """``[G, G]`` float32 Gram of the whole gradient stack, the same on
@@ -364,6 +631,7 @@ class _Ranks:
         if self.trivial:
             return agg.tree_gram(local)
         gl, pk = local.shape
+        own = self.owned(local.device)
         total = torch.zeros((self.G, self.G), dtype=torch.float32,
                             device=local.device)
         for c0, c1 in _chunks(pk, self.G, 4, self.chunk_bytes):
@@ -372,11 +640,13 @@ class _Ranks:
             send = local.new_zeros((self.rep, gl, width))
             for j in range(self.rep):
                 a, b = bounds[j], bounds[j + 1]
-                send[j, :, :b - a] = local[:, a:b]
+                send[j, :, :b - a] = (local[:, a:b] if own is None
+                                      else local[:, a:b] * own[a:b])
             recv = self.mesh.all_to_all(send.view(-1, width), "rep", "gram")
             total += agg.tree_gram(recv.float())
         parts = self.mesh.all_gather(total[None], "fsdp", "gram")
         parts = self.mesh.all_gather(parts, "rep", "gram")
+        parts = self.mesh.all_gather(parts, "model", "gram")
         out = parts[0].clone()
         for j in range(1, parts.shape[0]):
             out += parts[j]
@@ -576,10 +846,15 @@ def _roundrobin_pull(rows, own: torch.Tensor, t: int, eta: float,
         chunks = _chunks(pk, 2 * G, 4, cfg.chunk_bytes)
     d2g = torch.zeros(Gl, dtype=torch.float32, device=own.device)
     n2g = torch.zeros(Gl, dtype=torch.float32, device=own.device)
+    wt = ranks.owned(own.device)
     for c0, c1 in chunks:
         ow = own[:, c0:c1].float()
-        d2g += torch.sum((rows_of(c0, c1)[mine].float() - ow) ** 2, dim=1)
-        n2g += torch.sum(ow ** 2, dim=1)
+        d2 = (rows_of(c0, c1)[mine].float() - ow) ** 2
+        n2 = ow ** 2
+        if wt is not None:
+            d2, n2 = d2 * wt[c0:c1], n2 * wt[c0:c1]
+        d2g += torch.sum(d2, dim=1)
+        n2g += torch.sum(n2, dim=1)
     d2g = ranks.scalars_sum(d2g, "pull")
     n2g = ranks.scalars_sum(n2g, "pull")
     growth = ((3.0 * cfg.T + 2.0) * (G - cfg.f_workers)
@@ -602,8 +877,9 @@ def make_init_fn(bundle, pcfg: ProtocolConfig, device=None, mesh=None):
     """Returns ``init(seed) -> ByzState``: one model drawn from a generator
     seeded with ``seed``, cast to the bundle's ``param_dtype`` and
     replicated into the ``[G, P]`` stack (one copy, leaf by leaf; on a
-    ``mesh`` every rank draws the whole model and keeps its block), a fresh
-    run generator (``seed + 1``, the same stream on every rank) and the
+    ``mesh`` every rank draws the whole model and keeps its block: its
+    'model' blocks of each leaf, then its 'fsdp' columns), a fresh run
+    generator (``seed + 1``, the same stream on every rank) and the
     optimizer's per-replica state."""
     dev = resolve(device)
     pdt = _dtype(bundle.cfg.param_dtype)
@@ -612,17 +888,23 @@ def make_init_fn(bundle, pcfg: ProtocolConfig, device=None, mesh=None):
     def init(seed: int) -> ByzState:
         p0 = bundle.init(torch.Generator(device=dev).manual_seed(seed))
         tree = FlatTree.from_params(p0)
-        (r0, r1), (k0, k1), _ = state_layout(mesh, pcfg.n_groups, tree.size)
+        split = model_split(bundle.cfg, tree, mesh)
+        local = split.local if split else tree
+        (r0, r1), (k0, k1), _ = state_layout(mesh, pcfg.n_groups, local.size)
         params = torch.empty((r1 - r0, k1 - k0), dtype=pdt, device=dev)
-        for leaf, (off, size) in zip(tree.leaves(p0), tree.spans()):
+        for i, (leaf, (off, size)) in enumerate(zip(tree.leaves(p0),
+                                                    local.spans())):
             a, b = max(off, k0), min(off + size, k1)
             if a < b:
+                if split:
+                    leaf = split.block(leaf, i)
                 params[:, a - k0:b - k0] = leaf.reshape(-1)[a - off:b - off]\
                     .to(pdt)
         del p0
         return ByzState(params=params, t=0,
                         gen=torch.Generator(device=dev).manual_seed(seed + 1),
-                        opt=opt.init(params), tree=tree, mesh=mesh)
+                        opt=opt.init(params), tree=tree, mesh=mesh,
+                        split=split)
 
     return init
 
@@ -658,18 +940,25 @@ def _group_grads(bundle, tree, pulled, batch, cfg, ranks, bufs, out):
     """Per-group gradients of the rank's groups into ``out`` (``[G/rep,
     P_k]``). With 'fsdp' ranks the pulled rows are gathered whole, each rank
     differentiates its part of the batch rows weighted by its share, and
-    the parts are summed to column shards in rank order."""
+    the parts are summed to column shards in rank order. With 'model'
+    ranks ``tree`` is the rank's blocks' and the loss runs under the train
+    mesh's rule table (tensor parallelism over the 'model' line)."""
     n_micro = cfg.grad_microbatches
     part, share = ranks.batch_part(batch, n_micro)
-    if ranks.K == 1:
-        return group_grads(bundle, tree, pulled, part, n_micro, out)
-    whole = _buffer(bufs, "grads_whole", (out.shape[0], tree.size),
-                    out.dtype, out.device)
-    if share > 0:
-        group_grads(bundle, tree, ranks.cols_gather(pulled, "fsdp"), part,
-                    n_micro, whole).mul_(share)
-    else:
-        whole.zero_()
+    rules = None
+    if ranks.split is not None:
+        from ..launch.steps import train_rules
+        rules = train_rules(ranks.mesh, bundle.cfg)
+    with _sharding.sharding_rules(rules):
+        if ranks.K == 1:
+            return group_grads(bundle, tree, pulled, part, n_micro, out)
+        whole = _buffer(bufs, "grads_whole", (out.shape[0], tree.size),
+                        out.dtype, out.device)
+        if share > 0:
+            group_grads(bundle, tree, ranks.cols_gather(pulled, "fsdp"),
+                        part, n_micro, whole).mul_(share)
+        else:
+            whole.zero_()
     out.copy_(ranks.cols_sum(whole, "fsdp"))
     return out
 
@@ -728,7 +1017,8 @@ def make_scatter_step(bundle, pcfg: ProtocolConfig, lr_schedule,
 
     def scatter_step(state: ByzState, batch) -> ByzState:
         params, gen, dev = state.params, state.gen, state.params.device
-        ranks = _Ranks(mesh, G, state.tree.size, pcfg.chunk_bytes)
+        ranks = _Ranks(mesh, G, state.tree.size, pcfg.chunk_bytes,
+                       state.split)
         eta = lr_schedule(state.t)
 
         # 1. worker pull -----------------------------------------------------
@@ -746,8 +1036,8 @@ def make_scatter_step(bundle, pcfg: ProtocolConfig, lr_schedule,
 
         # 2. per-group worker gradients --------------------------------------
         grads = _buffer(bufs, "grads", params.shape, xdt, dev)
-        _group_grads(bundle, state.tree, pulled, batch, pcfg, ranks, bufs,
-                     grads)
+        _group_grads(bundle, ranks.local_tree or state.tree, pulled, batch,
+                     pcfg, ranks, bufs, grads)
         if with_attack and byz.worker_attack:
             _attack_grads(grads, _Attack("grads", byz, gen), state.tree,
                           ranks)
@@ -775,7 +1065,8 @@ def make_gather_step(pcfg: ProtocolConfig, with_attack: bool = False,
 
     def gather_step(state: ByzState) -> ByzState:
         params, dev = state.params, state.params.device
-        ranks = _Ranks(mesh, G, state.tree.size, pcfg.chunk_bytes)
+        ranks = _Ranks(mesh, G, state.tree.size, pcfg.chunk_bytes,
+                       state.split)
         masks = _masks(delivery.gather_indices(state.gen, state.t, dev), G)
         inject = (_Attack("models", pcfg.byz, state.gen)
                   if with_attack and pcfg.byz.server_attack else None)
@@ -810,16 +1101,20 @@ def make_train_step(bundle, pcfg: ProtocolConfig, lr_schedule,
 
 def consolidate(params: torch.Tensor, pcfg: ProtocolConfig | None = None,
                 chunk_bytes: int | None = None, *, mesh: Mesh | None = None,
-                n_params: int | None = None) -> torch.Tensor:
+                n_params: int | None = None,
+                split: ModelSplit | None = None,
+                blocks: bool = False) -> torch.Tensor:
     """Median of the replicas -> one ``[P]`` serving model (DMC applied
     once, full delivery), streamed by column chunks (``pcfg``'s, or the
     default's without one). On a ``mesh`` (``params`` a rank's block of a
-    stack of ``pcfg.n_groups`` rows and ``n_params`` columns) each chunk of
-    the rank's columns is gathered over 'rep' and the medians over 'fsdp':
-    every rank gets the whole model."""
+    stack of ``pcfg.n_groups`` rows and ``n_params`` columns; ``split`` its
+    'model' blocks) each chunk of the rank's columns is gathered over 'rep'
+    and the medians over 'fsdp' and 'model': every rank gets the whole
+    model — or, with ``blocks``, its 'model' blocks of it (``[P_m]``, as
+    a tensor-parallel server holds them)."""
     cb = chunk_bytes or (pcfg or ProtocolConfig).chunk_bytes
     G = pcfg.n_groups if mesh is not None else params.shape[0]
-    ranks = _Ranks(mesh, G, n_params or params.shape[1], cb)
+    ranks = _Ranks(mesh, G, n_params or params.shape[1], cb, split)
     chunks, rows_of = ranks.rows(params, "consolidate")
     if ranks.trivial:
         chunks = _chunks(params.shape[1], G, 4, cb)
@@ -827,7 +1122,8 @@ def consolidate(params: torch.Tensor, pcfg: ProtocolConfig | None = None,
                       device=params.device)
     for c0, c1 in chunks:
         out[c0:c1] = agg.dispatch.cwise_median(rows_of(c0, c1).float())
-    return ranks.cols_gather(out[None], "consolidate")[0]
+    out = ranks.cols_gather(out[None], "consolidate")
+    return (out if blocks else ranks.model_join(out, "consolidate"))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -835,24 +1131,29 @@ def consolidate(params: torch.Tensor, pcfg: ProtocolConfig | None = None,
 # ---------------------------------------------------------------------------
 
 
-def replica(state: ByzState, g: int, *, everywhere: bool = True):
+def replica(state: ByzState, g: int, *, everywhere: bool = True,
+            blocks: bool = False):
     """Replica ``g``'s whole flat row ``[P]`` on every rank (a collective
     on a mesh: every rank calls it; a view of the stack off one). With
     ``everywhere=False`` only the ranks that hold the row's columns get it
     (gathered over their 'fsdp' line, no broadcast over 'rep'); the others
-    get ``None``."""
+    get ``None``; with ``blocks`` as well, those ranks get their 'model'
+    blocks' row ``[P_m]`` (``state.split.local`` names it), not joined
+    over 'model'."""
     mesh = state.mesh
     G = state.params.shape[0] * (mesh.size("rep") if mesh else 1)
-    ranks = _Ranks(mesh, G, state.tree.size, ProtocolConfig.chunk_bytes)
+    ranks = _Ranks(mesh, G, state.tree.size, ProtocolConfig.chunk_bytes,
+                   state.split)
     if everywhere:
         return ranks.row(state.params, g, "metrics")
     if not ranks.r0 <= g < ranks.r1:
         return None
-    return ranks.cols_gather(state.params[g - ranks.r0][None], "metrics")[0]
+    row = ranks.cols_gather(state.params[g - ranks.r0][None], "metrics")
+    return (row if blocks else ranks.model_join(row, "metrics"))[0]
 
 
 def _on_ranks(mesh: Mesh | None) -> bool:
-    return mesh is not None and mesh.size("rep") * mesh.size("fsdp") > 1
+    return mesh is not None and mesh.n_ranks > 1
 
 
 def whole_state(state: ByzState) -> ByzState:
@@ -863,30 +1164,33 @@ def whole_state(state: ByzState) -> ByzState:
         return state
     mesh = state.mesh
     ranks = _Ranks(mesh, state.params.shape[0] * mesh.size("rep"),
-                   state.tree.size, ProtocolConfig.chunk_bytes)
+                   state.tree.size, ProtocolConfig.chunk_bytes, state.split)
     opt = state.opt
     if opt:
         opt = type(opt)(ranks.gather_all(opt.m, "checkpoint"),
                         ranks.gather_all(opt.v, "checkpoint"), opt.count)
     return state._replace(params=ranks.gather_all(state.params, "checkpoint"),
-                          opt=opt, mesh=None)
+                          opt=opt, mesh=None, split=None)
 
 
-def shard_state(state: ByzState, mesh: Mesh | None) -> ByzState:
-    """A whole state's block for this rank of ``mesh`` (copies of its rows
-    and columns of each stack)."""
+def shard_state(state: ByzState, mesh: Mesh | None,
+                split: ModelSplit | None = None) -> ByzState:
+    """A whole state's block for this rank of ``mesh`` (copies of its rows,
+    its 'model' blocks under ``split`` and its 'fsdp' columns of each
+    stack)."""
     if not _on_ranks(mesh):
         return state._replace(mesh=mesh)
-    (r0, r1), (k0, k1), _ = state_layout(mesh, state.params.shape[0],
-                                         state.tree.size)
+    ranks = _Ranks(mesh, state.params.shape[0], state.tree.size,
+                   ProtocolConfig.chunk_bytes, split)
 
     def cut(x):
-        return x[r0:r1, k0:k1].clone()
+        return ranks.to_local(x[ranks.r0:ranks.r1]).clone()
 
     opt = state.opt
     if opt:
         opt = type(opt)(cut(opt.m), cut(opt.v), opt.count)
-    return state._replace(params=cut(state.params), opt=opt, mesh=mesh)
+    return state._replace(params=cut(state.params), opt=opt, mesh=mesh,
+                          split=ranks.split)
 
 
 def checkpoint_leaves(state: ByzState) -> list[tuple[str, Any]]:
@@ -1077,7 +1381,7 @@ class ProtocolEngine:
 
     def _ranks(self, state: ByzState) -> _Ranks:
         return _Ranks(self.mesh, self.cfg.n_groups, state.tree.size,
-                      self.cfg.chunk_bytes)
+                      self.cfg.chunk_bytes, state.split)
 
     def _acc(self, state: ByzState):
         row = replica(state, 0)
@@ -1151,16 +1455,20 @@ class ProtocolEngine:
 
 
 def collective_volume_bytes(pcfg: ProtocolConfig, n_params: int,
-                            *, fsdp: int = 1, rep: int | None = None) -> int:
+                            *, fsdp: int = 1, rep: int | None = None,
+                            model: int = 1) -> int:
     """Modeled per-device cross-'rep' exchange (bytes) of one scatter
     step's payloads on a mesh: the masked Median pull all-gathers the
     ``[G, P]`` stack, ``(G-1)·P·itemsize``, and the ``[G, G] x [G, P]``
     aggregation moves as much again; with an 'fsdp' axis of size K each
-    device moves 1/K of it. That is a mesh with rep = G (one group a
-    rank, the default); with ``rep`` ranks holding G/rep groups each, a
-    rank sends ``(rep-1)·(G/rep)`` rows in each exchange, ``2·(rep-1)·
-    (G/rep)·P·itemsize / K`` a step. On one card the groups share the
-    device and nothing crosses a link.
+    device moves 1/K of it, and with a 'model' axis of size M 1/M (a
+    rank's blocks; a leaf whole on every 'model' rank, a norm's scale,
+    moves on each, so the payload is ``P_m = ModelSplit.local.size``,
+    which ``n_params`` may give with ``model=1``). That is a mesh with
+    rep = G (one group a rank, the default); with ``rep`` ranks holding
+    G/rep groups each, a rank sends ``(rep-1)·(G/rep)`` rows in each
+    exchange, ``2·(rep-1)·(G/rep)·P·itemsize / (K·M)`` a step. On one card
+    the groups share the device and nothing crosses a link.
 
     ``Mesh.sent`` counts what the ranks send; the model covers its tags
     ``pull`` (the replicas move in their own dtype) and ``aggregate``. The
@@ -1168,10 +1476,13 @@ def collective_volume_bytes(pcfg: ProtocolConfig, n_params: int,
 
     * ``gram`` — the all-to-all over 'rep' of the gradient block,
       ``(rep-1)/rep · (G/rep) · P_k · 4`` bytes, and the ``[G, G]`` float32
-      partials gathered over 'fsdp' and 'rep';
+      partials gathered over 'fsdp', 'rep' and 'model';
     * ``fsdp`` (K > 1) — the pulled rows gathered over 'fsdp', ``(K-1) ·
       (G/rep) · ceil(P/K) · act_itemsize``, and the gradient parts summed
       to column shards, ``(K-1)/K · (G/rep) · K·ceil(P/K) · itemsize``;
+    * ``model``, ``model_leaves``, ``model_loss`` (M > 1) — the tensor
+      parallelism inside each group's loss and gradient,
+      :func:`model_volume_bytes`;
     * ``gather`` — the DMC gather's ``(rep-1) · (G/rep) · P_k · itemsize``
       on the steps that end a round;
     * ``attack``, ``metrics``, ``consolidate``, ``checkpoint`` — the
@@ -1180,4 +1491,69 @@ def collective_volume_bytes(pcfg: ProtocolConfig, n_params: int,
     itemsize = _dtype(pcfg.exchange_dtype).itemsize
     G = pcfg.n_groups
     rep = G if rep is None else rep
-    return 2 * (rep - 1) * (G // rep) * n_params * itemsize // fsdp
+    return 2 * (rep - 1) * (G // rep) * n_params * itemsize // (fsdp * model)
+
+
+def model_volume_bytes(cfg, M: int, tokens: int, n_groups: int = 1) -> dict:
+    """The bytes one rank sends over 'model' (all-gathers of ``M - 1``
+    blocks; every reduction is one) for ``n_groups`` losses and gradients
+    of ``tokens`` tokens each (a rank's groups and its 'fsdp' part of
+    their rows) of the dense or vlm family ``cfg`` at M ranks, by tag, as
+    :mod:`repro_torch.models.layers` runs them with block remat (each
+    block's forward twice, but for its last reduction: the recomputation
+    stops at the last tensor the backward needs, and w_down's output is
+    not one) and the loss by sequence chunks (each chunk's statistics
+    twice):
+
+    * ``model`` — per block, forward (x2): a row-parallel q, k or v
+      (heads not split) reduces its ``[N, H hd]`` / ``[N, kvH hd]``, wo
+      and w_down reduce ``[N, D]``; backward: one ``[N, D]`` sum before
+      column-parallel q/k/v (a column-parallel q alone when k/v are not),
+      a ``[N, D/M]`` gather for each row-parallel projection's input, the
+      shared k/v's ``[N, kvH hd]`` each when q alone splits, wo's input
+      gather when the heads are whole, and one ``[N, D]`` sum before
+      column-parallel w_gate/w_up; then the embedding's ``[N, D]``
+      reduction (token inputs; the vlm family takes embeddings) and the
+      hidden's ``[N, D]`` sum before the vocab-parallel logits;
+    * ``model_leaves`` — each block's norm leaves split on D (x2);
+    * ``model_loss`` — per token three float32 statistics, twice.
+
+    Every activation moves in ``cfg.act_dtype``."""
+    if M == 1:
+        return {}
+    a = _dtype(cfg.act_dtype).itemsize
+    N, D, hd = tokens, cfg.d_model, cfg.hd
+    H, kvH, F = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    q_split, kv_split = H % M == 0, kvH % M == 0
+    d_split = D % M == 0
+    wo_split = (H * hd) % M == 0
+    ffn_split = F % M == 0 and F >= M
+    fwd = bwd = 0
+    if not q_split and d_split:
+        fwd += N * H * hd
+        bwd += N * D // M
+    if not kv_split and d_split:
+        fwd += 2 * N * kvH * hd
+        bwd += 2 * N * D // M
+    if q_split:
+        bwd += N * D                      # the copy before column-parallel
+        if not kv_split:
+            bwd += 2 * N * kvH * hd       # k and v shared by every rank
+    if wo_split:
+        fwd += N * D
+        if not q_split:
+            bwd += N * H * hd // M
+    if ffn_split:
+        fwd += N * D
+        bwd += N * D
+    per_block = 2 * fwd + bwd - (N * D if ffn_split else 0)
+    vocab = cfg.vocab % M == 0
+    model = cfg.n_layers * per_block
+    if vocab:
+        model += N * D * (1 if cfg.family == "vlm" else 2)
+    n_norm = 2 if cfg.norm == "layernorm" else 1
+    leaves = (cfg.n_layers * 2 * 2 * n_norm * D // M) if d_split else 0
+    loss = 2 * 3 * N * 4 if vocab else 0
+    return {k: v * (M - 1) * n_groups for k, v in
+            (("model", model * a), ("model_leaves", leaves * a),
+             ("model_loss", loss)) if v}

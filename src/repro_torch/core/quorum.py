@@ -14,10 +14,81 @@ Which q-of-n messages a receiver delivers each step (the paper's Assumption
 """
 from __future__ import annotations
 
+from typing import Protocol, runtime_checkable
+
 import numpy as np
 import torch
 
 from ..device import resolve
+
+
+def _scores(gen: torch.Generator, n: int, include: int | None, device):
+    scores = torch.rand((n,), generator=gen, device=device)
+    if include is not None:
+        scores[include] = -1.0        # always delivered (own state)
+    return scores
+
+
+def sample_quorum_mask(gen: torch.Generator, n: int, q: int,
+                       include: int | None = None,
+                       device=None) -> torch.Tensor:
+    """Bool ``[n]`` mask with exactly q True entries, uniform over
+    configurations (Assumption 7 with rho = 1/C(n, q)), optionally forcing
+    ``include``. The draws are the generator's, not JAX's threefry."""
+    scores = _scores(gen, n, include, device)
+    mask = torch.zeros(n, dtype=torch.bool, device=scores.device)
+    return mask.scatter_(0, torch.argsort(scores, stable=True)[:q], True)
+
+
+def receiver_quorum_masks(gen: torch.Generator, n_recv: int, n_send: int,
+                          q: int, include_self: bool = False,
+                          device=None) -> torch.Tensor:
+    """``[n_recv, n_send]`` bool; row r has exactly q True.
+    ``include_self`` forces the diagonal (a server always delivers its own
+    parameter vector)."""
+    idx = receiver_quorum_indices(gen, n_recv, n_send, q, include_self,
+                                  device)
+    masks = torch.zeros((n_recv, n_send), dtype=torch.bool,
+                        device=idx.device)
+    return masks.scatter_(1, idx, True)
+
+
+def sample_quorum_indices(gen: torch.Generator, n: int, q: int,
+                          include: int | None = None,
+                          device=None) -> torch.Tensor:
+    """Int ``[q]`` delivered indices (a uniform subset), optionally forcing
+    ``include``."""
+    return torch.argsort(_scores(gen, n, include, device), stable=True)[:q]
+
+
+def full_quorum(n_recv: int, n_send: int, device=None) -> torch.Tensor:
+    """Synchronous full delivery (no asynchrony)."""
+    return torch.ones((n_recv, n_send), dtype=torch.bool, device=device)
+
+
+@runtime_checkable
+class DeliveryModel(Protocol):
+    """What the simulator and the protocol need from an asynchrony model:
+    per-step delivered sender indices for the three communication
+    patterns (``t`` the host step counter)."""
+
+    def pull_indices(self, gen, t: int, device=None) -> torch.Tensor:
+        """``[n_workers, q_servers]`` server ids each worker delivers."""
+        ...
+
+    def push_indices(self, gen, t: int, device=None) -> torch.Tensor:
+        """``[n_servers, q_workers]`` worker ids each server delivers."""
+        ...
+
+    def gather_indices(self, gen, t: int, device=None) -> torch.Tensor:
+        """``[n_servers, q_servers]`` server ids (incl. self) for the DMC
+        gather entered when the counter reaches ``t``."""
+        ...
+
+    def staleness(self, t: int) -> dict | None:
+        """Mean per-message delivery staleness at step t (virtual ms), or
+        ``None`` where the model has no notion of time."""
+        ...
 
 
 def receiver_quorum_indices(gen: torch.Generator, n_recv: int, n_send: int,

@@ -10,11 +10,14 @@ in one order (``torch.distributed.new_group`` must be), by
 
 The protocol's view is ``('rep', 'fsdp', 'model')``: 'rep' indexes the
 ranks that hold the G groups' replicas (G/rep rows of the flat ``[G, P]``
-stack each), 'fsdp' splits a group's row into contiguous column ranges.
-The 'model' axis (tensor parallelism) is ROADMAP.md Queue 1 item 17: a
-mesh with ``model > 1`` is refused. With no process group initialised
-:func:`make_protocol_mesh` returns the ``(1, 1, 1)`` mesh, on which every
-collective is the identity: today's single-card engine.
+stack each), 'fsdp' splits a group's row into contiguous column ranges,
+'model' (tensor parallelism: the dense and vlm families,
+``models.registry.MODEL_AXIS_FAMILIES``) gives each rank its block of
+every leaf. The serve view is ``('data', 'model')``. Ranks lie in the
+row-major order of the shape, so the 'model' lines are consecutive ranks.
+With no process group initialised :func:`make_protocol_mesh` returns the
+``(1, 1, 1)`` mesh, on which every collective is the identity: today's
+single-card engine.
 
 Every collective of the protocol goes through the mesh's methods, which
 count the bytes this rank sends, by tag (``Mesh.sent``): an all-gather of
@@ -37,11 +40,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..device import dist_backend, rank_device
+from ..device import dist_backend, rank_device, resolve
 
 AXES = ("rep", "fsdp", "model")
-ITEM_17 = ("the 'model' axis (tensor parallelism) is ROADMAP.md Queue 1 "
-           "item 17; the port's mesh runs model = 1")
+ITEM_17 = ("the 'model' axis (tensor parallelism) runs the dense and vlm "
+           "families; the other families are ROADMAP.md Queue 1 item 17 "
+           "(its second part, 17b)")
 
 
 class Mesh:
@@ -193,33 +197,35 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 def make_byz_mesh(mesh: Mesh, n_groups: int) -> Mesh:
     """The ('rep', 'fsdp', 'model') view over ``mesh``'s ranks: G groups of
-    R / G consecutive data slices each."""
+    R / G consecutive data slices each, every slice M 'model' ranks."""
     R, M = mesh.dp_size, mesh.model_size
-    if M > 1:
-        raise NotImplementedError(f"make_byz_mesh: model = {M}: {ITEM_17}")
     if R % n_groups:
         raise ValueError(f"n_groups={n_groups} must divide dp slices R={R}")
-    return _with_groups(AXES, (n_groups, R // n_groups, 1))
+    return _with_groups(AXES, (n_groups, R // n_groups, M))
 
 
 def protocol_mesh_shape(n_groups: int, world: int,
-                        fsdp: int | None = None) -> tuple[int, int, int]:
+                        fsdp: int | None = None,
+                        model: int = 1) -> tuple[int, int, int]:
     """The reference's rule (``repro.launch.mesh.make_protocol_mesh``):
-    'rep' is the largest divisor of G that ``world`` ranks can host, the
-    ranks left over form 'fsdp' (``fsdp`` overrides it), 'model' is 1."""
-    if world < 1:
-        raise ValueError("no ranks for the protocol mesh")
-    rep = max(d for d in range(1, min(n_groups, world) + 1)
+    'model' takes ``model`` ranks of each slice, 'rep' is the largest
+    divisor of G that the ``world / model`` slices can host, the slices
+    left over form 'fsdp' (``fsdp`` overrides it)."""
+    if world < 1 or world % model:
+        raise ValueError(f"no protocol mesh of model={model} on {world} "
+                         "ranks")
+    slices = world // model
+    rep = max(d for d in range(1, min(n_groups, slices) + 1)
               if n_groups % d == 0)
-    K = world // rep if fsdp is None else fsdp
-    if rep * K > world:
-        raise ValueError(f"fsdp={K} needs {rep * K} ranks for rep={rep}, "
-                         f"have {world}")
-    return rep, K, 1
+    K = slices // rep if fsdp is None else fsdp
+    if rep * K > slices:
+        raise ValueError(f"fsdp={K} needs {rep * K * model} ranks for "
+                         f"rep={rep}, have {world}")
+    return rep, K, model
 
 
 def make_protocol_mesh(n_groups: int, world: int | None = None, *,
-                       fsdp: int | None = None) -> Mesh:
+                       fsdp: int | None = None, model: int = 1) -> Mesh:
     """The ('rep', 'fsdp', 'model') mesh of a G-group protocol run over the
     initialised world (:func:`protocol_mesh_shape`); without a process
     group, the ``(1, 1, 1)`` mesh. Every rank must hold a place in it: a
@@ -230,20 +236,43 @@ def make_protocol_mesh(n_groups: int, world: int | None = None, *,
     if world != have:
         raise ValueError(f"make_protocol_mesh: world={world}, but "
                          f"{have} ranks are initialised")
-    shape = protocol_mesh_shape(n_groups, world, fsdp)
-    if shape[0] * shape[1] != world:
+    shape = protocol_mesh_shape(n_groups, world, fsdp, model)
+    used = shape[0] * shape[1] * shape[2]
+    if used != world:
         raise ValueError(f"G={n_groups} on {world} ranks places a {shape} "
-                         f"mesh on {shape[0] * shape[1]} of them; launch "
-                         f"{shape[0] * shape[1]} ranks")
+                         f"mesh on {used} of them; launch {used} ranks")
     return _with_groups(AXES, shape)
 
 
 def make_serve_mesh(mesh: Mesh) -> Mesh:
-    """('data', 'model') flat view for serving (no replica axis)."""
-    R, M = mesh.dp_size, mesh.model_size
-    if M > 1:
-        raise NotImplementedError(f"make_serve_mesh: model = {M}: {ITEM_17}")
-    return make_mesh((R, M), ("data", "model"))
+    """('data', 'model') flat view for serving (no replica axis), with the
+    process groups of its lines."""
+    return _with_groups(("data", "model"), (mesh.dp_size, mesh.model_size))
+
+
+def launch_mesh(spec: str | None, device, cfg) -> tuple[torch.device, int,
+                                                      int]:
+    """(this rank's device, D, M) of a launcher's ``--mesh DxM`` over the
+    ranks ``torchrun`` started (default: the world's size x 1). The
+    model's family must take M ranks on 'model'
+    (:func:`repro_torch.models.registry.check_model_axis`) and D x M must
+    be the world; a rank of a run with more than one joins it
+    (:func:`init_distributed`). Exits with the reason otherwise."""
+    from ..models.registry import check_model_axis
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    d, m = ((int(x) for x in spec.split("x")) if spec else (world, 1))
+    try:
+        check_model_axis(cfg, m)
+    except NotImplementedError as err:
+        raise SystemExit(f"--mesh {spec}: {err}") from None
+    if d * m != world:
+        raise SystemExit(f"--mesh {d}x{m} needs {d * m} ranks (torchrun "
+                         f"--standalone --nproc-per-node {d * m}); this run "
+                         f"has {world}")
+    dev = (init_distributed(device) if world > 1 or dist.is_initialized()
+           else resolve(device))
+    return dev, d, m
 
 
 def init_distributed(device=None, *, rank: int | None = None,

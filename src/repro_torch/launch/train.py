@@ -16,17 +16,22 @@ and loss logging.
   # four ranks (rep 4), one group each, on the CPU over gloo
   torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
       --reduced --device cpu --mesh 4x1 --groups 4 --steps 2
+  # eight ranks: rep 4 x model 2 (tensor parallelism inside each group)
+  torchrun --standalone --nproc-per-node 8 -m repro_torch.launch.train \\
+      --reduced --device cpu --mesh 4x2 --groups 4 --steps 2
 
 ``--arch`` takes every arch of the reference (``models.registry.ARCH_IDS``)
 and feeds it the token stream; whisper-small (the audio family), whose
 loss reads encoder frames a token stream does not carry, is refused up
 front (the JAX launcher fails with a ``KeyError`` at its first step).
 Runs on the GPU; ``--device cpu`` is for smoke runs. ``--mesh DxM`` names
-the ('data', 'model') base mesh as the reference's launcher does: D ranks
-(``torchrun --nproc-per-node D``; by default the world's size), carved by
-``make_byz_mesh`` into G = ``--groups`` (default D) 'rep' groups of D / G
-'fsdp' ranks; M > 1 (the 'model' axis) is ROADMAP.md Queue 1 item 17 and
-refused. Where G does not divide D, the ranks hold G / D groups each
+the ('data', 'model') base mesh as the reference's launcher does: D x M
+ranks (``torchrun --nproc-per-node D*M``; by default the world's size
+x 1), carved by ``make_byz_mesh`` into G = ``--groups`` (default D) 'rep'
+groups of D / G 'fsdp' slices of M 'model' ranks. M > 1 runs tensor
+parallelism inside each group for the dense and vlm families; any other
+family is refused up front (ROADMAP.md Queue 1 item 17b). Where G does not
+divide D (M = 1), the ranks hold G / D groups each
 (``make_protocol_mesh``), and on one rank the G groups share its device
 (the reference needs G devices). Rank 0 alone prints and writes the
 checkpoints; every rank takes part in their gathers. ``TrainRun.sent``
@@ -41,13 +46,11 @@ after step i with i, one step late).
 from __future__ import annotations
 
 import argparse
-import os
 import time
 from dataclasses import dataclass, field
 from typing import Any
 
 import torch
-import torch.distributed as dist
 
 from .. import device as devmod
 from ..checkpoint import checkpointer as ck
@@ -55,9 +58,10 @@ from ..core import protocol
 from ..core.attacks import ByzantineSpec
 from ..data.pipeline import DeviceTokenStream, TokenSpec
 from ..models.registry import ARCH_IDS, get_bundle
+from ..models.sharding import sharding_rules
 from ..optim.schedules import inverse_linear
-from .mesh import (ITEM_17, init_distributed, make_byz_mesh, make_mesh,
-                   make_protocol_mesh)
+from .mesh import launch_mesh, make_byz_mesh, make_mesh, make_protocol_mesh
+from .steps import train_rules
 
 
 @dataclass
@@ -83,7 +87,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--groups", type=int, default=None)
     ap.add_argument("--mesh", default=None,
-                    help="DxM data x model ranks (M = 1); default Wx1")
+                    help="DxM data x model ranks; default Wx1")
     ap.add_argument("--batch-per-group", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--T", type=int, default=10)
@@ -112,23 +116,15 @@ def protocol_config(G: int, T: int, engine: str = "sharded",
         byz=byz or ByzantineSpec())
 
 
-def _mesh(args):
+def _mesh(args, cfg):
     """(this rank's device, the protocol mesh, G) of ``--mesh`` /
     ``--groups`` over the ranks ``torchrun`` started."""
-    world = (dist.get_world_size() if dist.is_initialized()
-             else int(os.environ.get("WORLD_SIZE", 1)))
-    d, m = ((int(x) for x in args.mesh.split("x")) if args.mesh
-            else (world, 1))
-    if m > 1:
-        raise SystemExit(f"--mesh {args.mesh}: {ITEM_17}")
-    if d != world:
-        raise SystemExit(f"--mesh {d}x{m} needs {d} ranks (torchrun "
-                         f"--standalone --nproc-per-node {d}); this run has "
-                         f"{world}")
+    dev, d, m = launch_mesh(args.mesh, args.device, cfg)
     G = args.groups or d
-    dev = (init_distributed(args.device) if world > 1 or dist.is_initialized()
-           else devmod.resolve(args.device))
     if d % G:
+        if m > 1:
+            raise SystemExit(f"--mesh {d}x{m}: G={G} groups must divide "
+                             f"D={d} with a 'model' axis")
         # more groups than ranks: G / D groups a rank (all G on one rank)
         return dev, make_protocol_mesh(G), G
     return dev, make_byz_mesh(make_mesh((d, m), ("data", "model")), G), G
@@ -136,9 +132,9 @@ def _mesh(args):
 
 def main(argv=None) -> TrainRun:
     args = parser().parse_args(argv)
-    dev, mesh, G = _mesh(args)
-    lead = mesh.rank == 0
     bundle = get_bundle(args.arch, reduced=args.reduced, depth=args.depth)
+    dev, mesh, G = _mesh(args, bundle.cfg)
+    lead = mesh.rank == 0
     if bundle.cfg.family == "audio":
         raise ValueError(f"{args.arch}: its loss reads batch['enc_frames'] "
                          "(encoder frames), which the launcher's token "
@@ -158,9 +154,11 @@ def main(argv=None) -> TrainRun:
     else:
         # the params tree comes from the manifest, so no second model is
         # initialized only to be overwritten
-        state, _ = ck.restore(args.ckpt_dir, latest,
-                              protocol.ByzState(None, 0, None, mesh=mesh),
-                              dev)
+        tree = protocol.tree_from_manifest(
+            ck.read_manifest(args.ckpt_dir, latest)["leaves"])
+        state, _ = ck.restore(args.ckpt_dir, latest, protocol.ByzState(
+            None, 0, None, tree=tree, mesh=mesh,
+            split=protocol.model_split(bundle.cfg, tree, mesh)), dev)
         if lead:
             print(f"[train] restored checkpoint at step {state.t} from "
                   f"{args.ckpt_dir}")
@@ -177,6 +175,10 @@ def main(argv=None) -> TrainRun:
               f"params x {G} groups (f_w={f_w}, f_ps={f_ps}) on mesh "
               f"{mesh.sizes}, init {time.perf_counter() - t0:.1f}s")
 
+    tree = state.split.local if state.split else state.tree
+    rules = train_rules(mesh, bundle.cfg) if state.split else None
+    loss_line = all(mesh.coord(a) == 0 for a in ("rep", "fsdp")
+                    if mesh.size(a) > 1)
     stream = DeviceTokenStream(0, TokenSpec(bundle.cfg.vocab, args.seq), G,
                                args.batch_per_group, dev)
     stream.skip(start)
@@ -191,13 +193,15 @@ def main(argv=None) -> TrainRun:
         run.sent.append({k: v - before.get(k, 0)
                          for k, v in mesh.sent.items()})
         if i % args.log_every == 0:
-            # rank 0 holds replica 0's rows: it alone computes the loss
-            row = protocol.replica(state, 0, everywhere=False)
-            if lead:
-                with torch.no_grad():
-                    loss = float(bundle.loss(state.tree.unflatten(row),
+            # rank 0's 'model' line holds replica 0's blocks: it alone
+            # computes the loss (tensor-parallel with M > 1)
+            row = protocol.replica(state, 0, everywhere=False, blocks=True)
+            if loss_line:
+                with torch.no_grad(), sharding_rules(rules):
+                    loss = float(bundle.loss(tree.unflatten(row),
                                              {k: v[0]
                                               for k, v in batch.items()}))
+            if lead:
                 run.losses.append((i, loss))
                 print(f"[train] step {i:5d} loss {loss:8.4f} "
                       f"({time.perf_counter() - t0:.1f}s)")
@@ -207,12 +211,15 @@ def main(argv=None) -> TrainRun:
             ck.save(args.ckpt_dir, state.t, state)
             if lead:
                 print(f"[train] checkpoint @ {state.t}")
-    p0 = protocol.consolidate(state.params, pcfg, mesh=mesh,
-                              n_params=state.tree.size)
+    # the serving model: with a 'model' axis each rank keeps its blocks
+    protocol.consolidate(state.params, pcfg, mesh=mesh,
+                         n_params=state.tree.size, split=state.split,
+                         blocks=True)
     devmod.synchronize(dev)
     if lead:
-        print(f"[train] done: {args.steps} steps, {p0.numel() / 1e6:.1f}M "
-              f"params, {time.perf_counter() - t0:.1f}s")
+        print(f"[train] done: {args.steps} steps, "
+              f"{state.tree.size / 1e6:.1f}M params, "
+              f"{time.perf_counter() - t0:.1f}s")
     run.state = state
     return run
 

@@ -13,6 +13,19 @@ Conventions, as in the JAX package:
 Two deliberate differences from the JAX package: the KV cache keeps one
 length per batch row (so serving slots decode at independent positions
 without a ``vmap``), and the cache writes update the tensors in place.
+
+Under a :mod:`~repro_torch.models.sharding` rule table that splits over
+'model' (tensor parallelism, M ranks) the functions take a rank's blocks
+of the leaves and run the split forms: ``w_gate`` / ``w_up`` and a
+head-split ``wq`` / ``wk`` / ``wv`` column-parallel, ``wo`` / ``w_down``
+row-parallel (a partial sum reduced over 'model' in rank order), a
+``wq`` / ``wk`` / ``wv`` split on its input dim (heads that do not divide
+M) row-parallel with its output whole on every rank, vocab-parallel
+``embed`` / ``unembed`` / ``cross_entropy_chunked`` on ``[V/M, D]``
+blocks, a norm scale split on D gathered whole, and the decode cache's
+chunk axis split over 'model' with the flash-decode partials merged in
+chunk order. Outside such a table every function is its single-card
+code.
 """
 from __future__ import annotations
 
@@ -25,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention.ops import FlashAttention
 from ..kernels.flash_attention.ref import NEG, attention_ref
+from . import sharding as shr
 
 
 # ---------------------------------------------------------------------------
@@ -51,10 +65,20 @@ def init_embedding(gen, vocab, d_model, dtype):
 # norms
 # ---------------------------------------------------------------------------
 
+def whole_leaf(w, n: int, dim: int = -1):
+    """A leaf whose ``dim`` should be ``n`` long: a rank's block of it
+    (split over 'model') gathered whole, else ``w``."""
+    tp = shr.active()
+    if tp is None or w.shape[dim] == n:
+        return w
+    return shr.gather_from_model(w, tp, dim, "model_leaves")
+
+
 def rmsnorm(p, x, eps=1e-5):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * p["scale"].float()).to(x.dtype)
+    scale = whole_leaf(p["scale"], x.shape[-1])
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def init_rmsnorm(shape, dtype=torch.float32, device=None):
@@ -76,8 +100,10 @@ def layernorm(p, x, eps=1e-5):
     xf = x.float()
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
-    return ((xf - mu) * torch.rsqrt(var + eps) * p["scale"].float()
-            + p["bias"].float()).to(x.dtype)
+    D = x.shape[-1]
+    return ((xf - mu) * torch.rsqrt(var + eps)
+            * whole_leaf(p["scale"], D).float()
+            + whole_leaf(p["bias"], D).float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +253,15 @@ class KVCache(NamedTuple):
                        torch.zeros((batch,), dtype=torch.int64, device=device))
 
 
+def _cache_split():
+    """``(M, m)`` of the decode cache's chunk axis: split over 'model'
+    under a rule table with a ``kv_cache`` entry, else ``(1, 0)``."""
+    tp = shr.active()
+    if tp is not None and tp.split("kv_cache"):
+        return tp.M, tp.m
+    return 1, 0
+
+
 def cache_insert(cache: KVCache, k_new, v_new) -> KVCache:
     """Append one token's k/v ([B, 1, kvH, hd]) at each row's position
     ``cache.length``, in place.
@@ -235,27 +270,44 @@ def cache_insert(cache: KVCache, k_new, v_new) -> KVCache:
     out-of-range start instead of failing; a torch indexed write would raise
     (on the GPU, as a device-side assert). To keep the JAX semantics the
     chunk index is clamped the same way, so a row decoded past ``max_len``
-    (an idle serving slot) overwrites inside its last chunk as in JAX."""
+    (an idle serving slot) overwrites inside its last chunk as in JAX.
+    With the chunk axis split over 'model' a rank holds chunks ``[m nc,
+    (m+1) nc)`` and writes the rows whose position falls there (the others
+    write back what they read: no host sync)."""
     B, kvH, nc, ck, hd = cache.k.shape
+    M, m = _cache_split()
     pos = cache.length
-    ci = torch.clamp(pos // ck, max=nc - 1)
+    ci = torch.clamp(pos // ck, max=M * nc - 1)
     co = pos % ck
     rows = torch.arange(B, device=pos.device)
-    cache.k[rows, :, ci, co] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[rows, :, ci, co] = v_new[:, 0].to(cache.v.dtype)
+    if M == 1:
+        cache.k[rows, :, ci, co] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[rows, :, ci, co] = v_new[:, 0].to(cache.v.dtype)
+    else:
+        mine = ((ci // nc) == m)[:, None, None]
+        cl = torch.clamp(ci - m * nc, 0, nc - 1)
+        for dst, src in ((cache.k, k_new), (cache.v, v_new)):
+            dst[rows, :, cl, co] = torch.where(mine, src[:, 0].to(dst.dtype),
+                                               dst[rows, :, cl, co])
     cache.length.add_(1)
     return cache
 
 
 def cache_prefill(cache: KVCache, k_all, v_all) -> KVCache:
     """Bulk-write a prefill of S tokens ([B, S, kvH, hd]) from position 0,
-    in place; the rest of the cache is zeroed as in the JAX version."""
+    in place; the rest of the cache is zeroed as in the JAX version. With
+    the chunk axis split over 'model' a rank writes its chunks'
+    positions."""
     B, kvH, nc, ck, hd = cache.k.shape
+    M, m = _cache_split()
     S = k_all.shape[1]
+    start = m * nc * ck
+    n = max(0, min(S - start, nc * ck))
     for dst, src in ((cache.k, k_all), (cache.v, v_all)):
         flat = dst.view(B, kvH, nc * ck, hd)
-        flat[:, :, :S] = src.transpose(1, 2).to(dst.dtype)
-        flat[:, :, S:] = 0
+        flat[:, :, :n] = src[:, start:start + n].transpose(1, 2).to(
+            dst.dtype)
+        flat[:, :, n:] = 0
     cache.length.fill_(S)
     return cache
 
@@ -267,14 +319,19 @@ def flash_decode(q, cache: KVCache, *, window: int = 0):
     Each chunk computes a partial softmax (max, sum, weighted values), then
     the partials merge across chunks by log-sum-exp. GQA reads the shared
     kv head through a ``[B, kvH, rep, hd]`` view of q instead of repeating
-    the cache; scores and partial values are float32."""
+    the cache; scores and partial values are float32. With the chunk axis
+    split over 'model' (q whole on every rank) each rank makes its chunks'
+    partials and the partials of every rank are joined in chunk order
+    before the merge: the single card's merge on the same numbers."""
     B, _, H, hd = q.shape
     kvH, nc, ck = cache.k.shape[1], cache.k.shape[2], cache.k.shape[3]
+    M, mm = _cache_split()
     rep = H // kvH
     scale = 1.0 / math.sqrt(hd)
     qh = (q[:, 0] * scale).reshape(B, kvH, rep, hd).float()
     s = torch.einsum("bgrd,bgnkd->bgrnk", qh, cache.k.float())
-    pos = torch.arange(nc * ck, device=q.device).reshape(1, nc, ck)
+    pos = torch.arange(nc * ck, device=q.device).reshape(1, nc, ck) \
+        + mm * nc * ck
     length = cache.length.reshape(B, 1, 1)
     valid = pos < length
     if window > 0:
@@ -285,6 +342,11 @@ def flash_decode(q, cache: KVCache, *, window: int = 0):
     l = p.sum(dim=-1)
     part = torch.einsum("bgrnk,bgnkd->bgrnd", p.to(cache.v.dtype).float(),
                         cache.v.float())
+    if M > 1:   # one collective: [B, g, r, n, hd + 2]
+        tp = shr.active()
+        packed = shr.cat_ranks(tp.mesh, torch.cat(
+            [part, m[..., None], l[..., None]], dim=-1), 3, "model")
+        part, m, l = packed[..., :hd], packed[..., hd], packed[..., hd + 1]
     g = m.amax(dim=-1, keepdim=True)
     w = torch.exp(m - g)
     den = (w * l).sum(dim=-1)
@@ -297,14 +359,43 @@ def flash_decode(q, cache: KVCache, *, window: int = 0):
 # GQA attention block + SwiGLU MLP
 # ---------------------------------------------------------------------------
 
+def _tp_proj(x, w, tp, name: str):
+    """``x @ w`` for a replicated ``x [.., D]`` under the rule table:
+    column-parallel (this rank's output block) when ``name`` is split over
+    'model', row-parallel (``w`` split on its input dim; the output whole
+    on every rank) when ``w`` holds fewer than D rows, else whole."""
+    if tp.split(name):
+        return shr.copy_to_model(x, tp) @ w
+    if w.shape[-2] < x.shape[-1]:
+        return shr.reduce_from_model(shr.scatter_to_model(x, tp) @ w, tp)
+    return x @ w
+
+
 def attention_qkv(p, x, n_heads, n_kv_heads, head_dim, positions, theta,
                   dtype=torch.bfloat16, rope=None):
     """q/k/v projections plus RoPE. ``rope`` takes precomputed
-    :func:`rope_tables` (else they are computed from ``positions``)."""
+    :func:`rope_tables` (else they are computed from ``positions``).
+
+    Split over 'model', q holds this rank's ``n_heads / M`` heads when the
+    table has ``act_heads`` (else all), k and v theirs of ``n_kv_heads``
+    under ``act_kv_heads`` (:func:`attention_heads` pairs them)."""
     B, S, _ = x.shape
-    q = (x @ p["wq"].to(dtype)).reshape(B, S, n_heads, head_dim)
-    k = (x @ p["wk"].to(dtype)).reshape(B, S, n_kv_heads, head_dim)
-    v = (x @ p["wv"].to(dtype)).reshape(B, S, n_kv_heads, head_dim)
+    tp = shr.active()
+    if tp is None:
+        q = x @ p["wq"].to(dtype)
+        k = x @ p["wk"].to(dtype)
+        v = x @ p["wv"].to(dtype)
+    else:
+        if tp.split("act_heads") and tp.split("act_kv_heads"):
+            xc = shr.copy_to_model(x, tp)     # one copy feeds all three
+            q, k, v = (xc @ p[n].to(dtype) for n in ("wq", "wk", "wv"))
+        else:
+            q = _tp_proj(x, p["wq"].to(dtype), tp, "act_heads")
+            k = _tp_proj(x, p["wk"].to(dtype), tp, "act_kv_heads")
+            v = _tp_proj(x, p["wv"].to(dtype), tp, "act_kv_heads")
+    q = q.reshape(B, S, -1, head_dim)
+    k = k.reshape(B, S, -1, head_dim)
+    v = v.reshape(B, S, -1, head_dim)
     if rope is None and positions is not None:
         rope = rope_tables(positions, head_dim, theta, q.dtype)
     if rope is not None:
@@ -313,15 +404,72 @@ def attention_qkv(p, x, n_heads, n_kv_heads, head_dim, positions, theta,
     return q, k, v
 
 
+def attention_heads(q, k, v, n_heads: int):
+    """The k/v heads this rank's q heads attend to. Split over 'model'
+    with q's heads split and k/v's whole (the kv heads do not divide M),
+    each q head gets its kv head (one per q head, or one shared when the
+    rank's heads share it), and k/v take the gradient of every rank's use;
+    otherwise k/v as they are."""
+    tp = shr.active()
+    if tp is None or not tp.split("act_heads") or tp.split("act_kv_heads"):
+        return q, k, v
+    kvH = k.shape[2]
+    h0, h1 = tp.block(n_heads)
+    idx = torch.arange(h0, h1) // (n_heads // kvH)
+    if bool((idx == idx[0]).all()):
+        idx = idx[:1]
+    idx = idx.to(k.device)
+    k, v = (shr.copy_to_model(t, tp).index_select(2, idx) for t in (k, v))
+    return q, k, v
+
+
+def whole_heads(*ts):
+    """``(t, name)`` pairs -> each ``t`` (a q / k / v ``[B, S, heads,
+    hd]``) with this rank's heads joined over 'model' when ``name``
+    (``act_heads`` / ``act_kv_heads``) is split (inference: the decode
+    cache holds every head, and flash-decode takes every q head), else as
+    it is. The split ones travel in one collective."""
+    tp = shr.active()
+    split = [tp is not None and tp.split(name) for _, name in ts]
+    out = [t for t, _ in ts]
+    if not any(split):
+        return out
+    parts = torch.cat([out[i] for i, s in enumerate(split) if s], dim=2)
+    B, S, _, hd = parts.shape
+    whole = shr.gather_ranks(tp.mesh, parts, "model").permute(1, 2, 0, 3, 4)
+    j = 0
+    for i, s in enumerate(split):
+        if s:
+            n = out[i].shape[2]
+            out[i] = whole[:, :, :, j:j + n].reshape(B, S, tp.M * n, hd)
+            j += n
+    return out
+
+
 def attention_out(p, attn, dtype=torch.bfloat16):
+    """``attn [B, S, H', hd] @ wo``. Split over 'model' ``wo`` is
+    row-parallel: this rank's heads (or its block of whole heads) times
+    its rows of ``wo``, the partials summed over 'model'."""
     B, S, H, hd = attn.shape
-    return attn.reshape(B, S, H * hd) @ p["wo"].to(dtype)
+    a = attn.reshape(B, S, H * hd)
+    wo = p["wo"].to(dtype)
+    tp = shr.active()
+    if tp is None or wo.shape[-2] == H * hd and not tp.split("act_heads"):
+        return a @ wo
+    if wo.shape[-2] < H * hd:
+        a = shr.scatter_to_model(a, tp)
+    return shr.reduce_from_model(a @ wo, tp)
 
 
 def swiglu(p, x, dtype=torch.bfloat16):
+    tp = shr.active()
+    split = tp is not None and tp.split("act_ffn")
+    if split:
+        x = shr.copy_to_model(x, tp)
     g = x @ p["w_gate"].to(dtype)
     u = x @ p["w_up"].to(dtype)
-    return (F.silu(g) * u) @ p["w_down"].to(dtype)
+    out = (F.silu(g) * u) @ p["w_down"].to(dtype)
+    return shr.reduce_from_model(out, tp) if split else out
 
 
 def init_attention(gen, lead: tuple, d_model, n_heads, n_kv_heads, head_dim,
@@ -362,9 +510,26 @@ def gelu_mlp(p, x, dtype=torch.bfloat16):
 # embeddings / lm head
 # ---------------------------------------------------------------------------
 
+def _vocab_split():
+    """The rule table when the vocab (``logits``) is split over 'model'."""
+    tp = shr.active()
+    return tp if tp is not None and tp.split("logits") else None
+
+
 def embed(p, tokens, dtype=torch.bfloat16):
-    """Gather rows, then cast: the table itself is never copied."""
-    return F.embedding(tokens, p["table"]).to(dtype)
+    """Gather rows, then cast: the table itself is never copied. With the
+    vocab split over 'model' a rank holds rows ``[m V/M, (m+1) V/M)``: a
+    token outside them reads zeros, and the ranks' rows are summed (one
+    is not zero: exact)."""
+    tp = _vocab_split()
+    if tp is None:
+        return F.embedding(tokens, p["table"]).to(dtype)
+    table = p["table"]
+    n = table.shape[0]
+    local = tokens - tp.m * n
+    hit = ((local >= 0) & (local < n))[..., None]
+    e = F.embedding(local.clamp(0, n - 1), table) * hit
+    return shr.reduce_from_model(e, tp).to(dtype)
 
 
 def _logits_f32(x2, table):
@@ -396,11 +561,46 @@ class _Logits(torch.autograd.Function):
         return g @ table, g.t() @ x2
 
 
+def _logits2(x2, table):
+    """``[N, D]`` hidden -> float32 logits of the rows of ``table`` this
+    rank holds (vocab-parallel: the hidden is a replicated input)."""
+    tp = _vocab_split()
+    if tp is not None:
+        x2 = shr.copy_to_model(x2, tp)
+    return _Logits.apply(x2, table)
+
+
 def unembed(p, x):
-    """[B, S, D] x [V, D] -> float32 logits [B, S, V] (differentiable)."""
+    """[B, S, D] x [V, D] -> float32 logits [B, S, V] (differentiable);
+    ``[B, S, V/M]``, this rank's vocab block, with the vocab split over
+    'model' (:func:`argmax_vocab` and :func:`gather_vocab` read it)."""
     table = p["table"].to(x.dtype)
     B, S, D = x.shape
-    return _Logits.apply(x.reshape(B * S, D), table).reshape(B, S, -1)
+    return _logits2(x.reshape(B * S, D), table).reshape(B, S, -1)
+
+
+def gather_vocab(logits):
+    """Vocab-split logits ``[..., V/M]`` joined over 'model' to ``[...,
+    V]`` (inference), or ``logits`` when the vocab is whole."""
+    tp = _vocab_split()
+    if tp is None:
+        return logits
+    return shr.cat_ranks(tp.mesh, logits, logits.ndim - 1, "model")
+
+
+def argmax_vocab(logits):
+    """``argmax`` over the last dim of (vocab-split) logits: each rank's
+    first maximum, then the first rank with the largest value, so ties
+    take the lowest index, as ``torch.argmax`` does on one card."""
+    tp = _vocab_split()
+    if tp is None:
+        return torch.argmax(logits, dim=-1)
+    val, idx = torch.max(logits, dim=-1)
+    idx = idx + tp.m * logits.shape[-1]
+    vals = shr.cat_ranks(tp.mesh, val[None].float(), 0, "model")
+    idxs = shr.cat_ranks(tp.mesh, idx[None], 0, "model")
+    best = torch.argmax(vals, dim=0, keepdim=True)
+    return torch.gather(idxs, 0, best)[0]
 
 
 def cross_entropy(logits, labels):
@@ -410,10 +610,45 @@ def cross_entropy(logits, labels):
     return torch.mean(lse - ll)
 
 
+class _VocabNLL(torch.autograd.Function):
+    """Per-row NLL of vocab-split float32 logits ``[N, V/M]``: the max and
+    the sum of exponentials over every rank's block (gathered, summed in
+    rank order) and the label's logit from the rank that holds it; the
+    gradient is ``softmax - onehot`` on the rank's block."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        n = logits.shape[1]
+        mesh = tp.mesh
+        gmax = shr.cat_ranks(mesh, logits.amax(dim=1)[None], 0,
+                             "model_loss").amax(dim=0)
+        sumexp = shr.sum_ranks(mesh, torch.exp(logits - gmax[:, None])
+                               .sum(dim=1), "model_loss")
+        lse = gmax + torch.log(sumexp)
+        local = labels.long() - tp.m * n
+        hit = (local >= 0) & (local < n)
+        lc = local.clamp(0, n - 1)
+        ll = torch.gather(logits, 1, lc[:, None])[:, 0] * hit
+        ll = shr.sum_ranks(mesh, ll, "model_loss")
+        ctx.save_for_backward(logits, lse, lc, hit)
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, lc, hit = ctx.saved_tensors
+        grad = torch.exp(logits - lse[:, None])
+        grad[torch.arange(grad.shape[0], device=grad.device), lc] -= \
+            hit.to(grad.dtype)
+        return grad * g[:, None], None, None
+
+
 def _chunk_nll(hc, table, lc):
     """Summed NLL of one ``[B, c, D]`` chunk of hidden states."""
     B, c, D = hc.shape
-    logits = _Logits.apply(hc.reshape(B * c, D), table)
+    logits = _logits2(hc.reshape(B * c, D), table)
+    tp = _vocab_split()
+    if tp is not None:
+        return torch.sum(_VocabNLL.apply(logits, lc.reshape(B * c), tp))
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, lc.reshape(B * c, 1).long())[:, 0]
     return torch.sum(lse - ll)
@@ -425,7 +660,9 @@ def cross_entropy_chunked(hidden, table_params, labels, chunk: int = 512):
     ``chunk`` positions runs under ``torch.utils.checkpoint``, so its
     logits are recomputed in the backward instead of kept (the JAX
     package's ``jax.checkpoint`` per chunk). The chunks' sums add in order,
-    as the JAX ``lax.scan`` does."""
+    as the JAX ``lax.scan`` does. With the vocab split over 'model' each
+    chunk's logits are the rank's block and the loss statistics cross
+    ranks (the same chunks)."""
     B, S, D = hidden.shape
     table = table_params["table"].to(hidden.dtype)
     chunk = min(chunk, S)

@@ -55,6 +55,24 @@ _CONFIG_MODULES = {
 #: the arch ids the port runs, in ``ARCH_IDS`` order (all of them)
 PORTED_IDS = [a for a in ARCH_IDS if a in _CONFIG_MODULES]
 
+#: the families whose layers take the 'model' axis (tensor parallelism,
+#: ``repro_torch.models.sharding``); the others (moe, hybrid, ssm, audio)
+#: are ROADMAP.md Queue 1 item 17b
+MODEL_AXIS_FAMILIES = ("dense", "vlm")
+
+
+def check_model_axis(cfg, M: int) -> None:
+    """Refuse a 'model' axis of M > 1 ranks for a model whose family has
+    no tensor-parallel layers (or a model without a family, such as the
+    paper's MLPs), naming ROADMAP.md Queue 1 item 17."""
+    fam = getattr(cfg, "family", None)
+    if M > 1 and fam not in MODEL_AXIS_FAMILIES:
+        raise NotImplementedError(
+            f"model = {M} for {getattr(cfg, 'name', 'this model')} (family "
+            f"{fam!r}): the 'model' axis runs the families "
+            f"{MODEL_AXIS_FAMILIES}; the others are ROADMAP.md Queue 1 "
+            "item 17 (its second part, 17b)")
+
 _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",
     "vlm": "repro_torch.models.transformer",

@@ -13,6 +13,18 @@ loop. Serving runs several replicas (each its own params) on one batch; the
 replica's projections on its own, at the shapes a single replica would see
 (honest replicas then give bit-identical logits), while the attention
 kernel takes all ``R * B * H`` rows in one launch.
+
+Tensor parallelism (the 'model' axis): under a
+:mod:`~repro_torch.models.sharding` rule table every function takes a
+rank's blocks of the leaves and runs the split forms of
+:mod:`~repro_torch.models.layers` — the counterparts of the reference's
+``shard(x, name)`` hooks: ``act_heads`` / ``act_kv_heads`` (q and k/v
+heads split where the head counts divide M, else computed whole on every
+rank), ``act_btd`` (the residual stream, whole on every rank: each block
+ends in a reduction over 'model'), ``logits`` (the vocab) and
+``kv_cache`` (the decode cache's chunk axis; prefill and decode join the
+heads of k/v and q before the cache). The logits of ``prefill`` and
+``decode_step`` are then this rank's vocab block.
 """
 from __future__ import annotations
 
@@ -20,6 +32,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from . import sharding as shr
 from .config import ArchConfig
 
 
@@ -101,6 +114,7 @@ def _block_train(blk, x, rope, cfg: ArchConfig, dtype, ffn=swiglu_ffn):
     q, k, v = L.attention_qkv(blk["attn"], norm(blk["ln_attn"], x),
                               cfg.n_heads, cfg.n_kv_heads, cfg.hd, None,
                               cfg.rope_theta, dtype=dtype, rope=rope)
+    q, k, v = L.attention_heads(q, k, v, cfg.n_heads)
     attn = L.blocked_attention(q, k, v, causal=True,
                                window=cfg.sliding_window, q_block=cfg.q_block,
                                kv_block=cfg.kv_block)
@@ -155,9 +169,14 @@ def loss(params, batch, *, cfg: ArchConfig, ffn=swiglu_ffn):
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, n_chunks: int,
                 dtype=torch.bfloat16, device=None) -> L.KVCache:
     """One cache per layer, stacked: k/v ``[L, B, kvH, nc, ck, hd]``,
-    length ``[L, B]``."""
-    c = L.KVCache.create(batch, cfg.n_kv_heads, max_len, cfg.hd, n_chunks,
-                         dtype, device)
+    length ``[L, B]``; under a rule table that splits ``kv_cache`` over
+    'model', this rank's ``nc / M`` chunks."""
+    tp = shr.active()
+    M = tp.M if tp is not None and tp.split("kv_cache") else 1
+    if n_chunks % M:
+        raise ValueError(f"n_chunks={n_chunks} must divide over model={M}")
+    c = L.KVCache.create(batch, cfg.n_kv_heads, max_len // M, cfg.hd,
+                         n_chunks // M, dtype, device)
     return L.KVCache(*(t.unsqueeze(0).repeat((cfg.n_layers,)
                                              + (1,) * t.ndim) for t in c))
 
@@ -237,11 +256,14 @@ def _prefill(reps, xs, rope, caches, cfg: ArchConfig, ffn):
 
         def attend(qs, ks, vs, i=i):
             for c, k, v in zip(caches, ks, vs):
-                L.cache_prefill(cache_layer(c, i), k, v)
-            o = L.blocked_attention(
-                torch.cat(qs), torch.cat(ks), torch.cat(vs), causal=True,
-                window=cfg.sliding_window, q_block=cfg.q_block,
-                kv_block=cfg.kv_block)
+                L.cache_prefill(cache_layer(c, i), *L.whole_heads(
+                    (k, "act_kv_heads"), (v, "act_kv_heads")))
+            q, k, v = L.attention_heads(torch.cat(qs), torch.cat(ks),
+                                        torch.cat(vs), cfg.n_heads)
+            o = L.blocked_attention(q, k, v, causal=True,
+                                    window=cfg.sliding_window,
+                                    q_block=cfg.q_block,
+                                    kv_block=cfg.kv_block)
             return o.chunk(R)
 
         xs = _attention_mlp(xs, blocks, rope, cfg, dtype, attend, ffn)
@@ -260,6 +282,9 @@ def _decode(reps, xs, rope, caches, cfg: ArchConfig, ffn):
         def attend(qs, ks, vs, i=i):
             out = []
             for c, q, k, v in zip(caches, qs, ks, vs):
+                q, k, v = L.whole_heads((q, "act_heads"),
+                                        (k, "act_kv_heads"),
+                                        (v, "act_kv_heads"))
                 cache = L.cache_insert(cache_layer(c, i), k, v)
                 out.append(L.flash_decode(q, cache,
                                           window=cfg.sliding_window))

@@ -15,6 +15,12 @@ A *quorum read* consolidates the per-replica answers of a
 
 The :class:`DivergenceDetector` watches each replica's distance to the
 quorum answer and ejects a persistent outlier, never below the 2f+1 floor.
+
+Under a serve mesh's rule table whose ``logits`` (the vocab) is split over
+'model', each rank reads its vocab block: the median runs on the block,
+the argmax takes each rank's first maximum and then the first rank with
+the largest value (the single card's first-index tie rule), and a
+distance sums its squares over every rank's block in rank order.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ import numpy as np
 import torch
 
 from .. import agg
+from ..models import sharding as shr
+from ..models.layers import argmax_vocab
 
 #: read-rule registry names (both live in ``repro_torch.agg``)
 READ_RULES = ("median", "vote")
@@ -43,16 +51,16 @@ def quorum_tokens(logits, f: int, rule: str = "median", mask=None):
         raise ValueError(f"unknown quorum read rule {rule!r}; "
                          f"have {READ_RULES}")
     if rule == "median":
-        return torch.argmax(quorum_logits(logits, f, mask=mask),
-                            dim=-1).to(torch.int32)
-    votes = torch.argmax(logits, dim=-1).to(torch.int32)     # [R, B]
+        return argmax_vocab(quorum_logits(logits, f, mask=mask)).to(
+            torch.int32)
+    votes = argmax_vocab(logits).to(torch.int32)             # [R, B]
     return agg.get("vote")(votes, f, mask=mask)
 
 
 def disagreement(logits, tokens, mask=None) -> float:
     """Fraction of (active replica, slot) argmax votes that differ from the
     committed quorum token — the service's per-read disagreement metric."""
-    votes = torch.argmax(logits, dim=-1).cpu().numpy()       # [R, B]
+    votes = argmax_vocab(logits).cpu().numpy()               # [R, B]
     toks = np.asarray(tokens)[None, :]
     m = np.ones(votes.shape[0], bool) if mask is None else np.asarray(mask)
     if not m.any():
@@ -94,7 +102,13 @@ class DivergenceDetector:
         -> [R] (device math, one scalar per replica on the host)."""
         diff = logits.float() - answer.float()[None]
         axes = tuple(range(1, diff.ndim))
-        return torch.sqrt(torch.mean(diff * diff, dim=axes)).cpu().numpy()
+        tp = shr.active()
+        if tp is None or not tp.split("logits"):
+            return torch.sqrt(torch.mean(diff * diff,
+                                         dim=axes)).cpu().numpy()
+        sq = shr.sum_ranks(tp.mesh, torch.sum(diff * diff, dim=axes),
+                           "model")
+        return torch.sqrt(sq / (diff[0].numel() * tp.M)).cpu().numpy()
 
     def observe(self, dist: np.ndarray, active: np.ndarray) -> list[int]:
         """Update strikes from one read's distances; flag on ``patience``

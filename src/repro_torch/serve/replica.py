@@ -8,6 +8,12 @@ model broadcast (:meth:`ReplicaPool.from_params`), a live ``[R, ...]``
 stack (:meth:`ReplicaPool.from_stacked`), or a replica-stacked ByzSGD
 checkpoint (:meth:`ReplicaPool.from_checkpoint`, the replica count read
 from its manifest by :func:`checkpoint_groups`).
+
+On a serve mesh (tensor parallelism, the 'model' axis) a pool holds each
+rank's blocks of every replica's leaves (:meth:`ReplicaPool.shard`, by
+:func:`repro_torch.launch.steps.serve_param_sharding`'s 'model' dims):
+the median and the other reads are coordinate-wise, so they run on the
+blocks as they are.
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ class ReplicaPool:
     params: Any
     f: int = 0
     active: np.ndarray = field(default=None)  # [R] bool
+    sharded: bool = False   # the leaves are a serve mesh's blocks
 
     def __post_init__(self):
         leaves_ = list(leaves(self.params))
@@ -139,6 +146,34 @@ class ReplicaPool:
         state, _ = ck.restore(ckpt_dir, step, like, device, params_only=True)
         return cls(params=tree.unflatten(state.params), f=f)
 
+    def shard(self, specs: list, mesh) -> "ReplicaPool":
+        """This rank's blocks of every replica: ``specs`` holds, per leaf
+        in the tree's leaf order (sorted keys), ``{"model": dim}`` of the
+        leaf without its replica axis
+        (:func:`repro_torch.launch.steps.serve_param_sharding`). A
+        broadcast stack (:meth:`from_params`) stays one block broadcast
+        to R; any other block is copied, so the whole pool can be
+        freed."""
+        from ..launch.steps import block
+        it = iter(specs)
+
+        def cut(l):
+            spec = {a: d + 1 for a, d in next(it).items() if a == "model"}
+            if not spec:
+                return l
+            if l.stride(0) == 0:
+                one = block(l[:1], spec, mesh).clone()
+                return one.expand((l.shape[0],) + one.shape[1:])
+            return block(l, spec, mesh).clone()
+
+        def walk(t):
+            if isinstance(t, dict):
+                return {k: walk(t[k]) for k in sorted(t)}
+            return cut(t)
+
+        return ReplicaPool(params=walk(self.params), f=self.f,
+                           active=self.active.copy(), sharded=True)
+
     # -- reads -------------------------------------------------------------
     def single(self, i: int = 0):
         """One replica's params (views)."""
@@ -170,7 +205,8 @@ class ReplicaPool:
             raise ValueError(f"corrupting {spec.n_byz_servers} replicas "
                              f"exceeds the declared tolerance f={self.f}")
         return ReplicaPool(params=inject_models(self.params, spec, gen),
-                           f=self.f, active=self.active.copy())
+                           f=self.f, active=self.active.copy(),
+                           sharded=self.sharded)
 
     def deactivate(self, i: int) -> bool:
         """Eject replica i unless that would break the 2f+1 read quorum.

@@ -26,6 +26,15 @@ On top of the device loop: continuous batching
 detection with a same-read retry after an ejection, and metrics (tok/s,
 disagreement rate, ejections/retries, per-request latency and deadlines).
 Prompts are prefilled unpadded; token-in families only.
+
+On a serve mesh (``rules=``, :func:`repro_torch.launch.steps.serve_rules`
+with a 'model' axis; the dense family) each rank holds its blocks of every
+replica (a whole pool it is given is cut by :meth:`ReplicaPool.shard`),
+the replicas' prefill and decode run tensor-parallel under the table, and
+the quorum read runs on each rank's vocab block
+(:mod:`repro_torch.serve.quorum`).
+The 'data' ranks each run every slot (the batch is the service's slots,
+refilled on the host, so it stays whole on every rank).
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from ..models import sharding as shr
 from . import quorum
 from .batcher import ContinuousBatcher, Request
 from .replica import ReplicaPool
@@ -45,13 +55,23 @@ class QuorumService:
     def __init__(self, pool: ReplicaPool, bundle, *, n_slots: int = 4,
                  max_len: int = 128, n_chunks: int = 4, rule: str = "median",
                  detector: quorum.DetectorConfig | None = None,
-                 max_queue: int | None = None):
+                 max_queue: int | None = None, rules=None):
         if bundle.cfg.family in ("vlm", "audio"):
             raise ValueError(f"QuorumService serves token-in families only "
                              f"(got {bundle.cfg.family!r})")
         if rule not in quorum.READ_RULES:
             raise ValueError(f"unknown read rule {rule!r}; "
                              f"have {quorum.READ_RULES}")
+        self.rules = rules if rules is not None and rules.M > 1 else None
+        if self.rules is not None:
+            from ..core.simulator import FlatTree
+            from ..launch.steps import serve_param_sharding
+            from ..models.registry import check_model_axis
+            check_model_axis(bundle.cfg, self.rules.M)
+            if not pool.sharded:
+                tree = FlatTree.from_params(pool.params, lead=1)
+                pool = pool.shard(serve_param_sharding(
+                    tree, self.rules.mesh, bundle.cfg), self.rules.mesh)
         self.pool = pool
         self.bundle = bundle
         self.rule = rule
@@ -61,10 +81,11 @@ class QuorumService:
                                                   detector)
         self.device = pool.params["embed"]["table"].device
         # one cache per replica: k/v [L, n_slots, ...], length [L, n_slots]
-        self.caches = [bundle.init_caches(n_slots, max_len=max_len,
-                                          n_chunks=n_chunks,
-                                          device=self.device)
-                       for _ in range(pool.n_replicas)]
+        with shr.sharding_rules(self.rules):
+            self.caches = [bundle.init_caches(n_slots, max_len=max_len,
+                                              n_chunks=n_chunks,
+                                              device=self.device)
+                           for _ in range(pool.n_replicas)]
 
         # metrics
         self.committed = 0
@@ -99,6 +120,10 @@ class QuorumService:
         """One quorum read of per-replica logits ``[R, n_slots, V]`` ->
         committed token per slot ``[n_slots]``, applying the detector and
         retrying the read without any replica it ejects."""
+        with shr.sharding_rules(self.rules):
+            return self._read_tokens(logits)
+
+    def _read_tokens(self, logits) -> np.ndarray:
         mask = self.pool.active.copy()
         answer = quorum.quorum_logits(logits, self.pool.f, mask=mask)
         dist = self.detector.distances(logits, answer)
@@ -110,7 +135,7 @@ class QuorumService:
             mask = self.pool.active.copy()    # retry against the honest rest
         if self.rule == "median" and not newly:
             # the mask is unchanged, so the answer is already the median
-            toks = torch.argmax(answer, dim=-1).to(torch.int32)
+            toks = quorum.argmax_vocab(answer).to(torch.int32)
         else:
             toks = quorum.quorum_tokens(logits, self.pool.f, self.rule,
                                         mask=mask)
@@ -131,8 +156,9 @@ class QuorumService:
                               device=self.device)                # [1, P]
         slot = [self.bundle.reset_cache_rows(c, slice(s, s + 1))
                 for c in self.caches]
-        logits = self.bundle.prefill_replicas(self.pool.replicas(), tokens,
-                                              slot)              # [R, 1, V]
+        with shr.sharding_rules(self.rules):
+            logits = self.bundle.prefill_replicas(self.pool.replicas(),
+                                                  tokens, slot)  # [R, 1, V]
         tok = int(self._read(logits)[0])
         req.out_tokens.append(tok)
         self.committed += 1
@@ -156,9 +182,10 @@ class QuorumService:
         for r in running:
             last[r.slot, 0] = r.out_tokens[-1]
         t0 = time.perf_counter()
-        logits = self.bundle.decode_replicas(
-            self.pool.replicas(), self.caches,
-            torch.as_tensor(last, device=self.device))
+        with shr.sharding_rules(self.rules):
+            logits = self.bundle.decode_replicas(
+                self.pool.replicas(), self.caches,
+                torch.as_tensor(last, device=self.device))
         toks = self._read(logits)
         self.decode_s += time.perf_counter() - t0
         for r in running:

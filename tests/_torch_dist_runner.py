@@ -14,7 +14,8 @@ this writes beside them with JAX's single-device protocol.
 3. ``serve/ckpt_smoke`` on 5 ranks (rep 5): the checkpoint restored by
    ``ReplicaPool.from_checkpoint`` against the whole final state.
 4. ``launch.train --mesh 4x1`` under ``torchrun --standalone`` (2 steps),
-   and ``--mesh 4x2``, which is refused.
+   and ``--arch qwen3-moe-235b-a22b --reduced --mesh 4x2``, which is
+   refused (the MoE family has no tensor-parallel layers).
 """
 import json
 import os
@@ -160,7 +161,8 @@ def _launcher(d: Path):
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "4"] + args + ["--mesh", "4x1"],
         env=env, capture_output=True, text=True, timeout=300)
-    refused = subprocess.run([sys.executable] + args + ["--mesh", "4x2"],
+    refused = subprocess.run([sys.executable] + args + [
+        "--arch", "qwen3-moe-235b-a22b", "--mesh", "4x2"],
                              env=env, capture_output=True, text=True,
                              timeout=300)
     with open(d / "launch.json", "w") as fh:

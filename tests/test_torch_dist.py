@@ -191,7 +191,8 @@ def test_ckpt_smoke_at_rep5_restores_into_a_pool(runs):
 def test_launch_train_under_torchrun(runs):
     """``torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.
     train --mesh 4x1``: 2 steps, finite losses printed by rank 0 alone;
-    ``--mesh 4x2`` is refused, naming ROADMAP.md Queue 1 item 17."""
+    ``--arch qwen3-moe-235b-a22b --mesh 4x2`` is refused, naming ROADMAP.md
+    Queue 1 item 17 (the MoE family has no tensor-parallel layers)."""
     d, _ = runs
     rec = json.load(open(d / "launch.json"))
     assert rec["rc"] == 0, rec["stderr"]

@@ -1,5 +1,6 @@
 """The port stands alone: nothing under src/repro_torch/, tools/,
-chip_smoke.py or tests/_torch_dist_runner.py imports jax, any repro.* module (repro_torch.* is allowed) or
+chip_smoke.py, tests/_torch_dist_runner.py or tests/_torch_tp_runner.py
+imports jax, any repro.* module (repro_torch.* is allowed) or
 the JAX package's benchmarks/ (netsim keeps its own copy of the byte
 model), and the chip smoke script refuses to run without a GPU."""
 import ast
@@ -14,7 +15,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
     (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "tests" / "_torch_dist_runner.py"]
+                                      ROOT / "tests" / "_torch_dist_runner.py",
+                                      ROOT / "tests" / "_torch_tp_runner.py"]
 
 
 def _imports(path: Path):
@@ -73,6 +75,8 @@ def test_scan_covers_the_package():
                 "repro_torch/core/protocol.py",
                 "repro_torch/launch/train.py",
                 "repro_torch/launch/mesh.py",
+                "repro_torch/launch/steps.py",
+                "repro_torch/models/sharding.py",
                 "repro_torch/core/compression.py",
                 "repro_torch/exp/runners.py",
                 "repro_torch/netsim/accounting.py",

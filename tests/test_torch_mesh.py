@@ -1,7 +1,8 @@
 """The port's rank meshes (``repro_torch.launch.mesh``) and the protocol on
 a mesh, in one process: the ('rep', 'fsdp') choice against the reference's
 rule, ``state_layout``'s ranges, the backend rule, the refusals of the
-'model' axis (ROADMAP.md Queue 1 item 17), and ``ProtocolEngine(mesh=)``
+'model' axis for the families without tensor-parallel layers (ROADMAP.md
+Queue 1 item 17b), and ``ProtocolEngine(mesh=)``
 on a world-1 gloo group bit-equal to the single-card engine. Also the
 layernorm repair: the dense and MoE families with ``norm="layernorm"``
 against JAX's forward and ``jax.grad`` on shared weights. The protocol on
@@ -58,8 +59,18 @@ def test_state_layout_ranges():
     assert lay.rows == (3, 6) and lay.bounds == (0, 3, 6, 10)
     assert lay.cols == (6, 10)
     assert tproto.state_layout(None, 4, 7) == ((0, 4), (0, 7), (0, 7))
+    # a 'model' axis lays out the rank's flat row of blocks (P = P_m); the
+    # rank view refuses a stack without its per-leaf split, and a family
+    # without tensor-parallel layers gets none
+    m2 = tmesh.Mesh(tmesh.AXES, (1, 1, 2), rank=1)
+    assert tproto.state_layout(m2, 4, 7) == ((0, 4), (0, 7), (0, 7))
     with pytest.raises(NotImplementedError, match="item 17"):
-        tproto.state_layout(tmesh.Mesh(tmesh.AXES, (1, 1, 2)), 4, 7)
+        tproto.consolidate(torch.zeros(4, 7), tproto.ProtocolConfig.derive(4),
+                           mesh=m2)
+    moe = get_bundle("qwen3-moe-235b-a22b", reduced=True)
+    tree = tproto.FlatTree.from_params(moe.init(torch.Generator()))
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tproto.model_split(moe.cfg, tree, m2)
     with pytest.raises(ValueError, match="must divide"):
         tproto.state_layout(tmesh.Mesh(tmesh.AXES, (3, 1, 1)), 4, 7)
 
@@ -71,14 +82,22 @@ def test_backend_rule_and_model_axis_refusals(monkeypatch):
     assert devmod.dist_backend(torch.device("cuda"), 2) == "gloo"
     base = tmesh.Mesh(("data", "model"), (4, 2))
     assert (base.dp_size, base.model_size) == (4, 2)
-    for fn in (lambda: tmesh.make_byz_mesh(base, 4),
-               lambda: tmesh.make_serve_mesh(base)):
+    moe = get_bundle("qwen3-moe-235b-a22b", reduced=True)
+    smesh = tmesh.Mesh(("data", "model"), (4, 2))
+    from repro_torch.launch.steps import serve_rules
+    from repro_torch.serve import QuorumService, ReplicaPool
+    pool = ReplicaPool.from_params(moe.init(torch.Generator()), 1)
+    for fn in (lambda: tproto.model_split(moe.cfg, None, tmesh.Mesh(
+                   tmesh.AXES, (4, 1, 2))),
+               lambda: QuorumService(pool, moe,
+                                     rules=serve_rules(smesh, moe.cfg))):
         with pytest.raises(NotImplementedError, match="item 17"):
             fn()
     with pytest.raises(ValueError, match="256 ranks"):
         tmesh.make_production_mesh()
     with pytest.raises(SystemExit, match="item 17"):
-        train.main(["--reduced", "--device", "cpu", "--mesh", "4x2"])
+        train.main(["--arch", "qwen3-moe-235b-a22b", "--reduced", "--device",
+                    "cpu", "--mesh", "4x2"])
     with pytest.raises(SystemExit, match="needs 4 ranks"):
         train.main(["--reduced", "--device", "cpu", "--mesh", "4x1"])
     m = tmesh.make_protocol_mesh(4)
