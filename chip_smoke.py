@@ -1224,11 +1224,13 @@ _TINY_CPU: dict = {}
 
 
 def _tiny_cpu(run: dict):
-    """``_tiny_run`` of ``run`` on the CPU, once a script (phases 15 (c)
-    and 16 (c) hold their ranks against the same run)."""
-    if run["preset"] not in _TINY_CPU:
-        _TINY_CPU[run["preset"]] = _tiny_run(run, torch.device("cpu"))
-    return _TINY_CPU[run["preset"]]
+    """``_tiny_run`` of ``run`` on the CPU, once a script for each preset
+    and model (phases 15 (c) and 16 (c) hold their ranks against the same
+    run)."""
+    key = (run["preset"], run["bundle"].cfg.name)
+    if key not in _TINY_CPU:
+        _TINY_CPU[key] = _tiny_run(run, torch.device("cpu"))
+    return _TINY_CPU[key]
 
 
 def _tiny_compare(run, out, sels, tag, key):
@@ -1241,7 +1243,8 @@ def _tiny_compare(run, out, sels, tag, key):
             and all(torch.equal(a, b) for a, b in zip(sels["cpu"],
                                                       sels[key])))
     err = (out[key] - out["cpu"]).abs().max().item()
-    log(f"[{tag}] {run['preset']} f32 (P = {out['cpu'].shape[1]}, G = "
+    log(f"[{tag}] {run['preset']} ({run['bundle'].cfg.name} reduced) f32 "
+        f"(P = {out['cpu'].shape[1]}, G = "
         f"{G}, ALIE x1), {steps} steps, 2 gathers: {key} (kernels) vs CPU "
         f"(plain versions) max|params diff|={err:.3g} (max|param| "
         f"{out['cpu'].abs().max().item():.3g}); every MDA selection matched "
@@ -1263,6 +1266,16 @@ PROTO_ARGV = ["--arch", "phi4-mini-3.8b", "--depth", "2", "--groups", "4",
               "--T", "5", "--seq", "1024", "--batch-per-group", "4",
               "--steps", str(PROTO_STEPS), "--lr", "0.002", "--worker-attack",
               "alie", "--n-byz", "1", "--log-every", "1"]
+
+
+def _zero_counts(counters) -> None:
+    for c in counters.values():
+        c.launches = 0
+
+
+def _read_counts(counters) -> dict:
+    torch.cuda.synchronize()
+    return {k: c.launches for k, c in counters.items()}
 
 
 def _proto_counters():
@@ -2661,9 +2674,10 @@ def _mesh_rank(rank: int, world: int, port: int, task: str, tmp: str):
         dist.destroy_process_group()
 
 
-def _mesh_train_rank(dev, rank: int, tmp: str) -> dict:
+def _mesh_train_rank(dev, rank: int, tmp: str,
+                     argv: str = "argv.json") -> dict:
     from repro_torch.launch import train
-    with open(os.path.join(tmp, "argv.json")) as fh:
+    with open(os.path.join(tmp, argv)) as fh:
         run = train.main(json.load(fh))
     mesh, split = run.state.mesh, run.state.split
     return dict(step_s=run.step_s, sent=run.sent, losses=run.losses,
@@ -2671,13 +2685,15 @@ def _mesh_train_rank(dev, rank: int, tmp: str) -> dict:
                 P_m=split.local.size if split else run.n_params)
 
 
-def _mesh_tiny_rank(dev, rank: int, tmp: str, model: int = 1) -> dict:
+def _mesh_tiny_rank(dev, rank: int, tmp: str, model: int = 1,
+                    arch: str = "phi4-mini-3.8b", **over) -> dict:
     from repro_torch.launch import mesh as tmesh
-    run = _tiny_protocol()
+    run = _tiny_protocol("lm/tfm_tiny", arch, **over)
     mesh = tmesh.make_protocol_mesh(run["pcfg"].n_groups, model=model)
     params, picked, wall = _tiny_run(run, dev, mesh)
     if rank == 0:
-        torch.save(params, os.path.join(tmp, "tiny_params.pt"))
+        name = "tiny" if arch == "phi4-mini-3.8b" else f"tiny_{arch}"
+        torch.save(params, os.path.join(tmp, f"{name}_params.pt"))
     return dict(selections=[p.tolist() for p in picked], wall=wall,
                 mesh=mesh.sizes, backend=mesh.backend)
 
@@ -2858,26 +2874,16 @@ TP_SEQ = 512
 TP_LR = "0.0005"
 
 
-def _dense_tree(cfg):
-    """The dense family's :class:`FlatTree` at ``cfg`` from shapes alone
-    (meta tensors: nothing is allocated)."""
+def _meta_tree(cfg):
+    """The :class:`FlatTree` of ``cfg``'s family at ``cfg``, from the
+    family's own init under a fake-tensor mode: shapes alone, nothing is
+    allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     from repro_torch.core.simulator import FlatTree
-    L_, D, F_, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
-    qd, kvd = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
-
-    def m(*shape):
-        return torch.empty(shape, device="meta")
-
-    tree = {"embed": {"table": m(V, D)}, "ln_f": {"scale": m(D)},
-            "blocks": {"ln_attn": {"scale": m(L_, D)},
-                       "ln_mlp": {"scale": m(L_, D)},
-                       "attn": {"wq": m(L_, D, qd), "wk": m(L_, D, kvd),
-                                "wv": m(L_, D, kvd), "wo": m(L_, qd, D)},
-                       "mlp": {"w_gate": m(L_, D, F_), "w_up": m(L_, D, F_),
-                               "w_down": m(L_, F_, D)}}}
-    if not cfg.tie_embeddings:
-        tree["lm_head"] = {"table": m(V, D)}
-    return FlatTree.from_params(tree)
+    from repro_torch.models.registry import ModelBundle
+    with FakeTensorMode():
+        return FlatTree.from_params(ModelBundle(cfg).init(torch.Generator()))
 
 
 def _bf16_spread(dev, want) -> float:
@@ -2902,7 +2908,8 @@ def _bf16_spread(dev, want) -> float:
 
 def _tp_serve_rank(dev, rank: int, tmp: str) -> dict:
     """16 (a) on one rank of the (1, 2) serve mesh: ``launch/serve.py
-    --mesh 1x2``, then phase 4's quorum run and its honest replica."""
+    --mesh 1x2``, then phase 4's quorum run, each one's launches counted
+    from 0, and then its honest replica, not counted."""
     from repro_torch.core.attacks import ByzantineSpec
     from repro_torch.core.simulator import FlatTree
     from repro_torch.launch import mesh as tmesh
@@ -2910,9 +2917,12 @@ def _tp_serve_rank(dev, rank: int, tmp: str) -> dict:
     from repro_torch.models.registry import get_bundle
     from repro_torch.serve import QuorumService, ReplicaPool
     from repro_torch.serve.replica import tree_map
+    counters = _proto_counters()
     stats: dict = {}
+    _zero_counts(counters)
     t0 = time.perf_counter()
     ids = serve.main(TP_SERVE_ARGV + ["--mesh", "1x2"], stats=stats)
+    launcher = _read_counts(counters)
     launcher_s = time.perf_counter() - t0
     if rank == 0:
         torch.save(stats["logits"], os.path.join(tmp, "tp_logits.pt"))
@@ -2940,14 +2950,16 @@ def _tp_serve_rank(dev, rank: int, tmp: str) -> dict:
         kw = dict(n_slots=N_SLOTS, n_chunks=4, rule="median", rules=rules,
                   max_len=-(-(int(lens.max()) + MAX_NEW + 1) // 64) * 64)
         svc = QuorumService(pool, bundle, **kw)
+        _zero_counts(counters)
         t0 = time.perf_counter()
         outs = svc.generate(prompts, max_new=MAX_NEW)
-        torch.cuda.synchronize()
+        quorum = _read_counts(counters)
         wall = time.perf_counter() - t0
         rep = svc.report()
         base = QuorumService(honest, bundle, **kw).generate(prompts,
                                                             max_new=MAX_NEW)
     return dict(ids=ids.tolist(), launcher_s=launcher_s,
+                launcher_launches=launcher, quorum_launches=quorum,
                 prefill_s=stats["prefill_s"], tok_s_launcher=stats["tok_s"],
                 quorum=outs, honest=base, ejections=rep["ejections"],
                 wall=wall, tok_s=rep["tok_s"], mesh=smesh.sizes,
@@ -2961,46 +2973,56 @@ def _tp_train_rank(dev, rank: int, tmp: str) -> dict:
     part's launches counted from 0, its peak memory from a reset."""
     counters = _proto_counters()
     out = {}
-    for part, fn in (("train", _mesh_train_rank),
-                     ("tiny", lambda *a: _mesh_tiny_rank(*a, model=2))):
+    parts = [("train", _mesh_train_rank),
+             ("tiny", lambda *a: _mesh_tiny_rank(*a, model=2))]
+    if os.path.exists(os.path.join(tmp, "argv_zoo.json")):
+        # phase 17 (c) and (d) on the same ranks
+        parts += [("zoo_train", lambda *a: _mesh_train_rank(
+                      *a, argv="argv_zoo.json"))]
+        parts += [(f"tiny_{arch}", lambda *a, arch=arch: _mesh_tiny_rank(
+                      *a, model=2, arch=arch, param_dtype="float32"))
+                  for arch in TP_ZOO_TINY]
+    for part, fn in parts:
         for c in counters.values():
             c.launches = 0
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
         out[part] = fn(dev, rank, tmp)
         torch.cuda.synchronize()
         out[part].update(
             launches={k: c.launches for k, c in counters.items()},
-            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+            part_s=time.perf_counter() - t0)
     return out
 
 
 RANK_TASKS = {"train": _mesh_train_rank, "tiny": _mesh_tiny_rank,
-              "tp_serve": _tp_serve_rank, "tp_train": _tp_train_rank}
+              "tp_serve": _tp_serve_rank, "tp_train": _tp_train_rank,
+              "tp_zoo_serve": lambda *a: _tp_zoo_serve_rank(*a)}
 
 
-def _tp_reckon(pcfg, cfg):
-    """16 (b)'s depth, steps and tokens: the first of (depth, steps, rows
-    of ``TP_SEQ`` tokens a group) from (2, 3, 4) down to (1, 2, 1) whose
-    bytes a rank a step at ``TP_RATE`` fit ``TP_BUDGET_S`` and whose 8
-    ranks fit ``TP_MEM_GB`` of the card, each reckoned and printed: a
-    rank holds the whole f32 model while it draws it, then its blocks'
-    f32 replica and gradient and bf16 pull (10 bytes a value) and ~3
-    float32 copies of a sequence chunk's vocab-parallel logits, the
-    streamed chunks' buffers and the loss's gradients of the vocab
-    table's block (~2 GB) and its context (~1 GB), a fifth more for the
-    allocator's fragments (8 ranks at depth 1, 2 x 512 tokens held ~9.4
-    GB each of one H100 80GB HBM3)."""
+def _tp_reckon(pcfg, cfg, cands, budget_s: float, label: str):
+    """The depth, steps and rows of ``TP_SEQ`` tokens a group of a run of
+    ``cfg`` through ``launch/train.py --mesh 4x2``: the first of ``cands``
+    (or the last) whose bytes a rank a step at ``TP_RATE`` fit
+    ``budget_s`` and whose 8 ranks fit ``TP_MEM_GB`` of the card, each
+    reckoned and printed after ``label``: a rank holds the whole f32 model
+    while it draws it, then its blocks' f32 replica and gradient and bf16
+    pull (10 bytes a value) and ~3 float32 copies of a sequence chunk's
+    vocab-parallel logits, the streamed chunks' buffers and the loss's
+    gradients of the vocab table's block (~2 GB) and its context (~1 GB),
+    a fifth more for the allocator's fragments (8 ranks of phi4-mini-3.8b
+    at depth 1, 2 x 512 tokens held ~9.4 GB each of one H100 80GB HBM3)."""
     import dataclasses
 
     from repro_torch.core import protocol
     from repro_torch.launch import mesh as tmesh
     mesh = tmesh.Mesh(tmesh.AXES, (4, 1, 2))
-    cands = [(d, s, b) for d in (2, 1) for s in (3, 2) for b in (4, 2, 1)]
     for depth, steps, batch in cands:
         c = dataclasses.replace(cfg, n_layers=depth)
-        tree = _dense_tree(c)
+        tree = _meta_tree(c)
         P_m = protocol.model_split(c, tree, mesh).local.size
         scatter = protocol.collective_volume_bytes(pcfg, P_m)
         gram = 3 * -(-P_m // 4) * 4
@@ -3010,20 +3032,20 @@ def _tp_reckon(pcfg, cfg):
         logits = 3 * batch * min(TP_SEQ, 512) * (c.vocab // 2) * 4
         mem = 8 * 1.2 * (max(4 * tree.size + 4 * P_m, 10 * P_m + logits)
                          + 3e9)
-        log(f"[tp] (b) reckoning depth {depth}, {steps} steps, {batch} x "
-            f"{TP_SEQ} tokens: P = {tree.size:,}, a rank's blocks P_m = "
-            f"{P_m:,}; a step sends pull + aggregate {scatter / 1e9:.2f} GB "
-            f"(collective_volume_bytes), the Gram's all-to-all "
-            f"{gram / 1e9:.2f} GB, the 'model' tags {tp / 1e9:.3f} GB: "
-            f"{step_b / 1e9:.2f} GB, {secs:.0f} s at {TP_RATE / 1e9:.2f} "
-            f"GB/s a rank (budget {TP_BUDGET_S:.0f} s); 8 ranks "
-            f"{mem / 1e9:.1f} GB (budget {TP_MEM_GB:.0f} GB)")
-        if secs <= TP_BUDGET_S and mem <= TP_MEM_GB * 1e9 \
+        log(f"{label} reckoning {cfg.name} depth {depth}, {steps} steps, "
+            f"{batch} x {TP_SEQ} tokens: P = {tree.size:,}, a rank's blocks "
+            f"P_m = {P_m:,}; a step sends pull + aggregate "
+            f"{scatter / 1e9:.2f} GB (collective_volume_bytes), the Gram's "
+            f"all-to-all {gram / 1e9:.2f} GB, the 'model' tags "
+            f"{tp / 1e9:.3f} GB: {step_b / 1e9:.2f} GB, {secs:.0f} s at "
+            f"{TP_RATE / 1e9:.2f} GB/s a rank (budget {budget_s:.0f} s); 8 "
+            f"ranks {mem / 1e9:.1f} GB (budget {TP_MEM_GB:.0f} GB)")
+        if secs <= budget_s and mem <= TP_MEM_GB * 1e9 \
                 or (depth, steps, batch) == cands[-1]:
             return depth, steps, batch
 
 
-def tp_phase(dev, parts: str = "ab") -> dict:
+def tp_phase(dev, parts: str = "ab", zoo: bool = True) -> dict:
     """Phase 16: the 'model' axis on ranks sharing the card over gloo. (a)
     phi4-mini-3.8b at full width and depth, random bf16 weights, through
     ``launch/serve.py --mesh 1x2``: the prefill logits against the
@@ -3037,9 +3059,11 @@ def tp_phase(dev, parts: str = "ab") -> dict:
     rank's blocks, the 'model' tags equal to ``model_volume_bytes``; rows
     1-4, 7 and 8 launched each step. (c) ``lm/tfm_tiny`` at (rep 4, fsdp 1,
     model 2) on 8 ranks against the single-card CPU run: every MDA
-    selection equal; (b) and (c) share one start of 8 ranks. Returns the
-    kernel launches of the runs; ``parts`` names the parts to run, ``a``
-    and ``b`` (with (c)); ``tools/tp_phase.py`` runs them alone."""
+    selection equal; (b) and (c) share one start of 8 ranks, and with
+    ``zoo`` phase 17 (c) and (d) run on the same ranks after them (their
+    gates are :func:`tp_zoo_phase`'s). Returns the kernel launches of the
+    runs; ``parts`` names the parts to run, ``a`` and ``b`` (with (c));
+    ``tools/tp_phase.py`` runs them alone."""
     import tempfile
 
     from repro_torch.core.protocol import (collective_volume_bytes,
@@ -3084,12 +3108,14 @@ def tp_phase(dev, parts: str = "ab") -> dict:
             raise AssertionError(f"phase 16 (a): prefill logits rel-L2 "
                                  f"{rel}")
         for r, o in enumerate(outs):
-            add(o["launches"])
+            add(o["launcher_launches"])
+            add(o["quorum_launches"])
             log(f"[tp] (a) rank {r}: quorum run {o['wall']:.2f} s "
                 f"({o['tok_s']:.2f} tok/s), ejections {o['ejections']}, peak "
                 f"device memory {o['peak_gb']:.1f} GB, w_gate block "
                 f"{o['w_gate']}, bytes sent by tag {o['sent']}; launches "
-                + json.dumps(o["launches"]))
+                f"of the launcher {json.dumps(o['launcher_launches'])}, of "
+                f"the quorum run {json.dumps(o['quorum_launches'])}")
             if o["quorum"] != o["honest"] or \
                     o["quorum"] != outs[0]["quorum"]:
                 raise AssertionError(f"phase 16 (a) rank {r}: the quorum "
@@ -3097,10 +3123,11 @@ def tp_phase(dev, parts: str = "ab") -> dict:
             if [i for _, i in o["ejections"]] != [N_REPLICAS - 1]:
                 raise AssertionError(f"phase 16 (a) rank {r}: ejections "
                                      f"{o['ejections']}")
-            for k in ("flash_attention", "cwise_median"):
-                if o["launches"][k] <= 0:
-                    raise AssertionError(f"phase 16 (a) rank {r}: {k} not "
-                                         "launched")
+            if o["launcher_launches"]["flash_attention"] <= 0 or any(
+                    o["quorum_launches"][k] <= 0
+                    for k in ("flash_attention", "cwise_median")):
+                raise AssertionError(f"phase 16 (a) rank {r}: the flash "
+                                     "forward or the median not launched")
         log(f"[tp] (a) token-identical to the honest replica on the mesh "
             f"({N_REQUESTS} requests x {MAX_NEW} tokens), replica "
             f"{N_REPLICAS - 1} ejected: {time.perf_counter() - t0:.1f} s")
@@ -3111,7 +3138,9 @@ def tp_phase(dev, parts: str = "ab") -> dict:
         cfg = get_bundle(TP_ARCH).cfg
         G = 4
         pcfg = train.protocol_config(G, 5)
-        depth, steps, batch = _tp_reckon(pcfg, cfg)
+        depth, steps, batch = _tp_reckon(
+            pcfg, cfg, [(d, s, b) for d in (2, 1) for s in (3, 2)
+                        for b in (4, 2, 1)], TP_BUDGET_S, "[tp] (b)")
         argv = ["--arch", TP_ARCH, "--depth", str(depth), "--groups", str(G),
                 "--T", "5", "--seq", str(TP_SEQ), "--batch-per-group",
                 str(batch), "--steps", str(steps), "--lr", TP_LR,
@@ -3121,11 +3150,20 @@ def tp_phase(dev, parts: str = "ab") -> dict:
             f"{free / 1e9:.1f} of {card / 1e9:.1f} GB free (this process "
             f"holds {torch.cuda.memory_reserved(dev) / 1e9:.1f} GB)")
         run = _tiny_protocol()
+        zoo_argv = _tp_zoo_train_argv(pcfg) if zoo else None
         with tempfile.TemporaryDirectory() as tmp:
             with open(os.path.join(tmp, "argv.json"), "w") as fh:
                 json.dump(argv, fh)
+            if zoo:
+                with open(os.path.join(tmp, "argv_zoo.json"), "w") as fh:
+                    json.dump(zoo_argv["argv"], fh)
             outs = _spawn_ranks("tp_train", 8, tmp)
             ranks = torch.load(os.path.join(tmp, "tiny_params.pt"))
+            if zoo:
+                TP_ZOO_RANKS.update(outs=outs, **zoo_argv, tiny={
+                    arch: torch.load(os.path.join(
+                        tmp, f"tiny_{arch}_params.pt"))
+                    for arch in TP_ZOO_TINY})
         import dataclasses
         c = dataclasses.replace(cfg, n_layers=depth)
         tp_want = model_volume_bytes(c, 2, batch * TP_SEQ)
@@ -3184,6 +3222,374 @@ def tp_phase(dev, parts: str = "ab") -> dict:
         _tiny_compare(run, {"cpu": cpu, "ranks": ranks},
                       {"cpu": sels, "ranks": picked}, "tp", "ranks")
         log(f"[tp] (b) and (c): {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the 'model' axis for the MoE, hybrid, RWKV6 and audio families
+# ---------------------------------------------------------------------------
+
+# (a): launch/serve.py at full width, one card against --mesh 1x2: (arch,
+# depth (None: the arch's), launcher argv); qwen3-moe at phase 13's serving
+# depth, whisper-small over 1500 encoder frames (its prefill's tokens are
+# half the batch's S)
+TP_ZOO = (
+    (MOE_ARCH, 2, ["--batch", "2", "--prefill", "512", "--decode", "8"]),
+    (RWKV_ARCH, None, ["--batch", "2", "--prefill", "512", "--decode", "8"]),
+    (HYBRID_ARCH, None, ["--batch", "2", "--prefill", "512", "--decode",
+                         "8"]),
+    (AUDIO_ARCH, None, ["--batch", "2", "--prefill", "3000", "--decode",
+                        "8"]),
+)
+# (b): quorum serving at model 2 at these depths (rwkv6-3b and zamba2-1.2b
+# cut to a quarter and a third: their full depth is (a)'s, and a quorum run
+# decodes each replica and slot alone, ~30 s of the script's limit at full
+# depth over gloo): 4 replicas (replica 3 reversed), these requests of at
+# most this many prompt tokens, this many new tokens each
+TP_ZOO_QUORUM = {MOE_ARCH: 2, RWKV_ARCH: 8, HYBRID_ARCH: 12}
+# (a)'s gates: the split's prefill logits against one card's with float32
+# activations within TP_ZOO_F32_TOL (rel-L2; 4.1e-6 to 3.2e-5 measured on
+# one H100 80GB HBM3, 700 W: the split's float32 summation order, so a
+# fault that moves the logits by a part in a thousand fails); with bf16
+# within TP_ZOO_SPREAD_X times bf16's own spread (one card's bf16 logits
+# against its float32 ones), a looser yardstick: with random weights at
+# full depth bf16 alone moves these logits by 2.4e-2 (qwen3-moe), 1.7e-1
+# (rwkv6-3b), 4.9e-2 (zamba2-1.2b) and 8.6e-3 (whisper-small) on that card
+TP_ZOO_F32_TOL = 1e-3
+TP_ZOO_SPREAD_X = 2.0
+TP_ZOO_REQUESTS, TP_ZOO_PROMPT, TP_ZOO_NEW = 2, 256, 8
+# (c): zamba2-1.2b through launch/train.py --mesh 4x2, its depth and tokens
+# reckoned as 16 (b)'s, 2 steps, within this time budget
+TP_ZOO_BUDGET_S = 40.0
+# (d): the reduced families card against CPU on 16 (b)'s ranks
+TP_ZOO_TINY = (MOE_ARCH, HYBRID_ARCH)
+TP_ZOO_RANKS: dict = {}
+
+
+def _zoo_argv(arch: str, depth, argv: list) -> list:
+    return ["--arch", arch] + argv + ([] if depth is None
+                                      else ["--depth", str(depth)])
+
+
+def _tp_zoo_train_argv(pcfg) -> dict:
+    """17 (c)'s argv: zamba2-1.2b at full width, G = 4, ``launch/train.py
+    --mesh 4x2``, 2 steps, its depth (whole shared-block periods: 12, then
+    6) and rows of ``TP_SEQ`` tokens reckoned as 16 (b)'s are, within
+    ``TP_ZOO_BUDGET_S``."""
+    import dataclasses
+
+    from repro_torch.models.registry import get_bundle
+    cfg = get_bundle(HYBRID_ARCH).cfg
+    depth, steps, batch = _tp_reckon(
+        pcfg, cfg, [(d, 2, b) for d in (12, 6) for b in (2, 1)],
+        TP_ZOO_BUDGET_S, "[tp-zoo] (c)")
+    argv = ["--arch", HYBRID_ARCH, "--depth", str(depth), "--groups", "4",
+            "--T", "5", "--seq", str(TP_SEQ), "--batch-per-group",
+            str(batch), "--steps", str(steps), "--lr", TP_LR, "--log-every",
+            "1", "--mesh", "4x2"]
+    return {"argv": argv, "cfg": dataclasses.replace(cfg, n_layers=depth),
+            "steps": steps, "tokens": batch * TP_SEQ, "pcfg": pcfg}
+
+
+def _tp_zoo_quorum(dev, arch: str, depth, counters) -> dict:
+    """17 (b) on one rank of the (1, 2) serve mesh: the quorum run of 4
+    replicas (replica 3 reversed), its launches counted from 0, and then
+    the honest replica's, not counted."""
+    from repro_torch.core.attacks import ByzantineSpec
+    from repro_torch.core.simulator import FlatTree
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import steps
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.serve import QuorumService, ReplicaPool
+    from repro_torch.serve.replica import tree_map
+    bundle = get_bundle(arch, depth=depth)
+    cfg = bundle.cfg
+    smesh = tmesh.make_serve_mesh(tmesh.make_mesh((1, 2), ("data", "model")))
+    rules = steps.serve_rules(smesh, cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        params = bundle.init(torch.Generator(device=dev).manual_seed(SEED),
+                             dtype=torch.bfloat16)
+        specs = steps.serve_param_sharding(FlatTree.from_params(params),
+                                           smesh, cfg)
+        pool = ReplicaPool.from_params(params, N_REPLICAS, f=F_BYZ).shard(
+            specs, smesh)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        honest = ReplicaPool(params=tree_map(lambda l: l[:1], pool.params),
+                             f=0, sharded=True)
+        pool = pool.corrupt(ByzantineSpec(server_attack="reversed",
+                                          n_byz_servers=1))
+        rng = np.random.default_rng(SEED)
+        lens = rng.integers(64, TP_ZOO_PROMPT + 1, size=TP_ZOO_REQUESTS)
+        prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+        kw = dict(n_slots=TP_ZOO_REQUESTS, n_chunks=4, rule="median",
+                  rules=rules,
+                  max_len=-(-(int(lens.max()) + TP_ZOO_NEW + 1) // 64) * 64)
+        svc = QuorumService(pool, bundle, **kw)
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        outs = svc.generate(prompts, max_new=TP_ZOO_NEW)
+        launches = _read_counts(counters)
+        wall = time.perf_counter() - t0
+        rep = svc.report()
+        base = QuorumService(honest, bundle, **kw).generate(
+            prompts, max_new=TP_ZOO_NEW)
+    return dict(quorum=outs, honest=base, ejections=rep["ejections"],
+                quorum_launches=launches,
+                quorum_s=wall, quorum_tok_s=rep["tok_s"],
+                quorum_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                prompt_lens=lens.tolist())
+
+
+def _tp_zoo_serve_rank(dev, rank: int, tmp: str) -> dict:
+    """17 (a) and (b) on one rank of the (1, 2) serve mesh: each model
+    through ``launch/serve.py --mesh 1x2`` (its launches counted from 0),
+    its float32-activation prefill on the same split (not counted), then
+    its quorum run."""
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import serve
+    counters = _proto_counters()
+    out = {}
+    for arch, depth, argv in TP_ZOO:
+        stats: dict = {}
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        ids = serve.main(_zoo_argv(arch, depth, argv) + ["--mesh", "1x2"],
+                         stats=stats)
+        rec = dict(ids=ids.tolist(), launches=_read_counts(counters),
+                   launcher_s=time.perf_counter() - t0,
+                   prefill_s=stats["prefill_s"], tok_s=stats["tok_s"])
+        smesh = tmesh.make_serve_mesh(tmesh.make_mesh((1, 2),
+                                                      ("data", "model")))
+        f32 = _f32_logits(dev, arch, depth, argv, smesh)
+        if rank == 0:
+            torch.save({"bf16": stats["logits"], "f32": f32},
+                       os.path.join(tmp, f"zoo_logits_{arch}.pt"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch in TP_ZOO_QUORUM:
+            rec.update(_tp_zoo_quorum(dev, arch, TP_ZOO_QUORUM[arch],
+                                      counters))
+            gc.collect()
+            torch.cuda.empty_cache()
+        out[arch] = rec
+    return out
+
+
+def _f32_logits(dev, arch: str, depth, argv: list, smesh=None):
+    """A ``TP_ZOO`` entry's weights and batch as the launcher draws them
+    (seeds 0 and 1; bf16 weights) prefilled with float32 activations: on
+    one card, or split over ``smesh``'s 'model' ranks (the launcher's
+    blocks and rule table). Returns the last-token logits, joined over
+    the vocab, on the host."""
+    import dataclasses
+
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding as shr
+    from repro_torch.models.registry import ModelBundle, get_bundle
+    B, S = (int(argv[argv.index(k) + 1]) for k in ("--batch", "--prefill"))
+    bundle = ModelBundle(dataclasses.replace(
+        get_bundle(arch, depth=depth).cfg, act_dtype="float32"))
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16)
+    pf = bundle.make_batch("prefill", B, S,
+                           torch.Generator(device=dev).manual_seed(1))
+    rules, M = None, 1
+    if smesh is not None:
+        params = serve._cut_params(params, smesh, bundle.cfg)
+        rules, M = steps.serve_rules(smesh, bundle.cfg), smesh.size("model")
+    with torch.inference_mode(), shr.sharding_rules(rules):
+        caches = bundle.init_caches(B, max_len=S + 2, n_chunks=M,
+                                    device=dev)
+        got = L.gather_vocab(bundle.prefill(params, pf, caches)[0])
+    return got.float().cpu()
+
+
+def _rel(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def tp_zoo_phase(dev, parts: str = "ab") -> dict:
+    """Phase 17: the 'model' axis for the MoE, hybrid, RWKV6 and audio
+    families on ranks sharing the card over gloo. (a) qwen3-moe-235b-a22b
+    at phase 13's serving depth (2 of 94), rwkv6-3b and zamba2-1.2b at
+    full depth and whisper-small over 1500 encoder frames, random bf16
+    weights at full width, through ``launch/serve.py --mesh 1x2``: the
+    prefill logits against the single card's (float32 activations within
+    ``TP_ZOO_F32_TOL`` rel-L2, bf16 within ``TP_ZOO_SPREAD_X`` times one
+    card's bf16 against its float32 activations), decode tok/s; (b) a quorum run at model 2 for the first
+    three (at the depths of ``TP_ZOO_QUORUM``): 4 replicas with replica 3
+    reversed, token-identical to the honest replica on the mesh, replica
+    3 ejected, tok/s and GB a rank;
+    (a) and (b) share one start of 2 ranks. (c) zamba2-1.2b at full width
+    through ``launch/train.py --mesh 4x2`` (depth and tokens reckoned), 2
+    steps: finite losses, each rank's bytes equal to
+    ``collective_volume_bytes`` and ``model_volume_bytes``; (d) the reduced
+    MoE and hybrid in f32 at (rep 4, fsdp 1, model 2) against the CPU,
+    every MDA selection equal. (c) and (d) run on phase 16 (b)'s ranks
+    (``tp_phase(..., zoo=True)``), and are checked here when that ran.
+    Returns the kernel launches of the runs and the phase's seconds."""
+    import tempfile
+
+    from repro_torch.core.protocol import (collective_volume_bytes,
+                                           model_volume_bytes)
+    from repro_torch.launch import serve
+    total: dict = {}
+    t0 = time.perf_counter()
+
+    def add(got):
+        for k in MESH_KERNELS:
+            total[k] = total.get(k, 0) + got.get(k, 0)
+
+    # (a) and (b) ------------------------------------------------------------
+    if "a" in parts:
+        one = {}
+        for arch, depth, argv in TP_ZOO:
+            stats: dict = {}
+            with torch.inference_mode():
+                serve.main(_zoo_argv(arch, depth, argv), stats=stats)
+                gc.collect()
+                torch.cuda.empty_cache()
+                f32 = _f32_logits(dev, arch, depth, argv)
+            one[arch] = dict(stats, f32=f32,
+                             spread=_rel(stats["logits"], f32))
+            gc.collect()
+            torch.cuda.empty_cache()
+        failed = []
+        with tempfile.TemporaryDirectory() as tmp:
+            outs = _spawn_ranks("tp_zoo_serve", 2, tmp)
+            got = {arch: torch.load(os.path.join(tmp,
+                                                 f"zoo_logits_{arch}.pt"))
+                   for arch, _, _ in TP_ZOO}
+        for arch, depth, argv in TP_ZOO:
+            want, o = one[arch]["logits"], outs[0][arch]
+            g, g32 = got[arch]["bf16"], got[arch]["f32"]
+            rel, rel32 = _rel(g, want), _rel(g32, one[arch]["f32"])
+            spread = one[arch]["spread"]
+            same_tok = int((g.argmax(-1) == want.argmax(-1)).sum())
+            log(f"[tp-zoo] (a) {arch}"
+                + (f" depth {depth}" if depth else " full depth")
+                + f", full width, bf16, launch/serve.py {' '.join(argv)} "
+                f"--mesh 1x2: prefill {o['prefill_s']:.2f} s (one card "
+                f"{one[arch]['prefill_s']:.2f} s), decode {o['tok_s']:.2f} "
+                f"tok/s (one card {one[arch]['tok_s']:.2f}); prefill logits "
+                f"against the single card: float32 activations rel-L2 "
+                f"{rel32:.3e} (gate {TP_ZOO_F32_TOL}), bf16 {rel:.3e} (gate "
+                f"{TP_ZOO_SPREAD_X} x bf16's own spread, one card's bf16 "
+                f"against its float32 activations: {spread:.3e}), greedy "
+                f"token equal in {same_tok} of {want.shape[0]} rows")
+            if rel32 > TP_ZOO_F32_TOL or not torch.isfinite(g32).all():
+                failed.append(f"{arch}: float32 prefill logits rel-L2 "
+                              f"{rel32}")
+            if rel > TP_ZOO_SPREAD_X * spread or not torch.isfinite(g).all():
+                failed.append(f"{arch}: bf16 prefill logits rel-L2 {rel} "
+                              f"(bf16's spread {spread})")
+            for r, o in enumerate(outs):
+                o = o[arch]
+                add(o["launches"])
+                log(f"[tp-zoo] (a) {arch} rank {r}: the launcher's launches "
+                    + json.dumps(o["launches"]))
+                if arch != RWKV_ARCH and o["launches"]["flash_attention"] \
+                        <= 0:
+                    raise AssertionError(f"phase 17 (a) {arch} rank {r}: "
+                                         "the flash forward not launched")
+                if arch not in TP_ZOO_QUORUM:
+                    continue
+                add(o["quorum_launches"])
+                log(f"[tp-zoo] (b) {arch} depth {TP_ZOO_QUORUM[arch]} rank "
+                    f"{r}: {N_REPLICAS} replicas, "
+                    f"{TP_ZOO_REQUESTS} requests of {o['prompt_lens']} "
+                    f"prompt tokens x {TP_ZOO_NEW} new: "
+                    f"{o['quorum_s']:.2f} s ({o['quorum_tok_s']:.2f} tok/s),"
+                    f" {o['quorum_gb']:.1f} GB a rank, ejections "
+                    f"{o['ejections']}; the quorum run's launches "
+                    + json.dumps(o["quorum_launches"]))
+                if o["quorum"] != o["honest"] or \
+                        o["quorum"] != outs[0][arch]["quorum"]:
+                    raise AssertionError(f"phase 17 (b) {arch} rank {r}: the "
+                                         "quorum run differs from the honest "
+                                         "replica")
+                if [i for _, i in o["ejections"]] != [N_REPLICAS - 1]:
+                    raise AssertionError(f"phase 17 (b) {arch} rank {r}: "
+                                         f"ejections {o['ejections']}")
+                q = o["quorum_launches"]
+                if q["cwise_median"] <= 0 or (
+                        arch != RWKV_ARCH and q["flash_attention"] <= 0):
+                    raise AssertionError(f"phase 17 (b) {arch} rank {r}: the "
+                                         "median or the flash forward not "
+                                         f"launched: {q}")
+        if failed:   # every model's line printed first
+            raise AssertionError("phase 17 (a): " + "; ".join(failed))
+        log(f"[tp-zoo] (a) and (b): {time.perf_counter() - t0:.1f} s")
+
+    # (c) and (d), run on phase 16 (b)'s ranks -------------------------------
+    ranks_s = 0.0
+    if TP_ZOO_RANKS:
+        z = TP_ZOO_RANKS
+        outs, steps = z["outs"], z["steps"]
+        tp_want = model_volume_bytes(z["cfg"], 2, z["tokens"])
+        for r, o in enumerate(o["zoo_train"] for o in outs):
+            add(o["launches"])
+            exact = collective_volume_bytes(z["pcfg"], o["P_m"])
+            scatter = [b.get("pull", 0) + b.get("aggregate", 0)
+                       for b in o["sent"]]
+            warm = o["step_s"][1:] or o["step_s"]
+            log(f"[tp-zoo] (c) {HYBRID_ARCH} {' '.join(z['argv'])} rank {r} "
+                f"of 8 (mesh {o['mesh']}, P = {o['P']:,}, P_m = "
+                f"{o['P_m']:,}): peak device memory {o['peak_gb']:.1f} GB; "
+                f"{len(warm) / sum(warm):.4f} steps/s after the first (steps "
+                f"{[round(x, 2) for x in o['step_s']]} s); bytes a step by "
+                f"tag {o['sent']}; pull + aggregate {scatter} against "
+                f"collective_volume_bytes(n_params=P_m) {exact}; the 'model' "
+                f"tags' formula {tp_want}; launches "
+                + json.dumps(o["launches"]))
+            if o["mesh"] != {"rep": 4, "fsdp": 1, "model": 2} or any(
+                    b != exact for b in scatter):
+                raise AssertionError(f"phase 17 (c) rank {r}: mesh "
+                                     f"{o['mesh']}, bytes {scatter} against "
+                                     f"{exact}")
+            for sent in o["sent"]:
+                for tag, n in tp_want.items():
+                    if sent.get(tag) != n:
+                        raise AssertionError(f"phase 17 (c) rank {r}: {tag} "
+                                             f"{sent.get(tag)} against {n}")
+            for k in MESH_KERNELS:
+                if o["launches"][k] < steps:
+                    raise AssertionError(
+                        f"phase 17 (c) rank {r}: {k} launched "
+                        f"{o['launches'][k]} times in {steps} steps")
+        losses = [x for _, x in outs[0]["zoo_train"]["losses"]]
+        log(f"[tp-zoo] (c) losses (rank 0) {losses}")
+        if len(losses) != steps or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"phase 17 (c): losses {losses}")
+        ranks_s = max(o["zoo_train"]["part_s"] for o in outs)
+        for arch in TP_ZOO_TINY:
+            key = f"tiny_{arch}"
+            run = _tiny_protocol("lm/tfm_tiny", arch, param_dtype="float32")
+            cpu, sels, wall = _tiny_cpu(run)
+            picked = [torch.tensor(p) for p in outs[0][key]["selections"]]
+            for r, o in enumerate(o[key] for o in outs):
+                add(o["launches"])
+                if o["mesh"] != {"rep": 4, "fsdp": 1, "model": 2} or any(
+                        not torch.equal(torch.tensor(p), q)
+                        for p, q in zip(o["selections"], picked)):
+                    raise AssertionError(f"phase 17 (d) {arch} rank {r}: "
+                                         f"mesh {o['mesh']}, or its "
+                                         "selections differ from rank 0's")
+            o = outs[0][key]
+            log(f"[tp-zoo] (d) {arch} reduced f32 on 8 ranks (mesh "
+                f"{o['mesh']}) {o['wall']:.1f} s, on the CPU {wall:.1f} s; "
+                f"launches a rank " + json.dumps(o["launches"]))
+            _tiny_compare(run, {"cpu": cpu, "ranks": z["tiny"][arch]},
+                          {"cpu": sels, "ranks": picked}, "tp-zoo",
+                          "ranks")
+            ranks_s += max(o[key]["part_s"] for o in outs)
+    total["seconds"] = time.perf_counter() - t0 + ranks_s
+    log(f"[tp-zoo] phase 17: {total['seconds']:.1f} s ({ranks_s:.1f} s of "
+        f"it (c) and (d) on phase 16 (b)'s ranks)")
     return total
 
 
@@ -3285,6 +3691,13 @@ def main() -> int:
     t16 = time.perf_counter()
     tp_launches = tp_phase(dev)
     log(f"[tp] phase 16 took {time.perf_counter() - t16:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 17: the 'model' axis for the other families
+    zoo_tp = tp_zoo_phase(dev)
+    zoo_tp.pop("seconds")
+    for k, v in zoo_tp.items():
+        tp_launches[k] = tp_launches.get(k, 0) + v
     for part in (ckpt_launches, netsim_launches, resume_launches,
                  elastic_launches, *zoo_launches, mesh_launches,
                  tp_launches):

@@ -78,7 +78,7 @@ import torch
 from .. import agg
 from .. import optim as _optim
 from ..device import resolve
-from ..launch.mesh import AXES, ITEM_17, Mesh
+from ..launch.mesh import AXES, MODEL_AXIS_REFUSAL, Mesh
 from ..models import sharding as _sharding
 from . import attacks as _attacks
 from .attacks import ByzantineSpec, inject_gradients, inject_models
@@ -280,9 +280,20 @@ def attn_overrides(cfg, mesh) -> dict:
     split would cost a reduction of q, k and v in every block (ROADMAP.md
     Queue 3). ``mesh``: a mesh or its 'model' size."""
     M = mesh if isinstance(mesh, int) else mesh.size("model")
-    return {"wq": "col" if cfg.n_heads % M == 0 else "row",
-            "wk": "col" if cfg.n_kv_heads % M == 0 else "row",
-            "wv": "col" if cfg.n_kv_heads % M == 0 else "row"}
+    H, kvH, _ = attn_counts(cfg)
+    return {"wq": "col" if H % M == 0 else "row",
+            "wk": "col" if kvH % M == 0 else "row",
+            "wv": "col" if kvH % M == 0 else "row"}
+
+
+def attn_counts(cfg) -> tuple[int, int, int]:
+    """``(heads, kv heads, SwiGLU hidden)`` of the model's attention and
+    MLP blocks: the hybrid family's shared block has its own
+    (``shared_attn_heads``, ``shared_attn_d_ff``)."""
+    if getattr(cfg, "family", None) == "hybrid":
+        H = cfg.shared_attn_heads or cfg.n_heads
+        return H, H, cfg.shared_attn_d_ff or cfg.d_ff
+    return cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
 
 
 def state_shardings(tree: FlatTree, mesh, overrides: dict | None = None
@@ -345,6 +356,10 @@ def model_dims(tree: FlatTree, M: int, overrides: dict | None) -> list:
     return out
 
 
+#: the roots of the layer stacks (leaves ``[L, ...]``) of every family
+STACKS = ("blocks", "mamba", "enc_blocks", "dec_blocks")
+
+
 class ModelSplit:
     """The 'model' axis's cut of a model's flat layout: for each leaf of
     ``tree`` the dim split over M ranks (``dims``), and this rank's
@@ -354,7 +369,7 @@ class ModelSplit:
     def __init__(self, tree: FlatTree, dims: list, M: int, m: int):
         self.tree, self.dims, self.M, self.m = tree, list(dims), M, m
         for path, d in zip(tree.paths, self.dims):
-            if d == 0 and path[0] == "blocks":
+            if d == 0 and path[0] in STACKS:
                 raise NotImplementedError(
                     f"{'/'.join(path)}: the 'model' axis would split the "
                     "layer stack")
@@ -413,9 +428,10 @@ class ModelSplit:
 
 def model_split(cfg, tree: FlatTree, mesh: Mesh | None) -> ModelSplit | None:
     """The :class:`ModelSplit` of a model of config ``cfg`` on ``mesh``
-    (``None`` without a 'model' axis). The families of
-    :data:`repro_torch.models.registry.MODEL_AXIS_FAMILIES` take one; any
-    other model is refused, naming ROADMAP.md Queue 1 item 17."""
+    (``None`` without a 'model' axis). Every family of
+    :data:`repro_torch.models.registry.MODEL_AXIS_FAMILIES` takes one; a
+    model without a family (the paper's MLPs) is refused, naming ROADMAP.md
+    Queue 1 item 19."""
     if mesh is None or mesh.size("model") == 1:
         return None
     from ..models.registry import check_model_axis
@@ -475,7 +491,7 @@ class _Ranks:
         if self.M > 1 and split is None:
             raise NotImplementedError(
                 f"a 'model' axis of {self.M} needs the model's per-leaf "
-                f"split (protocol.model_split): {ITEM_17}")
+                f"split (protocol.model_split): {MODEL_AXIS_REFUSAL}")
         self.split = split if self.M > 1 else None
         self.P = P
         self.lay = state_layout(self.mesh, self.G,
@@ -1494,66 +1510,187 @@ def collective_volume_bytes(pcfg: ProtocolConfig, n_params: int,
     return 2 * (rep - 1) * (G // rep) * n_params * itemsize // (fsdp * model)
 
 
-def model_volume_bytes(cfg, M: int, tokens: int, n_groups: int = 1) -> dict:
+def _attn_values(n: int, D: int, H: int, kvH: int, hd: int, M: int):
+    """(forward, backward) values one attention sub-block of n tokens
+    moves over 'model' (before remat's second forward): the q / k / v
+    layouts of :func:`attn_overrides` and ``wo``'s reduction."""
+    q_split, kv_split = H % M == 0, kvH % M == 0
+    d_split = D % M == 0
+    fwd = bwd = 0
+    if not q_split and d_split:
+        fwd += n * H * hd
+        bwd += n * D // M
+    if not kv_split and d_split:
+        fwd += 2 * n * kvH * hd
+        bwd += 2 * n * D // M
+    if q_split:
+        bwd += n * D                      # the copy before column-parallel
+        if not kv_split:
+            bwd += 2 * n * kvH * hd       # k and v shared by every rank
+    if (H * hd) % M == 0:
+        fwd += n * D
+        if not q_split:
+            bwd += n * H * hd // M
+    return fwd, bwd
+
+
+def _divides(n: int, M: int) -> bool:
+    return n % M == 0 and n >= M
+
+
+def model_volume_bytes(cfg, M: int, tokens: int, n_groups: int = 1, *,
+                       seq: int | None = None,
+                       frames: int | None = None) -> dict:
     """The bytes one rank sends over 'model' (all-gathers of ``M - 1``
     blocks; every reduction is one) for ``n_groups`` losses and gradients
     of ``tokens`` tokens each (a rank's groups and its 'fsdp' part of
-    their rows) of the dense or vlm family ``cfg`` at M ranks, by tag, as
-    :mod:`repro_torch.models.layers` runs them with block remat (each
-    block's forward twice, but for its last reduction: the recomputation
-    stops at the last tensor the backward needs, and w_down's output is
-    not one) and the loss by sequence chunks (each chunk's statistics
-    twice):
+    their rows) of the model ``cfg`` at M ranks, by tag, as the families'
+    split forms run them with block remat (each remat'd block's forward
+    twice, but for what follows the last tensor its backward needs: the
+    recomputation stops there, so a block ending in a reduction — the
+    dense and MoE FFN, Mamba2's ``out_proj``, whisper's GELU MLP and its
+    ``b_down`` — reduces once) and the loss by sequence chunks (each
+    chunk's statistics twice):
 
-    * ``model`` — per block, forward (x2): a row-parallel q, k or v
-      (heads not split) reduces its ``[N, H hd]`` / ``[N, kvH hd]``, wo
-      and w_down reduce ``[N, D]``; backward: one ``[N, D]`` sum before
+    * ``model`` — per attention block, forward (x2): a row-parallel q, k
+      or v (heads not split) reduces its ``[N, H hd]`` / ``[N, kvH hd]``,
+      wo reduces ``[N, D]``; backward: one ``[N, D]`` sum before
       column-parallel q/k/v (a column-parallel q alone when k/v are not),
       a ``[N, D/M]`` gather for each row-parallel projection's input, the
       shared k/v's ``[N, kvH hd]`` each when q alone splits, wo's input
-      gather when the heads are whole, and one ``[N, D]`` sum before
-      column-parallel w_gate/w_up; then the embedding's ``[N, D]``
+      gather when the heads are whole. The FFNs: SwiGLU and GELU one
+      ``[N, D]`` reduction forward and one sum backward; the MoE the same
+      on the combined ``[T, D]`` plus the routing weights' ``[E, C]``
+      float32 sum backward (per routing chunk); Mamba2 (remat'd; the
+      shared block is not) ``in_proj``'s ``[N, 2 d_inner + 2N + H]``
+      reduction (x2) and ``out_proj``'s ``[N, D]``, backward their inputs'
+      ``[N, D/M]`` and ``[N, d_inner/M]`` gathers; RWKV6 (every
+      reduction x2) r/k/v/g's joined ``[N, 4D]``, the LoRA's ``[N, 64]``
+      and ``[N, D]`` in float32, ``Wo``'s ``[N, D]`` and the channel
+      mix's joined ``[N, 2D]``, backward each row-parallel input's
+      ``[N, in/M]`` gather and the ``[N, D]`` sum before ``cWk``; whisper's
+      cross-attention the sum of the ``frames`` x D encoder output before
+      its k/v (one per decoder block). Then the embedding's ``[N, D]``
       reduction (token inputs; the vlm family takes embeddings) and the
-      hidden's ``[N, D]`` sum before the vocab-parallel logits;
-    * ``model_leaves`` — each block's norm leaves split on D (x2);
+      hidden's ``[N, D]`` sum before the vocab-parallel logits, and
+      whisper's ``pos_dec`` rows, ``[seq, D]``, once;
+    * ``model_leaves`` — each block's leaves split over 'model' that are
+      gathered whole at use (the norms, the MoE router, the Mamba2 conv,
+      decay and norm leaves, RWKV6's token-shift, decay and norm leaves,
+      whisper's ``b_down`` once), twice;
     * ``model_loss`` — per token three float32 statistics, twice.
 
-    Every activation moves in ``cfg.act_dtype``."""
+    Every activation and leaf moves in ``cfg.act_dtype``; the MoE's
+    routing weights and RWKV6's LoRA in float32. ``seq`` (whisper: the
+    decoder's sequence length) defaults to ``tokens``, ``frames`` (its
+    encoder frames) to ``tokens``."""
     if M == 1:
         return {}
     a = _dtype(cfg.act_dtype).itemsize
     N, D, hd = tokens, cfg.d_model, cfg.hd
-    H, kvH, F = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-    q_split, kv_split = H % M == 0, kvH % M == 0
+    H, kvH, F = attn_counts(cfg)
+    fam = cfg.family
     d_split = D % M == 0
-    wo_split = (H * hd) % M == 0
-    ffn_split = F % M == 0 and F >= M
-    fwd = bwd = 0
-    if not q_split and d_split:
-        fwd += N * H * hd
-        bwd += N * D // M
-    if not kv_split and d_split:
-        fwd += 2 * N * kvH * hd
-        bwd += 2 * N * D // M
-    if q_split:
-        bwd += N * D                      # the copy before column-parallel
-        if not kv_split:
-            bwd += 2 * N * kvH * hd       # k and v shared by every rank
-    if wo_split:
-        fwd += N * D
-        if not q_split:
-            bwd += N * H * hd // M
-    if ffn_split:
-        fwd += N * D
-        bwd += N * D
-    per_block = 2 * fwd + bwd - (N * D if ffn_split else 0)
-    vocab = cfg.vocab % M == 0
-    model = cfg.n_layers * per_block
-    if vocab:
-        model += N * D * (1 if cfg.family == "vlm" else 2)
+    ffn_split = _divides(F, M)
+    model = leaves = 0          # bytes
     n_norm = 2 if cfg.norm == "layernorm" else 1
-    leaves = (cfg.n_layers * 2 * 2 * n_norm * D // M) if d_split else 0
+    if fam in ("dense", "vlm", "moe"):
+        fwd, bwd = _attn_values(N, D, H, kvH, hd, M)
+        if fam == "moe":
+            per_block = (2 * fwd + bwd) * a
+            if ffn_split:        # the expert F over 'model'
+                per_block += 2 * N * D * a
+                from ..models.moe import MOE_CHUNK_TOKENS
+                T, nc = N, 1
+                if T > MOE_CHUNK_TOKENS:
+                    nc = -(-T // MOE_CHUNK_TOKENS)
+                    while T % nc:
+                        nc += 1
+                E = cfg.n_experts
+                cap = min(max(int(T // nc * cfg.top_k / E
+                                  * cfg.capacity_factor), 1), T // nc)
+                per_block += nc * E * cap * 4
+            if _divides(D, M) or _divides(cfg.n_experts, M):
+                leaves += cfg.n_layers * 2 * D * cfg.n_experts // M * a
+        else:
+            if ffn_split:
+                fwd += N * D
+                bwd += N * D
+            per_block = (2 * fwd + bwd - (N * D if ffn_split else 0)) * a
+        model += cfg.n_layers * per_block
+        if d_split:
+            leaves += cfg.n_layers * 2 * 2 * n_norm * D // M * a
+    elif fam == "ssm":
+        Hr = D // cfg.ssm_head_dim
+        lora = 64
+        fwd = bwd = 0
+        if d_split:
+            fwd += 4 * N * D * a + N * lora * 4 + N * D * a + N * D * a
+            bwd += (4 * N * D // M + N * D // M + N * D // M) * a \
+                + N * D // M * 4
+        if _divides(lora, M):
+            fwd += N * D * 4
+            bwd += N * lora // M * 4
+        if ffn_split:
+            fwd += N * D * a
+            bwd += N * D * a
+        model += cfg.n_layers * (2 * fwd + bwd)
+        if d_split:
+            leaves += cfg.n_layers * 2 * 14 * D // M * a
+        if _divides(Hr, M) or _divides(cfg.ssm_head_dim, M):
+            leaves += cfg.n_layers * 2 * Hr * cfg.ssm_head_dim // M * a
+    elif fam == "hybrid":
+        di = cfg.ssm_expand * D
+        Hm = di // cfg.ssm_head_dim
+        Ns = cfg.ssm_state
+        W = 2 * di + 2 * Ns + Hm
+        conv_ch = di + 2 * Ns
+        per = 0
+        if d_split:
+            per += 2 * N * W + N * D // M
+        if _divides(di, M):
+            per += N * D + N * di // M
+        model += cfg.n_layers * per * a
+        leaf = (D if d_split else 0) + (di if _divides(di, M) else 0) \
+            + ((cfg.ssm_conv + 1) * conv_ch if _divides(conv_ch, M) else 0) \
+            + (3 * Hm if _divides(Hm, M) else 0)
+        leaves += cfg.n_layers * 2 * leaf // M * a
+        fwd, bwd = _attn_values(N, D, H, kvH, D // H, M)
+        if ffn_split:
+            fwd += N * D
+            bwd += N * D
+        model += (cfg.n_layers // cfg.shared_attn_every) * (fwd + bwd) * a
+    elif fam == "audio":
+        Ne = N if frames is None else frames
+        fe, be = _attn_values(Ne, D, H, kvH, hd, M)
+        fs, bs = _attn_values(N, D, H, kvH, hd, M)
+        fc, bc = _attn_values(N, D, H, kvH, hd, M)
+        # the cross k/v read the encoder's Ne frames, not the N tokens
+        if kvH % M == 0:         # one copy of the encoder output
+            bc += Ne * D
+        elif d_split:
+            fc += 2 * (Ne - N) * kvH * hd
+            bc += 2 * (Ne - N) * D // M
+        if H % M == 0 and kvH % M:
+            bc += 2 * (Ne - N) * kvH * hd
+        mlp_e = mlp_d = 0
+        if ffn_split:
+            mlp_e, mlp_d = 2 * Ne * D, 2 * N * D
+        model += cfg.encoder_layers * ((2 * fe + be) + mlp_e) * a
+        model += cfg.n_layers * ((2 * fs + bs) + (2 * fc + bc) + mlp_d) * a
+        from ..models.encdec import MAX_DEC_POSITIONS
+        if _divides(MAX_DEC_POSITIONS, M):
+            model += (N if seq is None else seq) * D * a
+        if d_split:
+            leaves += (cfg.encoder_layers * (2 * 2 * 2 + 1)
+                       + cfg.n_layers * (3 * 2 * 2 + 1)) * D // M * a
+    else:
+        raise ValueError(f"model_volume_bytes: family {fam!r}")
+    vocab = cfg.vocab % M == 0
+    if vocab:
+        model += N * D * (1 if fam == "vlm" else 2) * a
     loss = 2 * 3 * N * 4 if vocab else 0
     return {k: v * (M - 1) * n_groups for k, v in
-            (("model", model * a), ("model_leaves", leaves * a),
+            (("model", model), ("model_leaves", leaves),
              ("model_loss", loss)) if v}
+

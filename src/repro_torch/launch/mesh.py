@@ -11,7 +11,7 @@ in one order (``torch.distributed.new_group`` must be), by
 The protocol's view is ``('rep', 'fsdp', 'model')``: 'rep' indexes the
 ranks that hold the G groups' replicas (G/rep rows of the flat ``[G, P]``
 stack each), 'fsdp' splits a group's row into contiguous column ranges,
-'model' (tensor parallelism: the dense and vlm families,
+'model' (tensor parallelism: every model family,
 ``models.registry.MODEL_AXIS_FAMILIES``) gives each rank its block of
 every leaf. The serve view is ``('data', 'model')``. Ranks lie in the
 row-major order of the shape, so the 'model' lines are consecutive ranks.
@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import os
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -43,9 +44,10 @@ import torch.distributed as dist
 from ..device import dist_backend, rank_device, resolve
 
 AXES = ("rep", "fsdp", "model")
-ITEM_17 = ("the 'model' axis (tensor parallelism) runs the dense and vlm "
-           "families; the other families are ROADMAP.md Queue 1 item 17 "
-           "(its second part, 17b)")
+MODEL_AXIS_REFUSAL = ("the 'model' axis (tensor parallelism) runs the six "
+                      "model families, each through its per-leaf split "
+                      "(protocol.model_split); a model without a family "
+                      "(the paper's MLPs) is ROADMAP.md Queue 1 item 19")
 
 
 class Mesh:
@@ -273,6 +275,28 @@ def launch_mesh(spec: str | None, device, cfg) -> tuple[torch.device, int,
     dev = (init_distributed(device) if world > 1 or dist.is_initialized()
            else resolve(device))
     return dev, d, m
+
+
+@contextmanager
+def leaving_group():
+    """Around a launcher's run: when it joins a process group (by
+    :func:`launch_mesh`), leave it on every exit — after a barrier when
+    the run ends normally, at once when it raises — so no rank's
+    interpreter exit tears down a transport a peer still uses. A group
+    that was up before (a caller's) is left to its caller, and a refusal
+    raised before joining leaves nothing."""
+    own = not dist.is_initialized()
+    try:
+        yield
+    except BaseException:
+        if own and dist.is_initialized():
+            dist.destroy_process_group()
+        raise
+    if own and dist.is_initialized():
+        try:
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
 
 
 def init_distributed(device=None, *, rank: int | None = None,

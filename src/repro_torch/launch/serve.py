@@ -27,11 +27,12 @@ reference's launcher does on its device mesh: the batch rows split over
 'data' where they divide (:func:`repro_torch.launch.steps.
 batch_sharding`), each leaf's block over 'model'
 (:func:`~repro_torch.launch.steps.serve_param_sharding`: tensor
-parallelism, the dense and vlm families) and, past 4 GB a rank, over
+parallelism, every family) and, past 4 GB a rank, over
 'data' too (ZeRO: a layer's leaves gathered at use), the decode cache's
 chunks over 'model' (:func:`~repro_torch.launch.steps.cache_sharding`); a
 checkpoint is restored and consolidated whole on every rank, then cut.
-Rank 0 prints.
+Rank 0 prints. A run that joined a process group leaves it on every exit
+(:func:`~repro_torch.launch.mesh.leaving_group`).
 
   torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve \
       --reduced --device cpu --batch 2 --prefill 16 --decode 4 --mesh 2x2
@@ -49,7 +50,7 @@ from ..models import layers as L
 from ..models import sharding as shr
 from ..models.registry import ARCH_IDS, get_bundle
 from . import steps
-from .mesh import launch_mesh, make_mesh, make_serve_mesh
+from .mesh import launch_mesh, leaving_group, make_mesh, make_serve_mesh
 
 
 def _sync(dev):
@@ -105,6 +106,8 @@ def main(argv=None, stats: dict | None = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="phi4-mini-3.8b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--depth", type=int, default=None,
+                    help="keep the arch's width, cut its depth")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prefill", type=int, default=64)
     ap.add_argument("--decode", type=int, default=32)
@@ -122,7 +125,12 @@ def main(argv=None, stats: dict | None = None):
         raise SystemExit("--quorum serves the replicas of a checkpoint: "
                          "pass --ckpt-dir")
 
-    bundle = get_bundle(args.arch, reduced=args.reduced)
+    bundle = get_bundle(args.arch, reduced=args.reduced, depth=args.depth)
+    with leaving_group():
+        return _serve(args, bundle, stats)
+
+
+def _serve(args, bundle, stats):
     dev, smesh = _mesh(args, bundle.cfg)
     rules = steps.serve_rules(smesh, bundle.cfg) if smesh else None
     lead = smesh is None or smesh.rank == 0

@@ -54,10 +54,11 @@ def _act_rules(mesh, cfg, data_axis: str) -> dict:
         if _divides(n, M):
             r[name]["model"] = dim
 
+    H, kvH, F = protocol.attn_counts(cfg)
     add("logits", cfg.vocab, 2)
-    add("act_heads", cfg.n_heads, 2)
-    add("act_kv_heads", cfg.n_kv_heads, 2)
-    add("act_ffn", cfg.d_ff, 2)
+    add("act_heads", H, 2)
+    add("act_kv_heads", kvH, 2)
+    add("act_ffn", F, 2)
     r["kv_cache"] = {data_axis: 0, "model": 2}
     if D == 1:
         for v in r.values():

@@ -19,6 +19,10 @@ and loss logging.
   # eight ranks: rep 4 x model 2 (tensor parallelism inside each group)
   torchrun --standalone --nproc-per-node 8 -m repro_torch.launch.train \\
       --reduced --device cpu --mesh 4x2 --groups 4 --steps 2
+  # the MoE family at rep 2 x model 2
+  torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen3-moe-235b-a22b --reduced --device cpu --mesh 2x2 \\
+      --groups 2 --steps 2
 
 ``--arch`` takes every arch of the reference (``models.registry.ARCH_IDS``)
 and feeds it the token stream; whisper-small (the audio family), whose
@@ -29,12 +33,14 @@ the ('data', 'model') base mesh as the reference's launcher does: D x M
 ranks (``torchrun --nproc-per-node D*M``; by default the world's size
 x 1), carved by ``make_byz_mesh`` into G = ``--groups`` (default D) 'rep'
 groups of D / G 'fsdp' slices of M 'model' ranks. M > 1 runs tensor
-parallelism inside each group for the dense and vlm families; any other
-family is refused up front (ROADMAP.md Queue 1 item 17b). Where G does not
+parallelism inside each group, for every family the launcher trains
+(the dense, vlm, MoE, hybrid and RWKV6 families). Where G does not
 divide D (M = 1), the ranks hold G / D groups each
 (``make_protocol_mesh``), and on one rank the G groups share its device
 (the reference needs G devices). Rank 0 alone prints and writes the
-checkpoints; every rank takes part in their gathers. ``TrainRun.sent``
+checkpoints; every rank takes part in their gathers. A run that joined a
+process group leaves it on every exit
+(:func:`~repro_torch.launch.mesh.leaving_group`). ``TrainRun.sent``
 holds the bytes this rank sent in each step, by tag.
 ``--depth`` keeps the arch's width and cuts its depth (``get_bundle(...,
 depth=...)``). With ``--ckpt-dir`` the run resumes from the latest
@@ -60,7 +66,8 @@ from ..data.pipeline import DeviceTokenStream, TokenSpec
 from ..models.registry import ARCH_IDS, get_bundle
 from ..models.sharding import sharding_rules
 from ..optim.schedules import inverse_linear
-from .mesh import launch_mesh, make_byz_mesh, make_mesh, make_protocol_mesh
+from .mesh import (launch_mesh, leaving_group, make_byz_mesh, make_mesh,
+                   make_protocol_mesh)
 from .steps import train_rules
 
 
@@ -133,13 +140,18 @@ def _mesh(args, cfg):
 def main(argv=None) -> TrainRun:
     args = parser().parse_args(argv)
     bundle = get_bundle(args.arch, reduced=args.reduced, depth=args.depth)
-    dev, mesh, G = _mesh(args, bundle.cfg)
-    lead = mesh.rank == 0
     if bundle.cfg.family == "audio":
         raise ValueError(f"{args.arch}: its loss reads batch['enc_frames'] "
                          "(encoder frames), which the launcher's token "
                          "stream does not carry; train it through "
                          "ProtocolEngine.run with frame batches")
+    with leaving_group():
+        return _train(args, bundle)
+
+
+def _train(args, bundle) -> TrainRun:
+    dev, mesh, G = _mesh(args, bundle.cfg)
+    lead = mesh.rank == 0
     byz = ByzantineSpec(worker_attack=args.worker_attack,
                         server_attack=args.server_attack,
                         n_byz_workers=args.n_byz if args.worker_attack else 0,

@@ -15,6 +15,16 @@ reference's is); ``decode_step`` then runs decoder steps against them. The
 self-attention cache keeps one length per batch row, so each row's learned
 position is gathered at its own length (the reference slices one position
 for the batch; the two agree when every row sits at one length).
+
+Tensor parallelism (the 'model' axis): the encoder's and decoder's
+attention take the dense transformer's head layouts (``layers.py``), the
+cross-attention its q from the decoder and its K/V (this rank's heads)
+from the whole encoder output; in the GELU MLP ``w_up`` is
+column-parallel with this rank's block of ``b_up`` and ``w_down``
+row-parallel with ``b_down`` added once, after the reduction;
+``pos_dec``'s rows are split over 'model' and read by lookup (a rank's
+rows, zeros elsewhere, summed). The self-attention caches split their
+chunks over 'model'; the cross K/V hold this rank's heads.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from . import sharding as shr
 from .config import ArchConfig
 from .transformer import layer
 
@@ -91,9 +102,22 @@ def _qkv(p, h, cfg: ArchConfig, dtype):
                            cfg.rope_theta, dtype=dtype)
 
 
+def _cross_q(p, h, cfg: ArchConfig, dtype):
+    """The cross-attention's q ``[B, S, H', hd]`` (this rank's heads, or
+    every head, as ``attention_qkv``'s q)."""
+    tp = shr.active()
+    w = p["wq"].to(dtype)
+    if tp is not None and tp.split("act_heads"):
+        q = shr.copy_to_model(h, tp) @ w
+    else:
+        q = L.row_parallel(h, w)
+    return q.reshape(h.shape[0], h.shape[1], -1, cfg.hd)
+
+
 def _enc_block(blk, x, cfg: ArchConfig, dtype):
     h = L.layernorm(blk["ln_attn"], x, cfg.norm_eps)
     q, k, v = _qkv(blk["attn"], h, cfg, dtype)
+    q, k, v = L.attention_heads(q, k, v, cfg.n_heads)
     attn = L.blocked_attention(q, k, v, causal=False, cross=True,
                                q_block=cfg.q_block, kv_block=cfg.kv_block)
     x = x + L.attention_out(blk["attn"], attn, dtype)
@@ -121,9 +145,15 @@ def _cross_kv(p, enc_out, cfg: ArchConfig, dtype):
     """The cross-attention's K and V ``[B, Se, H, hd]`` from the encoder's
     output."""
     B, Se, _ = enc_out.shape
-    shape = (B, Se, cfg.n_heads, cfg.hd)
-    return ((enc_out @ p["wk"].to(dtype)).reshape(shape),
-            (enc_out @ p["wv"].to(dtype)).reshape(shape))
+    tp = shr.active()
+    if tp is not None and tp.split("act_kv_heads"):
+        # column-parallel: this rank's heads of the whole frames
+        enc_out = shr.copy_to_model(enc_out, tp)
+        k, v = (enc_out @ p[n].to(dtype) for n in ("wk", "wv"))
+    else:
+        k, v = (L.row_parallel(enc_out, p[n].to(dtype)) for n in ("wk", "wv"))
+    shape = (B, Se, -1, cfg.hd)
+    return k.reshape(shape), v.reshape(shape)
 
 
 def _dec_block(blk, x, cfg: ArchConfig, dtype, self_attend, kc, vc,
@@ -134,7 +164,8 @@ def _dec_block(blk, x, cfg: ArchConfig, dtype, self_attend, kc, vc,
     q, k, v = _qkv(blk["self_attn"], h, cfg, dtype)
     x = x + L.attention_out(blk["self_attn"], self_attend(q, k, v), dtype)
     h = L.layernorm(blk["ln_cross"], x, cfg.norm_eps)
-    qc = _qkv(blk["cross_attn"], h, cfg, dtype)[0]
+    qc = _cross_q(blk["cross_attn"], h, cfg, dtype)
+    qc, kc, vc = L.attention_heads(qc, kc, vc, cfg.n_heads)
     cattn = L.blocked_attention(qc, kc, vc, causal=False, cross=True,
                                 q_block=q_block, kv_block=cfg.kv_block)
     x = x + L.attention_out(blk["cross_attn"], cattn, dtype)
@@ -144,6 +175,7 @@ def _dec_block(blk, x, cfg: ArchConfig, dtype, self_attend, kc, vc,
 
 def _dec_block_train(blk, x, enc_out, cfg: ArchConfig, dtype):
     def causal(q, k, v):
+        q, k, v = L.attention_heads(q, k, v, cfg.n_heads)
         return L.blocked_attention(q, k, v, causal=True, q_block=cfg.q_block,
                                    kv_block=cfg.kv_block)
     kc, vc = _cross_kv(blk["cross_attn"], enc_out, cfg, dtype)
@@ -155,11 +187,11 @@ def _dec_inputs(params, tokens, dtype, rows=None):
     ``rows`` ([B] positions) each row's own, clamped to the table as the
     reference's dynamic slice."""
     if rows is None:
-        pos = params["pos_dec"][:tokens.shape[1]]
+        rows = torch.arange(tokens.shape[1], device=tokens.device)
     else:
-        rows = rows.clamp(max=MAX_DEC_POSITIONS - 1)
-        pos = params["pos_dec"][rows][:, None]
-    return L.embed(params["embed"], tokens, dtype) + pos.to(dtype)
+        rows = rows.clamp(max=MAX_DEC_POSITIONS - 1)[:, None]
+    pos = L.table_rows(params["pos_dec"], rows, MAX_DEC_POSITIONS, dtype)
+    return L.embed(params["embed"], tokens, dtype) + pos
 
 
 def decode_train(params, tokens, enc_out, *, cfg: ArchConfig,
@@ -191,11 +223,15 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, n_chunks: int,
     """Per-layer self-attention caches and cross K/V allocated at
     ``max_source_len`` frames (``prefill`` replaces them)."""
     Ld = cfg.n_layers
-    kv = L.KVCache.create(batch, cfg.n_heads, max_len, cfg.hd, n_chunks,
-                          dtype, device)
+    tp = shr.active()
+    H = cfg.n_heads // (tp.M if tp is not None and tp.split("act_kv_heads")
+                        else 1)
+    length, chunks = L.cache_extent(max_len, n_chunks)
+    kv = L.KVCache.create(batch, cfg.n_heads, length, cfg.hd, chunks, dtype,
+                          device)
     kv = L.KVCache(*(t.unsqueeze(0).repeat((Ld,) + (1,) * t.ndim)
                      for t in kv))
-    z = torch.zeros((Ld, batch, cfg.max_source_len, cfg.n_heads, cfg.hd),
+    z = torch.zeros((Ld, batch, cfg.max_source_len, H, cfg.hd),
                     dtype=dtype, device=device)
     return EncDecCaches(kv, z, z)
 
@@ -215,7 +251,9 @@ def prefill(params, batch, caches: EncDecCaches, *, cfg: ArchConfig):
         kv = L.KVCache(*(t[i] for t in caches.self_kv))
 
         def causal(q, k, v, kv=kv):
-            L.cache_prefill(kv, k, v)
+            L.cache_prefill(kv, *L.whole_heads((k, "act_kv_heads"),
+                                               (v, "act_kv_heads")))
+            q, k, v = L.attention_heads(q, k, v, cfg.n_heads)
             return L.blocked_attention(q, k, v, causal=True,
                                        q_block=cfg.q_block,
                                        kv_block=cfg.kv_block)
@@ -243,6 +281,8 @@ def decode_step(params, caches: EncDecCaches, batch, *, cfg: ArchConfig):
         kv = L.KVCache(*(t[i] for t in caches.self_kv))
 
         def cached(q, k, v, kv=kv):
+            q, k, v = L.whole_heads((q, "act_heads"), (k, "act_kv_heads"),
+                                    (v, "act_kv_heads"))
             return L.flash_decode(q, L.cache_insert(kv, k, v))
 
         x = _dec_block(blk, x, cfg, dtype, cached, caches.cross_k[i],

@@ -17,6 +17,13 @@ own single-request run bit for bit. ``reset_cache_rows`` zeroes a slot's
 Mamba2 state for a new request: the reference's prefill starts from the
 state in the cache it is given, so its service carries a slot's last
 request into the next (ROADMAP Queue 3).
+
+Tensor parallelism (the 'model' axis): the Mamba2 blocks take
+``mamba2.py``'s split forms, and the shared block the dense transformer's
+(``layers.py``: heads and the SwiGLU hidden over 'model', under the rule
+table's counts of the shared block, ``launch.steps``); its sites' KV
+caches split their chunks over 'model', the Mamba2 states stay whole on
+every rank.
 """
 from __future__ import annotations
 
@@ -104,6 +111,7 @@ def _shared_apply(p, x, rope, cfg: ArchConfig, dtype, attend):
 
 def _causal(cfg: ArchConfig):
     def attend(q, k, v):
+        q, k, v = L.attention_heads(q, k, v, _attn_dims(cfg)[0])
         return L.blocked_attention(q, k, v, causal=True, q_block=cfg.q_block,
                                    kv_block=cfg.kv_block)
     return attend
@@ -154,7 +162,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, n_chunks: int,
     one KV cache per site ``[n_sites, B, ...]`` (at least one)."""
     heads, hd = _attn_dims(cfg)
     m = M.init_cache(cfg, batch, dtype, device)
-    kv = L.KVCache.create(batch, heads, max_len, hd, n_chunks, dtype, device)
+    length, chunks = L.cache_extent(max_len, n_chunks)
+    kv = L.KVCache.create(batch, heads, length, hd, chunks, dtype, device)
     sites = max(n_shared_sites(cfg), 1)
 
     def stack(t, n):
@@ -206,10 +215,14 @@ def _run_cached(params, x, caches: HybridCaches, cfg: ArchConfig, dtype,
 
         def attend(q, k, v, kv=kv):
             if prefill_mode:
-                L.cache_prefill(kv, k, v)
+                L.cache_prefill(kv, *L.whole_heads((k, "act_kv_heads"),
+                                                   (v, "act_kv_heads")))
+                q, k, v = L.attention_heads(q, k, v, heads)
                 return L.blocked_attention(q, k, v, causal=True,
                                            q_block=cfg.q_block,
                                            kv_block=cfg.kv_block)
+            q, k, v = L.whole_heads((q, "act_heads"), (k, "act_kv_heads"),
+                                    (v, "act_kv_heads"))
             return L.flash_decode(q, L.cache_insert(kv, k, v))
 
         x = _shared_apply(params["shared"], x, rope, cfg, dtype, attend)

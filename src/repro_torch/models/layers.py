@@ -74,6 +74,88 @@ def whole_leaf(w, n: int, dim: int = -1):
     return shr.gather_from_model(w, tp, dim, "model_leaves")
 
 
+def whole_leaves(p: dict, shapes: dict) -> dict:
+    """``p`` with each leaf named in ``shapes`` (a path of keys joined by
+    ``/`` -> its whole shape) whole: the blocks of those split over
+    'model' gathered in one collective a dtype (``model_leaves``; the
+    bytes of gathering each alone), the others as they are. Each
+    gathered leaf's gradient is the rank's block of the whole one."""
+    tp = shr.active()
+    if tp is None:
+        return p
+
+    def get(path):
+        node = p
+        for k in path.split("/"):
+            node = node[k]
+        return node
+
+    split = {}
+    for path, shape in shapes.items():
+        w = get(path)
+        dims = [d for d, n in enumerate(shape) if w.shape[d] != n]
+        if dims:
+            split[path] = dims[0]
+    if not split:
+        return p
+    out = {k: dict(v) if isinstance(v, dict) else v for k, v in p.items()}
+    for dtype in {get(path).dtype for path in split}:
+        paths = [path for path in split if get(path).dtype == dtype]
+        packed = torch.cat([get(path).reshape(-1) for path in paths])
+        rows = shr.gather_from_model(packed[None], tp, 0, "model_leaves")
+        off = 0
+        for path in paths:
+            blk = get(path)
+            n = blk.numel()
+            parts = rows[:, off:off + n].reshape((tp.M,) + blk.shape)
+            whole = torch.cat(list(parts.unbind(0)), dim=split[path])
+            off += n
+            node = out
+            keys = path.split("/")
+            for k in keys[:-1]:
+                node = node[k]
+            node[keys[-1]] = whole
+    return out
+
+
+def row_parallel(x, w, reduce: bool = True):
+    """``x @ w`` for a replicated ``x [.., D]``: with ``w`` split over
+    'model' on its input dim (fewer than D rows) this rank's block of
+    ``x`` times its rows, the partials summed over 'model' (left as this
+    rank's partial with ``reduce=False``, for a caller that joins several
+    in one reduction); else the whole product."""
+    tp = shr.active()
+    if tp is None or w.shape[-2] == x.shape[-1]:
+        return x @ w
+    out = shr.scatter_to_model(x, tp) @ w
+    return shr.reduce_from_model(out, tp) if reduce else out
+
+
+def reduce_joined(*parts):
+    """Several row-parallel partials (``row_parallel(..., reduce=False)``)
+    summed over 'model' in one reduction: joined on their last dim, then
+    split back."""
+    tp = shr.active()
+    sizes = [t.shape[-1] for t in parts]
+    whole = shr.reduce_from_model(torch.cat(parts, dim=-1), tp)
+    return whole.split(sizes, dim=-1)
+
+
+def table_rows(table, idx, n: int, dtype):
+    """Rows ``idx`` of a ``[n, D]`` table, cast to ``dtype``. With its
+    rows split over 'model' a rank holds ``[m n/M, (m+1) n/M)``: an index
+    outside them reads zeros, and the ranks' rows are summed (one is not
+    zero: exact)."""
+    if table.shape[0] == n:
+        return table[idx].to(dtype)
+    tp = shr.active()
+    b = table.shape[0]
+    local = idx - tp.m * b
+    hit = ((local >= 0) & (local < b))[..., None]
+    rows = F.embedding(local.clamp(0, b - 1), table).to(dtype) * hit
+    return shr.reduce_from_model(rows, tp)
+
+
 def rmsnorm(p, x, eps=1e-5):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -260,6 +342,16 @@ def _cache_split():
     if tp is not None and tp.split("kv_cache"):
         return tp.M, tp.m
     return 1, 0
+
+
+def cache_extent(max_len: int, n_chunks: int) -> tuple[int, int]:
+    """``(length, chunks)`` of this rank's decode cache of ``max_len``
+    positions in ``n_chunks`` chunks: its ``n_chunks / M`` chunks when the
+    chunk axis is split over 'model', else all."""
+    M = _cache_split()[0]
+    if n_chunks % M:
+        raise ValueError(f"n_chunks={n_chunks} must divide over model={M}")
+    return max_len // M, n_chunks // M
 
 
 def cache_insert(cache: KVCache, k_new, v_new) -> KVCache:
@@ -501,9 +593,20 @@ def init_gelu_mlp(gen, lead: tuple, d_model, d_ff, dtype):
 def gelu_mlp(p, x, dtype=torch.bfloat16):
     """``jax.nn.gelu``'s default is the tanh approximation (the erf form
     differs in the 4th digit)."""
-    h = F.gelu(x @ p["w_up"].to(dtype) + p["b_up"].to(dtype),
-               approximate="tanh")
-    return h @ p["w_down"].to(dtype) + p["b_down"].to(dtype)
+    tp = shr.active()
+    w_up, w_down = p["w_up"].to(dtype), p["w_down"].to(dtype)
+    split = tp is not None and tp.split("act_ffn")
+    if split:
+        # column-parallel w_up (this rank's F block, and its block of
+        # b_up: the table splits both on F), row-parallel w_down; b_down
+        # added once, after the sum
+        x = shr.copy_to_model(x, tp)
+    h = F.gelu(x @ w_up + p["b_up"].to(dtype), approximate="tanh")
+    out = h @ w_down
+    if split:
+        out = shr.reduce_from_model(out, tp)
+    b_down = whole_leaves(p, {"b_down": (out.shape[-1],)})["b_down"]
+    return out + b_down.to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,14 @@ Where a straightforward port would differ from the reference:
   * the causal conv sums its K shifted terms in the reference's order.
 The terms of the chunked scan that do not read the state are computed for
 every chunk at once; only the state is carried by a loop over the chunks.
+
+Tensor parallelism (the 'model' axis): ``in_proj`` and ``out_proj`` are
+row-parallel (D and d_inner over 'model'), each a partial product and
+one reduction, so the whole ``[.., 2 d_inner + 2N + H]`` projection is on
+every rank; the conv, the SSD scan and the gated norm run whole on each
+rank, on the small leaves (the conv, ``A_log``, ``dt_bias``,
+``D_skip``, the norm scales) gathered whole at use, and the state (conv
+window and SSD state) stays whole on every rank.
 """
 from __future__ import annotations
 
@@ -94,7 +102,7 @@ def _causal_conv(x, w, b, state=None):
 
 def _split_proj(p, x, cfg: ArchConfig, dtype):
     d_inner, H, P, N = dims(cfg)
-    proj = x @ p["in_proj"].to(dtype)
+    proj = L.row_parallel(x, p["in_proj"].to(dtype))
     z = proj[..., :d_inner]
     xc = proj[..., d_inner:2 * d_inner]
     Bm = proj[..., 2 * d_inner:2 * d_inner + N]
@@ -156,6 +164,13 @@ def mamba_block(p, x, cfg: ArchConfig, dtype, cache: MambaCache | None = None,
     (zero state, no cache out); a cache is prefill or decode, carrying its
     state (a one-token call runs the single-step recurrence)."""
     d_inner, H, P, N = dims(cfg)
+    conv_ch = d_inner + 2 * N
+    # the small leaves whole, in one gather over 'model' when split
+    p = L.whole_leaves(p, {"ln/scale": (cfg.d_model,),
+                           "conv_w": (cfg.ssm_conv, conv_ch),
+                           "conv_b": (conv_ch,), "A_log": (H,),
+                           "dt_bias": (H,), "D_skip": (H,),
+                           "gate_ln/scale": (d_inner,)})
     h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
     z, xc, Bm, Cm, dt = _split_proj(p, h, cfg, dtype)
     conv_in = torch.cat([xc, Bm, Cm], dim=-1)
@@ -189,7 +204,7 @@ def mamba_block(p, x, cfg: ArchConfig, dtype, cache: MambaCache | None = None,
     y = y + p["D_skip"][None, None, :, None] * xh.float()
     y = y.reshape(B_, S, d_inner).to(dtype)
     y = L.rmsnorm(p["gate_ln"], y * F.silu(z), cfg.norm_eps)
-    out = y @ p["out_proj"].to(dtype)
+    out = L.row_parallel(y, p["out_proj"].to(dtype))
     new_cache = MambaCache(new_conv, h_fin) if cache is not None else None
     return x + out, new_cache
 

@@ -26,6 +26,17 @@ Where a straightforward port would differ from the reference:
     ``vmap`` over B = 1 slots does: a slot's tokens equal its own
     single-request run bit for bit. ``decode_step`` (the launch driver)
     routes its B rows together, as the reference's does.
+
+Tensor parallelism (the 'model' axis; the attention half is the dense
+transformer's): ``w_gate`` / ``w_up`` are column-parallel and ``w_down``
+row-parallel on F, so each rank runs every expert on its F block. The
+router is gathered whole at use (its D is split by the per-leaf table),
+so the logits, the stable top-k and the capacity drops are computed from
+whole operands, bit-equal on every rank. The one reduction over 'model'
+sums the combined ``[T, D]`` partials, after the combine (``k *
+capacity_factor`` times fewer bytes than the ``[E, C, D]`` expert
+outputs); the routing weights take every rank's part of their gradient
+(``copy_to_model``), since each rank's partial outputs give a part of it.
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from . import layers as L
+from . import sharding as shr
 from . import transformer as TF
 from .config import ArchConfig
 
@@ -155,16 +167,27 @@ def moe_tokens(p, xt: torch.Tensor, cfg: ArchConfig, dtype) -> torch.Tensor:
     T, D = xt.shape
     E, K = cfg.n_experts, cfg.top_k
     cap = capacity(T, cfg)
-    logits = (xt @ p["router"].to(dtype)).float()
+    tp = shr.active()
+    # the router whole on every 'model' rank: the same logits, top-k and
+    # capacity drops on each, so every rank dispatches the same tokens
+    router = L.whole_leaves(p, {"router": (D, E)})["router"]
+    logits = (xt @ router.to(dtype)).float()
     wcap, tok_idx, topi = route(logits, K, cap)
     keep = wcap > 0.0
     pos = slots(tok_idx, keep, topi)
+    weights = wcap * keep
+    split = tp is not None and p["w_gate"].shape[-1] < cfg.d_ff
+    if split:   # each rank's F block of every expert: partial outputs
+        xt = shr.copy_to_model(xt, tp)
+        weights = shr.copy_to_model(weights, tp)
     x = _Dispatch.apply(xt, tok_idx.reshape(-1), pos).reshape(E, cap, D)
     g = torch.bmm(x, p["w_gate"].to(dtype))
     u = torch.bmm(x, p["w_up"].to(dtype))
     out = torch.bmm(F.silu(g) * u, p["w_down"].to(dtype))         # [E, C, D]
-    out = out * (wcap * keep)[..., None].to(dtype)
-    return sum_slots(out.reshape(E * cap, D), pos)
+    out = out * weights[..., None].to(dtype)
+    out = sum_slots(out.reshape(E * cap, D), pos)
+    # one reduction of the combined [T, D] partials, after the combine
+    return shr.reduce_from_model(out, tp) if split else out
 
 
 def moe_ffn(p, x: torch.Tensor, cfg: ArchConfig, dtype) -> torch.Tensor:

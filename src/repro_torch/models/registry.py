@@ -56,22 +56,21 @@ _CONFIG_MODULES = {
 PORTED_IDS = [a for a in ARCH_IDS if a in _CONFIG_MODULES]
 
 #: the families whose layers take the 'model' axis (tensor parallelism,
-#: ``repro_torch.models.sharding``); the others (moe, hybrid, ssm, audio)
-#: are ROADMAP.md Queue 1 item 17b
-MODEL_AXIS_FAMILIES = ("dense", "vlm")
+#: ``repro_torch.models.sharding``): every family of the zoo
+MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "audio")
 
 
 def check_model_axis(cfg, M: int) -> None:
-    """Refuse a 'model' axis of M > 1 ranks for a model whose family has
-    no tensor-parallel layers (or a model without a family, such as the
-    paper's MLPs), naming ROADMAP.md Queue 1 item 17."""
+    """Refuse a 'model' axis of M > 1 ranks for a model without a family
+    of :data:`MODEL_AXIS_FAMILIES` (the paper's MLPs): it has no
+    tensor-parallel layers (ROADMAP.md Queue 1 item 19)."""
     fam = getattr(cfg, "family", None)
     if M > 1 and fam not in MODEL_AXIS_FAMILIES:
         raise NotImplementedError(
             f"model = {M} for {getattr(cfg, 'name', 'this model')} (family "
-            f"{fam!r}): the 'model' axis runs the families "
-            f"{MODEL_AXIS_FAMILIES}; the others are ROADMAP.md Queue 1 "
-            "item 17 (its second part, 17b)")
+            f"{fam!r}): it has no tensor-parallel layers; the 'model' axis "
+            f"runs the families {MODEL_AXIS_FAMILIES}, and the paper's MLPs "
+            "are ROADMAP.md Queue 1 item 19")
 
 _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",

@@ -19,6 +19,16 @@ decode runs each row (a serving slot) at B = 1 shapes, so a slot's tokens
 equal its own single-request run bit for bit. ``reset_cache_rows`` zeroes
 a slot's state for a new request, which the reference service does not
 do (ROADMAP Queue 3).
+
+Tensor parallelism (the 'model' axis): ``Wr`` / ``Wk`` / ``Wv`` / ``Wg``,
+``Wo``, ``cWr``, ``cWv`` and the decay LoRA's ``wA`` / ``wB`` (float32;
+``wB`` split on its 64 LoRA rows) are row-parallel, each a partial
+product then a reduction (r, k, v and g in one, ``cWr`` and ``cWv`` in
+one); ``cWk`` is column-parallel on F, so ``relu^2`` is local and feeds
+``cWv``'s row-parallel product with no gather between them. The token
+shifts and the WKV scan run whole on every rank, on the static
+``mu_*``, ``w0``, ``u`` and norm leaves gathered whole at use, and the
+state stays whole on every rank.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from . import sharding as shr
 from .config import ArchConfig
 from . import transformer as TF
 
@@ -150,22 +161,29 @@ def wkv_chunked(r, k, v, lw, u, s0, chunk: int = 16):
 
 
 def time_mix(p, x, cfg: ArchConfig, dtype, cache: RwkvCache | None):
-    """Returns (out [B, S, D], the new time-mix shift, the new state)."""
+    """Returns (out [B, S, D], the new time-mix shift, the new state).
+    Split over 'model', ``p``'s static leaves are whole (:func:`block`
+    gathers them)."""
     B, S, D = x.shape
     H, K = dims(cfg)
     last = cache.shift_t if cache is not None else x.new_zeros((B, D))
     xp = _shift(x, last)
 
     def lerp(mu):
-        return x + (xp - x) * mu.to(dtype)
+        return x + (xp - x) * p[mu].to(dtype)
 
-    r = (lerp(p["mu_r"]) @ p["Wr"].to(dtype)).reshape(B, S, H, K)
-    k = (lerp(p["mu_k"]) @ p["Wk"].to(dtype)).reshape(B, S, H, K)
-    v = (lerp(p["mu_v"]) @ p["Wv"].to(dtype)).reshape(B, S, H, K)
-    g = lerp(p["mu_g"]) @ p["Wg"].to(dtype)
+    proj = [(lerp(mu), p[w].to(dtype)) for mu, w in (
+        ("mu_r", "Wr"), ("mu_k", "Wk"), ("mu_v", "Wv"), ("mu_g", "Wg"))]
+    if _split(p["Wr"], D):   # row-parallel: four partials, one reduction
+        r, k, v, g = L.reduce_joined(*(L.row_parallel(a, w, reduce=False)
+                                       for a, w in proj))
+    else:
+        r, k, v, g = (a @ w for a, w in proj)
+    r, k, v = (t.reshape(B, S, H, K) for t in (r, k, v))
     # the decay LoRA in float32, as the reference's promotion gives it
-    xw = lerp(p["mu_w"]).float()
-    wlog = p["w0"] + torch.tanh(xw @ p["wA"].float()) @ p["wB"].float()
+    xw = lerp("mu_w").float()
+    lora = torch.tanh(L.row_parallel(xw, p["wA"].float()))
+    wlog = p["w0"] + L.row_parallel(lora, p["wB"].float())
     # maximum against a tensor: a tie splits its gradient as jnp.maximum's
     lw = torch.maximum(-torch.exp(wlog), wlog.new_tensor(LOG_DECAY_FLOOR))
     lw = lw.reshape(B, S, H, K)
@@ -183,7 +201,7 @@ def time_mix(p, x, cfg: ArchConfig, dtype, cache: RwkvCache | None):
         y, s_fin = wkv_chunked(r, k, v, lw, p["u"], s0)
     y = y.reshape(B, S, D).to(dtype)
     y = L.layernorm(p["ln_x"], y, cfg.norm_eps)   # group-norm stand-in
-    out = (y * F.silu(g)) @ p["Wo"].to(dtype)
+    out = L.row_parallel(y * F.silu(g), p["Wo"].to(dtype))
     return out, x[:, -1], s_fin
 
 
@@ -194,13 +212,46 @@ def channel_mix(p, x, dtype, cache: RwkvCache | None):
     xp = _shift(x, last)
     xk = x + (xp - x) * p["mu_ck"].to(dtype)
     xr = x + (xp - x) * p["mu_cr"].to(dtype)
-    k = torch.square(F.relu(xk @ p["cWk"].to(dtype)))
-    out = torch.sigmoid(xr @ p["cWr"].to(dtype)) * (k @ p["cWv"].to(dtype))
-    return out, x[:, -1]
+    cWk, cWv, cWr = (p[n].to(dtype) for n in ("cWk", "cWv", "cWr"))
+    tp = shr.active()
+    f_split = tp is not None and tp.split("act_ffn")
+    if f_split:
+        # cWk column-parallel on F: relu^2 is local and feeds cWv's
+        # row-parallel product
+        xk = shr.copy_to_model(xk, tp)
+    kv = torch.square(F.relu(xk @ cWk)) @ cWv
+    r = L.row_parallel(xr, cWr, reduce=False)
+    if f_split and _split(cWr, D):   # the two partials in one reduction
+        r, kv = L.reduce_joined(r, kv)
+    elif f_split:
+        kv = shr.reduce_from_model(kv, tp)
+    elif _split(cWr, D):
+        r = shr.reduce_from_model(r, tp)
+    return torch.sigmoid(r) * kv, x[:, -1]
+
+
+def _split(w, D: int) -> bool:
+    """True when ``w [D, ..]`` is a row-parallel block (split over 'model'
+    on its input dim)."""
+    return shr.active() is not None and w.shape[-2] < D
+
+
+def _whole(p, cfg: ArchConfig) -> dict:
+    """The block's static leaves (token shifts, decay, bonus, norms)
+    whole, in one gather over 'model' when they are split."""
+    D = cfg.d_model
+    names = [f"{n}/{k}" for n in ("ln1", "ln2", "ln_x")
+             for k in ("scale", "bias")]
+    names += ["mu_r", "mu_k", "mu_v", "mu_w", "mu_g", "mu_ck", "mu_cr",
+              "w0"]
+    shapes = {n: (D,) for n in names}
+    shapes["u"] = dims(cfg)
+    return L.whole_leaves(p, shapes)
 
 
 def block(p, x, cfg: ArchConfig, dtype, cache: RwkvCache | None = None):
     """Returns (x, the new (shift_t, shift_c, wkv) state)."""
+    p = _whole(p, cfg)
     att, shift_t, wkv = time_mix(p, L.layernorm(p["ln1"], x, cfg.norm_eps),
                                  cfg, dtype, cache)
     x = x + att

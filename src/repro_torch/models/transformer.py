@@ -32,7 +32,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
-from . import sharding as shr
 from .config import ArchConfig
 
 
@@ -171,12 +170,9 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, n_chunks: int,
     """One cache per layer, stacked: k/v ``[L, B, kvH, nc, ck, hd]``,
     length ``[L, B]``; under a rule table that splits ``kv_cache`` over
     'model', this rank's ``nc / M`` chunks."""
-    tp = shr.active()
-    M = tp.M if tp is not None and tp.split("kv_cache") else 1
-    if n_chunks % M:
-        raise ValueError(f"n_chunks={n_chunks} must divide over model={M}")
-    c = L.KVCache.create(batch, cfg.n_kv_heads, max_len // M, cfg.hd,
-                         n_chunks // M, dtype, device)
+    length, chunks = L.cache_extent(max_len, n_chunks)
+    c = L.KVCache.create(batch, cfg.n_kv_heads, length, cfg.hd, chunks,
+                         dtype, device)
     return L.KVCache(*(t.unsqueeze(0).repeat((cfg.n_layers,)
                                              + (1,) * t.ndim) for t in c))
 

@@ -14,8 +14,9 @@ this writes beside them with JAX's single-device protocol.
 3. ``serve/ckpt_smoke`` on 5 ranks (rep 5): the checkpoint restored by
    ``ReplicaPool.from_checkpoint`` against the whole final state.
 4. ``launch.train --mesh 4x1`` under ``torchrun --standalone`` (2 steps),
-   and ``--arch qwen3-moe-235b-a22b --reduced --mesh 4x2``, which is
-   refused (the MoE family has no tensor-parallel layers).
+   and ``--arch qwen3-moe-235b-a22b --reduced --mesh 4x2`` on one
+   process, which is refused (the MoE takes the 'model' axis, but one
+   rank cannot fill the 8 of the mesh).
 """
 import json
 import os

@@ -1,11 +1,24 @@
 """Shared helpers of the ``test_torch_*`` parity tests: numpy-drawn inputs
 handed to both packages (JAX on the CPU as the oracle, the PyTorch port with
-``device="cpu"``), and the card check for the tests that need one."""
+``device="cpu"``), and the card check for the tests that need one.
+
+Under pytest-xdist every worker imports this module at collection and then
+runs torch with the cores' share of one worker: torch's default, an
+intra-op thread per core in each worker, oversubscribes the cores, and its
+waiting threads then slow a CPU run by tens of times (``lm/moe_tiny``'s
+preset: 13 s on one thread beside 7 busy processes on 8 cores, over 150 s
+on 8 threads)."""
+import os
+
 import numpy as np
 import pytest
 import torch
 
 CPU = torch.device("cpu")
+
+if os.environ.get("PYTEST_XDIST_WORKER_COUNT"):
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // int(os.environ["PYTEST_XDIST_WORKER_COUNT"])))
 
 
 def np_dtype_cast(a: np.ndarray, dtype: str):

@@ -17,7 +17,8 @@ protocol and serving.
    'data' too) against the same launcher on one rank.
 4. Under ``torchrun --standalone``: ``launch.serve --mesh 1x4`` (the kv
    heads do not divide 4) and its single-rank run, ``launch.train --mesh
-   4x2`` and ``launch.serve --mesh 2x2``.
+   4x2``, ``launch.serve --mesh 2x2`` and ``launch.train --arch
+   qwen3-moe-235b-a22b --mesh 2x2`` (the MoE family, G = 2).
 """
 import json
 import os
@@ -172,8 +173,9 @@ def _launchers(d: Path):
            "serve_1x1": _torchrun(1, serve, env),
            "train_4x2": _torchrun(8, train + ["--mesh", "4x2"], env),
            "serve_2x2": _torchrun(4, serve + ["--mesh", "2x2"], env),
-           "refused": _torchrun(1, train + [
-               "--arch", "qwen3-moe-235b-a22b", "--mesh", "4x2"], env)}
+           "moe_2x2": _torchrun(4, train[:5] + ["--groups", "2"] + train[7:]
+                                + ["--arch", "qwen3-moe-235b-a22b",
+                                   "--mesh", "2x2"], env)}
     with open(d / "launch.json", "w") as fh:
         json.dump(out, fh)
     print(f"[tp] launchers: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -70,7 +70,8 @@ def runs(tmp_path_factory):
              gather=tables[2], tokens=toks, tokens3=toks3, T=T,
              params=flat0.params.numpy())
     jend, _ = jeng.run(j0, {"tokens": jnp.asarray(toks[..., :-1]),
-                            "labels": jnp.asarray(toks[..., 1:])})
+                            "labels": jnp.asarray(toks[..., 1:])},
+                       epoch_steps=STEPS)
     want = protocol_state_from_jax(jax.tree.map(np.asarray, jend), "cpu")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, str(ROOT / "tests" /
@@ -191,8 +192,9 @@ def test_ckpt_smoke_at_rep5_restores_into_a_pool(runs):
 def test_launch_train_under_torchrun(runs):
     """``torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.
     train --mesh 4x1``: 2 steps, finite losses printed by rank 0 alone;
-    ``--arch qwen3-moe-235b-a22b --mesh 4x2`` is refused, naming ROADMAP.md
-    Queue 1 item 17 (the MoE family has no tensor-parallel layers)."""
+    ``--arch qwen3-moe-235b-a22b --mesh 4x2`` on one process is refused
+    up front: the MoE family takes the 'model' axis, and the mesh needs 8
+    ranks."""
     d, _ = runs
     rec = json.load(open(d / "launch.json"))
     assert rec["rc"] == 0, rec["stderr"]
@@ -200,4 +202,6 @@ def test_launch_train_under_torchrun(runs):
               for l in rec["stdout"].splitlines() if "[train] step" in l]
     assert len(losses) == 2 and np.all(np.isfinite(losses)), rec["stdout"]
     assert "'rep': 4" in rec["stdout"]
-    assert rec["refused_rc"] != 0 and "item 17" in rec["refused_stderr"]
+    assert rec["refused_rc"] != 0
+    assert "needs 8 ranks" in rec["refused_stderr"]
+    assert "item 1" not in rec["refused_stderr"]

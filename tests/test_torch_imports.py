@@ -1,6 +1,6 @@
 """The port stands alone: nothing under src/repro_torch/, tools/,
-chip_smoke.py, tests/_torch_dist_runner.py or tests/_torch_tp_runner.py
-imports jax, any repro.* module (repro_torch.* is allowed) or
+chip_smoke.py, tests/_torch_dist_runner.py, tests/_torch_tp_runner.py or
+tests/_torch_tp_zoo_runner.py imports jax, any repro.* module (repro_torch.* is allowed) or
 the JAX package's benchmarks/ (netsim keeps its own copy of the byte
 model), and the chip smoke script refuses to run without a GPU."""
 import ast
@@ -16,7 +16,9 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
     (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py",
                                       ROOT / "tests" / "_torch_dist_runner.py",
-                                      ROOT / "tests" / "_torch_tp_runner.py"]
+                                      ROOT / "tests" / "_torch_tp_runner.py",
+                                      ROOT / "tests" /
+                                      "_torch_tp_zoo_runner.py"]
 
 
 def _imports(path: Path):

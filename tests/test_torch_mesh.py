@@ -1,12 +1,14 @@
 """The port's rank meshes (``repro_torch.launch.mesh``) and the protocol on
 a mesh, in one process: the ('rep', 'fsdp') choice against the reference's
-rule, ``state_layout``'s ranges, the backend rule, the refusals of the
-'model' axis for the families without tensor-parallel layers (ROADMAP.md
-Queue 1 item 17b), and ``ProtocolEngine(mesh=)``
+rule, ``state_layout``'s ranges, the backend rule, the 'model' axis taken
+by every family and refused for a model without one (the paper's MLPs,
+ROADMAP.md Queue 1 item 19), and ``ProtocolEngine(mesh=)``
 on a world-1 gloo group bit-equal to the single-card engine. Also the
 layernorm repair: the dense and MoE families with ``norm="layernorm"``
 against JAX's forward and ``jax.grad`` on shared weights. The protocol on
 several ranks is ``tests/test_torch_dist.py``."""
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,17 +62,23 @@ def test_state_layout_ranges():
     assert lay.cols == (6, 10)
     assert tproto.state_layout(None, 4, 7) == ((0, 4), (0, 7), (0, 7))
     # a 'model' axis lays out the rank's flat row of blocks (P = P_m); the
-    # rank view refuses a stack without its per-leaf split, and a family
-    # without tensor-parallel layers gets none
+    # rank view refuses a stack without its per-leaf split; every family
+    # gets one (the MoE's experts split on F), a model without a family
+    # (the paper's MLPs) none
     m2 = tmesh.Mesh(tmesh.AXES, (1, 1, 2), rank=1)
     assert tproto.state_layout(m2, 4, 7) == ((0, 4), (0, 7), (0, 7))
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 19"):
         tproto.consolidate(torch.zeros(4, 7), tproto.ProtocolConfig.derive(4),
                            mesh=m2)
     moe = get_bundle("qwen3-moe-235b-a22b", reduced=True)
     tree = tproto.FlatTree.from_params(moe.init(torch.Generator()))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tproto.model_split(moe.cfg, tree, m2)
+    split = tproto.model_split(moe.cfg, tree, m2)
+    assert split.local.size < tree.size and split.m == 1
+    w_gate = tree.paths.index(("blocks", "moe", "w_gate"))
+    assert split.dims[w_gate] == 3
+    with pytest.raises(NotImplementedError, match="item 19"):
+        tproto.model_split(types.SimpleNamespace(name="mlp_h1024"), tree,
+                           m2)
     with pytest.raises(ValueError, match="must divide"):
         tproto.state_layout(tmesh.Mesh(tmesh.AXES, (3, 1, 1)), 4, 7)
 
@@ -85,17 +93,28 @@ def test_backend_rule_and_model_axis_refusals(monkeypatch):
     moe = get_bundle("qwen3-moe-235b-a22b", reduced=True)
     smesh = tmesh.Mesh(("data", "model"), (4, 2))
     from repro_torch.launch.steps import serve_rules
+    from repro_torch.models.registry import check_model_axis
     from repro_torch.serve import QuorumService, ReplicaPool
     pool = ReplicaPool.from_params(moe.init(torch.Generator()), 1)
-    for fn in (lambda: tproto.model_split(moe.cfg, None, tmesh.Mesh(
-                   tmesh.AXES, (4, 1, 2))),
-               lambda: QuorumService(pool, moe,
-                                     rules=serve_rules(smesh, moe.cfg))):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            fn()
+    # every family takes the 'model' axis: a MoE service holds its blocks
+    svc = QuorumService(pool, moe, rules=serve_rules(smesh, moe.cfg))
+    assert svc.pool.sharded
+    assert svc.pool.params["blocks"]["moe"]["w_gate"].shape[-1] == 256 // 2
+    for arch in ("qwen3-moe-235b-a22b", "rwkv6-3b", "zamba2-1.2b",
+                 "whisper-small"):
+        check_model_axis(get_bundle(arch).cfg, 2)
+    with pytest.raises(NotImplementedError, match="item 19"):
+        tproto.model_split(types.SimpleNamespace(name="mlp"), None,
+                           tmesh.Mesh(tmesh.AXES, (4, 1, 2)))
+    whisper = get_bundle("whisper-small", reduced=True)
+    with pytest.raises(ValueError, match="token-in"):
+        QuorumService(ReplicaPool.from_params(
+            whisper.init(torch.Generator()), 1), whisper,
+            rules=serve_rules(smesh, whisper.cfg))
     with pytest.raises(ValueError, match="256 ranks"):
         tmesh.make_production_mesh()
-    with pytest.raises(SystemExit, match="item 17"):
+    # the MoE's --mesh 4x2 is taken; one rank cannot fill it
+    with pytest.raises(SystemExit, match="needs 8 ranks"):
         train.main(["--arch", "qwen3-moe-235b-a22b", "--reduced", "--device",
                     "cpu", "--mesh", "4x2"])
     with pytest.raises(SystemExit, match="needs 4 ranks"):

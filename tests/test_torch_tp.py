@@ -5,8 +5,10 @@ same numpy params, batches and replayed quorum tables (the counterpart of
 ``tests/_protocol_runner.py`` at (rep 4, fsdp 1, model 2)), against the
 port's single-card engine and against the byte models; quorum serving on a
 (4, 2) serve mesh (``tests/_serve_runner.py`` part 2); ``launch.serve
---mesh 1x4`` against one rank; ``launch.train --mesh 4x2`` and
-``launch.serve --mesh 2x2`` under ``torchrun``."""
+--mesh 1x4`` against one rank; ``launch.train --mesh 4x2``, ``launch.serve
+--mesh 2x2`` and the MoE's ``launch.train --mesh 2x2`` under ``torchrun``.
+The MoE, hybrid, RWKV6 and audio families over ranks are
+``tests/test_torch_tp_zoo.py``."""
 import json
 import os
 import subprocess
@@ -72,7 +74,8 @@ def runs(tmp_path_factory):
              gather=tables[2], tokens=toks, T=T,
              params=flat0.params.numpy())
     jend, _ = jeng.run(j0, {"tokens": jnp.asarray(toks[..., :-1]),
-                            "labels": jnp.asarray(toks[..., 1:])})
+                            "labels": jnp.asarray(toks[..., 1:])},
+                       epoch_steps=STEPS)
     want = protocol_state_from_jax(jax.tree.map(np.asarray, jend), "cpu")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, str(ROOT / "tests" /
@@ -208,8 +211,10 @@ def test_launch_serve_mesh_1x4_matches_one_rank(runs):
 def test_launchers_under_torchrun(runs):
     """``launch.train --mesh 4x2`` (8 ranks): 2 steps, finite losses, the
     (rep 4, fsdp 1, model 2) mesh; ``launch.serve --mesh 2x2`` the
-    single-rank tokens; ``--arch qwen3-moe-235b-a22b --mesh 4x2`` refused
-    up front, naming item 17."""
+    single-rank tokens; ``--arch qwen3-moe-235b-a22b --reduced --mesh
+    2x2`` (4 ranks, G = 2: the MoE family at rep 2 x model 2): 2 steps,
+    finite losses. Every run exits 0: each launcher leaves the process
+    group it joined."""
     d, _ = runs
     rec = json.load(open(d / "launch.json"))
     run = rec["train_4x2"]
@@ -219,5 +224,10 @@ def test_launchers_under_torchrun(runs):
     assert len(losses) == 2 and np.all(np.isfinite(losses)), run["stdout"]
     assert "'rep': 4, 'fsdp': 1, 'model': 2" in run["stdout"]
     assert _ids(rec["serve_2x2"]) == _ids(rec["serve_1x1"])
-    assert rec["refused"]["rc"] != 0
-    assert "item 17" in rec["refused"]["stderr"]
+    moe = rec["moe_2x2"]
+    assert moe["rc"] == 0, moe["stderr"]
+    losses = [float(l.split("loss")[1].split()[0])
+              for l in moe["stdout"].splitlines() if "[train] step" in l]
+    assert len(losses) == 2 and np.all(np.isfinite(losses)), moe["stdout"]
+    assert "qwen3-moe-235b-a22b" in moe["stdout"]
+    assert "'rep': 2, 'fsdp': 1, 'model': 2" in moe["stdout"]

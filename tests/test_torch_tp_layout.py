@@ -1,5 +1,6 @@
 """The 'model' axis's tables, in one process: the port's per-leaf split
-dims against the reference's ``repro.core.protocol.leaf_spec`` (only the
+dims of one architecture of each family against the reference's
+``repro.core.protocol.leaf_spec`` (only the
 column split of ``wq`` / ``wk`` / ``wv`` where the head counts divide M
 may differ, ROADMAP.md Queue 3), ``ModelSplit``'s cut and join, and the
 rule, parameter, cache and batch tables of ``repro_torch.launch.steps``.
@@ -20,6 +21,9 @@ from repro_torch.launch import steps
 from repro_torch.models.registry import get_bundle
 
 QKV = ("wq", "wk", "wv")
+#: one architecture of each family
+ARCHS = ["phi4-mini-3.8b", "qwen2-vl-7b", "qwen3-moe-235b-a22b", "rwkv6-3b",
+         "zamba2-1.2b", "whisper-small"]
 
 
 def _jax_leaves(arch, reduced):
@@ -34,7 +38,7 @@ def _jax_leaves(arch, reduced):
 @pytest.mark.parametrize("M", [2, 16])
 @pytest.mark.parametrize("reduced", [True, False],
                          ids=["reduced", "full"])
-@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_leaf_specs_follow_the_reference(arch, reduced, M, K):
     """Every replica-stacked leaf's spec at (rep 4, fsdp K, model M): the
     reference's, except ``wq`` / ``wk`` / ``wv``, which are the reference's
@@ -46,7 +50,9 @@ def test_leaf_specs_follow_the_reference(arch, reduced, M, K):
     mesh = tmesh.Mesh(tmesh.AXES, (4, K, M))
     ref_over = jproto.attn_overrides(cfg, stand_in)
     over = tproto.attn_overrides(cfg, mesh)
-    assert over["wq"] == ("col" if cfg.n_heads % M == 0 else "row")
+    heads = (cfg.shared_attn_heads or cfg.n_heads) if cfg.family == \
+        "hybrid" else cfg.n_heads
+    assert over["wq"] == ("col" if heads % M == 0 else "row")
     tree = FlatTree([p for p, _ in leaves], [s for _, s in leaves])
     dims = tproto.model_dims(tree, M, over)
     specs = tproto.state_shardings(tree, mesh, over)
@@ -68,13 +74,14 @@ def test_leaf_specs_follow_the_reference(arch, reduced, M, K):
         else:
             assert got == want, (path, got, want)
         assert d == (got.index("model") - 1 if "model" in got else None)
-    if cfg.n_kv_heads % M == 0:
+    has_qkv = any(p[-1] == "wq" for p, _ in leaves)
+    if cfg.n_kv_heads % M == 0 and has_qkv:
         assert sorted(set(differ)) == sorted(QKV)
-    if cfg.n_heads % M:
+    if cfg.n_heads % M or not has_qkv:
         assert not differ
 
 
-@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_port_tree_is_the_reference_tree(arch):
     """The reduced port model's leaves are the reference's, in order, so
     the two tables see the same leaves."""
@@ -157,12 +164,13 @@ def test_serve_param_cache_and_batch_tables():
 @pytest.mark.parametrize("M", [2, 16])
 def test_body_and_replicaless_specs_follow_the_reference(M, K):
     """``body_spec`` and ``_replicaless_spec`` of every leaf of
-    full-width phi4-mini and qwen2-vl-7b equal the reference's at (rep 4,
-    fsdp K, model M)."""
+    full-width phi4-mini, qwen2-vl-7b, qwen3-moe-235b-a22b, rwkv6-3b,
+    zamba2-1.2b and whisper-small equal the reference's at (rep 4, fsdp K,
+    model M)."""
     stand_in = types.SimpleNamespace(axis_names=("rep", "fsdp", "model"),
                                      devices=np.empty((4, K, M)))
     mesh = tmesh.Mesh(tmesh.AXES, (4, K, M))
-    for arch in ("phi4-mini-3.8b", "qwen2-vl-7b"):
+    for arch in ARCHS:
         _, leaves = _jax_leaves(arch, False)
         for path, shape in leaves:
             assert tproto.body_spec(shape, mesh) == tuple(

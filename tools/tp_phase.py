@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Run parts of ``chip_smoke.py``'s phase 16 (the 'model' axis, tensor
-parallelism, over ranks sharing the card) alone on the card.
+"""Run parts of ``chip_smoke.py``'s phases 16 and 17 (the 'model' axis,
+tensor parallelism, over ranks sharing the card) alone on the card.
 
-    python3 tools/tp_phase.py [a] [b]
+    python3 tools/tp_phase.py [a] [b] [z]
 
 a: phi4-mini-3.8b through ``launch/serve.py --mesh 1x2`` against one rank,
 then the quorum run at model 2; b: phi4-mini-3.8b protocol training
 through ``launch/train.py --mesh 4x2`` (8 ranks), then, on the same ranks,
-``lm/tfm_tiny`` at (rep 4, fsdp 1, model 2) against the CPU (part c). Both
-when none is named.
+``lm/tfm_tiny`` at (rep 4, fsdp 1, model 2) against the CPU (part c) and
+phase 17 (c) and (d) (zamba2-1.2b through ``launch/train.py --mesh 4x2``,
+the reduced MoE and hybrid against the CPU); z: phase 17 (a) and (b), the
+MoE, RWKV6, hybrid and audio models through ``launch/serve.py --mesh
+1x2`` against one rank and their quorum runs at model 2. All three when
+none is named.
 Builds the kernels first and runs the parts with their gates. Needs one
 NVIDIA GPU and ``nvcc``.
 """
@@ -37,11 +41,12 @@ def main(argv) -> int:
     for text in _build.build().values():
         cs.PTXAS.update(_build.ptxas_usage(text))
     cs.log(f"[build] {time.perf_counter() - t0:.1f} s")
-    parts = "".join(argv) or "ab"
+    parts = "".join(argv) or "abz"
     t0 = time.perf_counter()
-    got = cs.tp_phase(dev, parts)
+    got = cs.tp_phase(dev, parts.replace("z", ""), zoo="b" in parts)
+    got17 = cs.tp_zoo_phase(dev, "a" if "z" in parts else "")
     cs.log(f"[tp] parts {parts}: {time.perf_counter() - t0:.1f} s; launches "
-           f"{got}")
+           f"{got}, phase 17 {got17}")
     return 0
 
 
