@@ -103,7 +103,7 @@
    losses, peak memory under 80 GB, the median, the Gram and the
    selection launched at least once a step; steps/s, and a two-step
    profiler window with the WKV scan's share (its ranges, and the backward
-   nodes of the ops they ran). (d) rwkv6-3b at full width and full depth,
+   nodes of the ops they ran). (d) rwkv6-3b at full width, depth 8 of 32,
    with (b)'s requests and gates (no attention: the median only); 8
    requests over 4 slots refill every slot, so the per-request check holds
    the state reset. (e) ``lm/moe_tiny`` and ``lm/rwkv_tiny`` in float32
@@ -119,7 +119,7 @@
    a 4 x 1024 prefill of merged embeddings at ``[3, B, S]`` M-RoPE ids and
    32 decode steps; finite logits, the flash forward launched, peak memory
    under 80 GB; tok/s and a profiler window's busy share. (c) zamba2-1.2b
-   at full width and depth with phase 13 (b)'s quorum run and gates (the
+   at full width, depth 12 of 38, with phase 13 (b)'s quorum run and gates (the
    median and the flash forward launched; every request equal to its own
    B = 1 run, which holds the Mamba2 state reset). (d) zamba2-1.2b at full
    width, depth 12 (two shared-attention sites) through ``launch/train.py``
@@ -141,8 +141,9 @@
    world-1 NCCL group (the (1, 1, 1) mesh): params bit-equal to phase 10's
    after its 11 steps, or else within 1e-3 with every MDA selection equal
    (it says which). (b) phi4-mini-3.8b at full width, depth 2, G = 4 on 2
-   ranks sharing the card over gloo (mesh (2, 1, 1), ``--mesh 2x1``), 2
-   steps (3 before phase 16 took its share of the time limit): the per-rank memory reckoned from phase 10's peak first (the
+   ranks sharing the card over gloo (mesh (2, 1, 1), ``--mesh 2x1``), 1
+   step (3 before phase 16, 2 before phase 18 took their share of the
+   time limit): the per-rank memory reckoned from phase 10's peak first (the
    tokens a group cut to 2 x 1024 if 2 ranks would pass 72 GB); finite
    losses; per rank the peak memory, steps/s, bytes sent a step by tag
    (pull + aggregate within 10 % of ``collective_volume_bytes(rep=2)``)
@@ -157,18 +158,37 @@
    ``launch/serve.py --mesh 1x2``: the prefill logits against the single
    card's within rel-L2 2e-2 (beside bf16's own spread: the single card
    with float32 activations), then phase 4's quorum run at
-   model 2 (4 replicas, replica 3 ``reversed``): token-identical to the
+   model 2 (4 replicas, replica 3 ``reversed``; 4 requests x 8 new
+   tokens, ``TP_REQUESTS``, ``TP_NEW``): token-identical to the
    honest replica on the same mesh, replica 3 ejected, the flash forward
    and the median launched on each rank, each rank's peak memory. (b)
    phi4-mini-3.8b at full width, G = 4, through ``launch/train.py --mesh
    4x2`` (8 ranks: rep 4, model 2); its depth, steps and tokens reckoned
-   first from the bytes a rank moves a step and the ranks' memory, and
-   printed: finite, falling losses, each step's pull + aggregate equal to
+   first from the bytes a rank moves a step and the ranks' memory (a
+   rank's step peak from the dry run, ``_rank_peak``), and printed:
+   finite, falling losses, each step's pull + aggregate equal to
    ``collective_volume_bytes`` on the rank's blocks and the 'model' tags
    to ``model_volume_bytes``, rows 1-4, 7 and 8 launched each step. (c)
    ``lm/tfm_tiny`` at (rep 4, fsdp 1, model 2) on the same 8 ranks
    against the single-card CPU run (phase 15 (c)'s): every MDA selection
    equal.
+17. The 'model' axis of the MoE, hybrid, RWKV6 and audio families
+   (``tp_zoo_phase``), after 16.
+18. The dry run (``repro_torch.launch.dryrun.measure``) held against the
+   card. (a) Right after phase 12 (a), phase 10's protocol step on its
+   state, measured by the same counter on meta and on the card: FLOPs
+   equal, the dry run's peak within 15 % of ``max_memory_allocated``
+   over the step (less what else was resident beside its arguments);
+   then the step timed without the counter beside the roofline's
+   estimate. (b) ``launch/steps.build_prefill_cell`` (phi4-mini-3.8b, 4
+   x 1024, full depth) on a 1-rank mesh, on meta and on the card, held
+   to (a)'s gates. (c) Each of phase 16 (b)'s 8 ranks dry-run on a
+   ``RankView`` of the (4, 1, 2) mesh: its bytes by tag equal to its
+   ``Mesh.sent`` of the run's first step; its dry-run peak beside its
+   measured one. (d) phi4-mini-3.8b x ``train_4k`` on the 16 x 16
+   production mesh, dry-run for its fullest rank and printed as a
+   roofline row (reckoned, H100 SXM published peaks) with the host's
+   seconds.
 
 The profiler windows are read from their raw trace records in one pass
 (``trace_events``), not through ``key_averages()`` / ``events()``, whose
@@ -311,15 +331,6 @@ def bound(nbytes: float, ops: float, peak_ops: float):
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def _visible_pairs(Sq: int, Skv: int, window: int, causal: bool) -> int:
-    """(q, k) pairs of one (batch, head) that the mask leaves visible."""
-    if not causal:
-        return Sq * Skv
-    i = np.arange(Sq) + (Skv - Sq)
-    lo = np.maximum(0, i - window + 1) if window else 0
-    return int(np.sum(i + 1 - lo))
-
-
 def _sdpa_mask(Sq: int, Skv: int, window: int, causal: bool, dev) -> dict:
     """The library call's mask arguments for the same attention."""
     if not causal:
@@ -369,10 +380,8 @@ def flash_row(dev, B, S, H, kvH, hd, window, tag="kernel", *, Skv=None,
         *(x.transpose(1, 2) for x in t), enable_gqa=True, **lib),
         (q, k, v), iters)
     # the work these inputs need: visible (q, k) pairs only, at the true hd
-    pairs = _visible_pairs(S, Skv, window, causal)
-    flops = 4.0 * hd * pairs * B * H                        # QK^T and PV
-    nbytes = 2.0 * (2 * B * S * H * hd + 2 * B * Skv * kvH * hd) \
-        + 4.0 * B * H * S
+    # (the kernel package's count, which the dry run reads too)
+    flops, nbytes = ops.fwd_work(B, S, Skv, H, kvH, hd, 2, causal, window)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
     shape = f"{S}" + (f"/{Skv}" if Skv != S else "")
     log(f"[{tag}] flash_attention [{B}, {shape}, {H}/{kvH}, {hd}] "
@@ -397,7 +406,6 @@ def flash_phase(dev):
 
 def median_phase(dev):
     from repro_torch.kernels.cwise_median import ops
-    from repro_torch.kernels.cwise_median.ref import _oddeven_pairs
     D = N_SLOTS * 200064                                 # [R, slots * V]
     rows = []
     for n in (4, 3):
@@ -413,9 +421,8 @@ def median_phase(dev):
         ms = cold_ms(ops.cwise_median, (x,), 200)
         plain_ms = cold_ms(ops.cwise_median_plain, (x,), 50)
         library_ms = cold_ms(lambda t: torch.quantile(t, 0.5, dim=0), (x,), 50)
-        nbytes = 4.0 * (n * D + D)
-        b_ms, b_by = bound(nbytes, 2.0 * len(_oddeven_pairs(n)) * D,
-                           F32_FLOPS)
+        n_ops, nbytes = ops.median_work(1, n, D)
+        b_ms, b_by = bound(nbytes, n_ops, F32_FLOPS)
         log(f"[kernel] cwise_median [{n}, {D}] f32: max|kernel-plain|={err} "
             f"| kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, quantile "
             f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
@@ -593,15 +600,10 @@ TRAIN_MODEL = "mlp_h1024"
 REF_STEPS = 23                                   # 2T + 3 at T = 10
 
 
-def _bitonic_ops(n: int) -> int:
-    """min/max operations per column of the bitonic network over n rows
-    padded to a power of two: np2 / 2 compare-exchanges (two operations
-    each) in each of its log2(np2) (log2(np2) + 1) / 2 stages."""
-    lg = max(n - 1, 0).bit_length()
-    return (1 << lg) * lg * (lg + 1) // 2
-
-
-def _row(label, err, ms, plain_ms, library_ms, nbytes, ops, extra=""):
+def _row(label, err, ms, plain_ms, library_ms, work, extra=""):
+    """A kernel row: ``work`` is the kernel package's (operations, bytes)
+    count of the call (the one the dry run reads)."""
+    ops, nbytes = work
     b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
     lib = "—" if library_ms is None else f"{library_ms:.4f} ms"
     log(f"[train-kernel] {label}: max|kernel-plain|={err:.3g} | kernel "
@@ -630,7 +632,6 @@ def train_kernel_phase(dev, D: int):
     the 5 equivocated servers; the protocol: 4 servers take 3 gradients
     with f = 1)."""
     from repro_torch.kernels.cwise_median import ops as order_ops
-    from repro_torch.kernels.cwise_median.ref import _oddeven_pairs
     from repro_torch.kernels.pairwise_sqdist import ops as gram_ops
     from repro_torch.kernels.pairwise_sqdist.ref import sqdists_from_gram
     rows: dict[str, list] = {"cwise_median": [], "cwise_trimmed_mean": [],
@@ -658,7 +659,7 @@ def train_kernel_phase(dev, D: int):
             cold_ms(order_ops.cwise_median, (x,), 100),
             cold_ms(order_ops.cwise_median_plain, (x,), 20),
             cold_ms(lambda t: torch.quantile(t, 0.5, dim=1), (x,), 20),
-            4.0 * (B * n * D + B * D), _bitonic_ops(n) * B * D))
+            order_ops.median_work(B, n, D)))
     # trimmed mean: the gallery's servers [5, 7, D], f = 2; the same sorted
     # rows added in the same order and one IEEE division: exact
     x = stack(5, 7, 57)
@@ -668,7 +669,7 @@ def train_kernel_phase(dev, D: int):
         f"cwise_trimmed_mean [5, 7, {D}] f=2", err,
         cold_ms(lambda t: order_ops.cwise_trimmed_mean(t, 2), (x,), 100),
         cold_ms(lambda t: order_ops.cwise_trimmed_mean_plain(t, 2), (x,), 20),
-        None, 4.0 * (5 * 7 * D + 5 * D), (_bitonic_ops(7) + 3) * 5 * D))
+        None, order_ops.trimmed_mean_work(5, 7, D, 2)))
     # MeaMed: sync_filters' equivocated refresh [5, 5, D], f = 1; exact
     x = stack(5, 5, 55)
     err = exact(order_ops.cwise_meamed(x, 1),
@@ -678,8 +679,7 @@ def train_kernel_phase(dev, D: int):
         f"cwise_meamed [5, 5, {D}] f=1", err,
         cold_ms(lambda t: order_ops.cwise_meamed(t, 1), (x,), 100),
         cold_ms(lambda t: order_ops.cwise_meamed_plain(t, 1), (x,), 20),
-        None, 4.0 * (5 * 5 * D + 5 * D),
-        (2 * len(_oddeven_pairs(5)) + 30) * 5 * D,
+        None, order_ops.meamed_work(5, 5, D, 1),
         f"; {plan.path} kernel, {plan.wires} wires, {4 * plan.vec}-byte "
         f"loads" + ptxas_note(f"meamed_exact_kernelILi5ELi{plan.vec}E")))
     # Gram: MDA at the 5 servers over 7 gradients; float32 summation order,
@@ -702,7 +702,7 @@ def train_kernel_phase(dev, D: int):
         cold_ms(gram_ops.gram, (x,), 100),
         cold_ms(gram_ops.gram_plain, (x,), 20),
         cold_ms(lambda t: torch.bmm(t, t.transpose(1, 2)), (x,), 100),
-        4.0 * (5 * 7 * D + 5 * 49), 2.0 * 5 * 28 * D,
+        gram_ops.gram_work(5, 7, D),
         f", max|d2| err / scale {(d2_err / scale.clamp(min=1e-30)).max().item():.2g}"
         + gram_note(gram_ops, x)))
     # exact MDA selection (SELECT_CASES); quickstart's on this Gram's d2
@@ -842,8 +842,7 @@ def select_row(dev, label: str, d2, f: int, on_path: bool) -> dict:
         f"{walls['replaced route']:.1f} µs, kernel {walls['kernel']:.1f} µs; "
         f"an empty kernel {floor_ms:.4f} ms")
     row = _row(f"mda_select [{B}, {n}, {n}] x {S} subsets ({label})", err, ms,
-               plain_ms, None, 4.0 * (B * n * n + B * S + B * n) + 8.0 * S,
-               float(B * S * k * k),
+               plain_ms, None, diam_ops.select_work(B, n, S, k),
                f"; empty-kernel floor {floor_ms:.4f} ms"
                + ptxas_note("mda_select_kernel"))
     return dict(row, main=on_path)
@@ -1096,15 +1095,12 @@ def flash_bwd_phase(dev, cases=BWD_CASES, main: bool = True):
         # the library's backward of the same attention (dq, dk, dv at once)
         library_ms = sdpa_bwd_ms(q, k, v, do,
                                  _sdpa_mask(Sq, Skv, window, causal, dev))
-        # the work these inputs need: visible (q, k) pairs, the true hd
-        pairs = _visible_pairs(Sq, Skv, window, causal) * B * H
+        # the work these inputs need: visible (q, k) pairs, the true hd (the
+        # kernel package's counts, which the dry run reads too)
         es = torch.finfo(dt).bits // 8
-        qb, kvb = es * B * Sq * H * hd, es * B * Skv * kvH * hd
-        vec = 4.0 * B * H * Sq                           # lse or delta
-        for name, ms, n_prod, nbytes in (
-                ("flash_bwd_dq", dq_ms, 3, 4 * qb + 2 * kvb + 2 * vec),
-                ("flash_bwd_dkv", dkv_ms, 4, 2 * qb + 4 * kvb + 2 * vec)):
-            flops = 2.0 * hd * pairs * n_prod
+        for name, ms, count in (("flash_bwd_dq", dq_ms, ops.bwd_dq_work),
+                                ("flash_bwd_dkv", dkv_ms, ops.bwd_dkv_work)):
+            flops, nbytes = count(B, Sq, Skv, H, kvH, hd, es, causal, window)
             b_ms, b_by = bound(nbytes, flops,
                                BF16_FLOPS if dt == torch.bfloat16
                                else F32_FLOPS)
@@ -1325,7 +1321,7 @@ def protocol_kernel_rows(dev, G: int, P: int, chunk_bytes: int):
         f"protocol gram [{G}, {P}]", (got - want).abs().max().item(),
         cold_ms(gram_ops.gram, (x,), 3), cold_ms(gram_ops.gram_plain, (x,), 2),
         cold_ms(lambda t: t @ t.T, (x,), 3),
-        4.0 * (G * P + G * G), 2.0 * (G * (G + 1) // 2) * P,
+        gram_ops.gram_work(1, G, P),
         gram_note(gram_ops, x))]}
     del want
     # the pull's and the gather's chunk (masked_pull), consolidate's chunk
@@ -1348,7 +1344,7 @@ def protocol_kernel_rows(dev, G: int, P: int, chunk_bytes: int):
             cold_ms(order_ops.cwise_median, (t,), 20),
             cold_ms(order_ops.cwise_median_plain, (t,), 5),
             cold_ms(lambda u: torch.quantile(u, 0.5, dim=-2), (t,), 5),
-            4.0 * (t.numel() + batch * cols), _bitonic_ops(n) * batch * cols))
+            order_ops.median_work(batch, n, cols)))
     return rows
 
 
@@ -1902,11 +1898,12 @@ def elastic_phase(dev):
 MOE_ARCH, RWKV_ARCH = "qwen3-moe-235b-a22b", "rwkv6-3b"
 # (arch, depth, tag, new tokens of the profiler window): qwen3-moe at depth
 # 2 (one bf16 copy 11.05 GB; four replicas, one corrupted, 55 GB);
-# rwkv6-3b at its full depth (5.81 GB a copy), whose window decodes 2
-# tokens: each of its decode steps is ~23k launches, and the profiler's
-# parse of a window grows with the launches
+# rwkv6-3b at depth 8 of 32 (its full depth until phase 18 took its share
+# of the script's time limit: ~90 s of host-paced B = 1 decoding), whose
+# window decodes 2 tokens: each of its decode steps is ~6k launches at
+# this depth, and the profiler's parse of a window grows with the launches
 ZOO_SERVE = ((MOE_ARCH, 2, "moe-serve", 8),
-             (RWKV_ARCH, None, "rwkv-serve", 2))
+             (RWKV_ARCH, 8, "rwkv-serve", 2))
 # phase 10's run with the RWKV6 family
 ZOO_TRAIN_ARGV = ["--arch", RWKV_ARCH] + PROTO_ARGV[2:]
 
@@ -1943,9 +1940,9 @@ def zoo_serve_phase(dev, arch: str, depth, tag: str, window_new: int,
                          dtype=torch.bfloat16)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in leaves(params))
-    cut = (f"depth {cfg.n_layers} of {full} (cut: four replicas of the "
-           f"full depth would need {4 * 2 * n / cfg.n_layers * full / 1e9:.0f}"
-           f" GB)" if cfg.n_layers < full else f"full depth {full}")
+    cut = (f"depth {cfg.n_layers} of {full} (four bf16 replicas of the full "
+           f"depth: {4 * 2 * n / cfg.n_layers * full / 1e9:.0f} GB)"
+           if cfg.n_layers < full else f"full depth {full}")
     log(f"[{tag}] {cfg.name} ({cfg.family}) at full width (d_model "
         f"{cfg.d_model}, vocab {cfg.vocab}"
         + (f", {cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, "
@@ -2201,10 +2198,11 @@ ZOO2_BWD = (
 # (b): launch/serve.py's default path, full width and depth
 VLM_SERVE_ARGV = ["--arch", VLM_ARCH, "--batch", "4", "--prefill", "1024",
                   "--decode", "32"]
-# (c): phase 13 (b)'s quorum run; the profiler window prefills 2 slots and
-# decodes 2 tokens each (a zamba2 prefill or decode is ~2k launches a
-# slot-replica, and the trace's parse grows with the launches)
-HYBRID_SERVE = (HYBRID_ARCH, None, "hybrid-serve", 2, 2)
+# (c): phase 13 (b)'s quorum run at depth 12 of 38, two shared-attention
+# sites (its full depth until phase 18 took its share of the script's time
+# limit); the profiler window prefills 2 slots and decodes 2 tokens each
+# (the trace's parse grows with the launches)
+HYBRID_SERVE = (HYBRID_ARCH, 12, "hybrid-serve", 2, 2)
 # (d): phase 10's run at depth 12 (two shared-attention sites)
 HYBRID_TRAIN_ARGV = ["--arch", HYBRID_ARCH, "--depth", "12"] + PROTO_ARGV[4:]
 AUDIO_STEPS, AUDIO_LR = 4, 0.005
@@ -2613,8 +2611,9 @@ def zoo2_reference_phase(dev):
 # ---------------------------------------------------------------------------
 
 MESH_RANKS = 2          # (b): ranks sharing the card over gloo
-# 2 steps (3 before phase 16 took its share of the script's time limit)
-MESH_STEPS = 2
+# 1 step (3 before phase 16, 2 before phase 18 took its share of the
+# script's time limit)
+MESH_STEPS = 1
 MESH_BUDGET_GB = 72.0   # what (b)'s ranks may take of the card together
 # kernel rows 1-4, 7 and 8: every one runs on every rank each step
 MESH_KERNELS = ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv",
@@ -2801,13 +2800,14 @@ def mesh_phase(dev, reference: dict) -> dict:
     model = collective_volume_bytes(pcfg, P, rep=R)
     for r, o in enumerate(outs):
         add(o["launches"])
-        warm = o["step_s"][1:]
+        warm = o["step_s"][1:] or o["step_s"]
         scatter = [b.get("pull", 0) + b.get("aggregate", 0)
                    for b in o["sent"]]
         log(f"[mesh] (b) rank {r} of {R} ({o['backend']}, mesh "
             f"{o['mesh']}, P = {o['P']:,}): peak device memory "
             f"{o['peak_gb']:.1f} GB; {len(warm) / sum(warm):.4f} steps/s "
-            f"after the first (steps {[round(x, 2) for x in o['step_s']]}"
+            + ("after the first " if len(o["step_s"]) > 1 else "")
+            + f"(steps {[round(x, 2) for x in o['step_s']]}"
             f" s); bytes sent a step by tag {o['sent']} (gloo through the "
             f"host on one card: not a link's rate); pull + aggregate "
             f"{scatter} against collective_volume_bytes(rep={R}) {model}; "
@@ -2861,29 +2861,21 @@ TP_ARCH = "phi4-mini-3.8b"
 TP_SERVE_ARGV = ["--arch", TP_ARCH, "--batch", "4", "--prefill", "1024",
                  "--decode", "8"]
 TP_LOGIT_TOL = 2e-2     # rel-L2 of (a)'s prefill logits, model 2 vs one rank
+# (a)'s quorum run: 4 requests x 8 new tokens (phase 4's 8 x 16 until phase
+# 18 took its share of the script's time limit: 58 s at 2.2 tok/s a rank)
+TP_REQUESTS, TP_NEW = 4, 8
 # (b): depth, steps and tokens reckoned from the bytes a rank moves a step,
 # at the gloo rate of 8 ranks sharing one H100 80GB HBM3 (700 W) and its
 # host (a second step of depth 1 moved 9.72 GB a rank in 19.1 s: 0.51
 # GB/s; phase 15 (b): 0.51-0.65 GB/s a rank with 2), within a time budget
 TP_RATE = 0.5e9
-TP_BUDGET_S = 45.0
+# (40 s: 45 until phase 18 took its share of the script's time limit)
+TP_BUDGET_S = 40.0
 TP_MEM_GB = 72.0        # what (b)'s 8 ranks may take of the card together
 TP_SEQ = 512
 # one step of phase 10's lr 0.002 overshoots at this width (its loss rises
 # at step 1): a smaller one keeps a few steps' losses falling
 TP_LR = "0.0005"
-
-
-def _meta_tree(cfg):
-    """The :class:`FlatTree` of ``cfg``'s family at ``cfg``, from the
-    family's own init under a fake-tensor mode: shapes alone, nothing is
-    allocated."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
-    from repro_torch.core.simulator import FlatTree
-    from repro_torch.models.registry import ModelBundle
-    with FakeTensorMode():
-        return FlatTree.from_params(ModelBundle(cfg).init(torch.Generator()))
 
 
 def _bf16_spread(dev, want) -> float:
@@ -2945,19 +2937,19 @@ def _tp_serve_rank(dev, rank: int, tmp: str) -> dict:
         pool = pool.corrupt(ByzantineSpec(server_attack="reversed",
                                           n_byz_servers=1))
         rng = np.random.default_rng(SEED)
-        lens = rng.integers(64, 1025, size=N_REQUESTS)
+        lens = rng.integers(64, 1025, size=TP_REQUESTS)
         prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
         kw = dict(n_slots=N_SLOTS, n_chunks=4, rule="median", rules=rules,
-                  max_len=-(-(int(lens.max()) + MAX_NEW + 1) // 64) * 64)
+                  max_len=-(-(int(lens.max()) + TP_NEW + 1) // 64) * 64)
         svc = QuorumService(pool, bundle, **kw)
         _zero_counts(counters)
         t0 = time.perf_counter()
-        outs = svc.generate(prompts, max_new=MAX_NEW)
+        outs = svc.generate(prompts, max_new=TP_NEW)
         quorum = _read_counts(counters)
         wall = time.perf_counter() - t0
         rep = svc.report()
         base = QuorumService(honest, bundle, **kw).generate(prompts,
-                                                            max_new=MAX_NEW)
+                                                            max_new=TP_NEW)
     return dict(ids=ids.tolist(), launcher_s=launcher_s,
                 launcher_launches=launcher, quorum_launches=quorum,
                 prefill_s=stats["prefill_s"], tok_s_launcher=stats["tok_s"],
@@ -3003,43 +2995,72 @@ RANK_TASKS = {"train": _mesh_train_rank, "tiny": _mesh_tiny_rank,
               "tp_zoo_serve": lambda *a: _tp_zoo_serve_rank(*a)}
 
 
+def _rank_peak(cfg, pcfg, batch: int, rank: int = 1) -> dict:
+    """The dry run (``repro_torch.launch.dryrun.measure`` on meta tensors)
+    of one step of ``launch/train.py --mesh 4x2`` at ``cfg``, ``batch``
+    rows of ``TP_SEQ`` tokens a group, for ``rank`` of the (4, 1, 2) mesh
+    (a 'model' coordinate 1 also holds its owned-columns mask): its
+    figures, the bytes it sends by tag among them."""
+    from repro_torch.core import protocol
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models.registry import ModelBundle
+    from repro_torch.optim.schedules import inverse_linear
+    bundle = ModelBundle(cfg)
+    view = tmesh.RankView(tmesh.AXES, (4, 1, 2), rank=rank)
+    state = protocol.make_init_fn(bundle, pcfg, "meta", view)(0)
+    step = protocol.make_train_step(bundle, pcfg,
+                                    inverse_linear(float(TP_LR), 0.005),
+                                    mesh=view)
+    G = pcfg.n_groups
+    toks = torch.empty((G, batch, TP_SEQ), dtype=torch.long, device="meta")
+    fig, _ = dryrun.measure(step, (state, {"tokens": toks, "labels": toks}),
+                            view)
+    return fig
+
+
 def _tp_reckon(pcfg, cfg, cands, budget_s: float, label: str):
     """The depth, steps and rows of ``TP_SEQ`` tokens a group of a run of
     ``cfg`` through ``launch/train.py --mesh 4x2``: the first of ``cands``
     (or the last) whose bytes a rank a step at ``TP_RATE`` fit
     ``budget_s`` and whose 8 ranks fit ``TP_MEM_GB`` of the card, each
-    reckoned and printed after ``label``: a rank holds the whole f32 model
-    while it draws it, then its blocks' f32 replica and gradient and bf16
-    pull (10 bytes a value) and ~3 float32 copies of a sequence chunk's
-    vocab-parallel logits, the streamed chunks' buffers and the loss's
-    gradients of the vocab table's block (~2 GB) and its context (~1 GB),
-    a fifth more for the allocator's fragments (8 ranks of phi4-mini-3.8b
-    at depth 1, 2 x 512 tokens held ~9.4 GB each of one H100 80GB HBM3)."""
+    reckoned and printed after ``label``. A rank's memory: the larger of
+    its draw of the whole f32 model beside its block and its step's peak
+    as the dry run reckons it (:func:`_rank_peak`), a fifth more for the
+    allocator's fragments, and 1 GB for its CUDA context."""
     import dataclasses
 
     from repro_torch.core import protocol
+    from repro_torch.core.simulator import FlatTree
     from repro_torch.launch import mesh as tmesh
+    from repro_torch.models.registry import ModelBundle
     mesh = tmesh.Mesh(tmesh.AXES, (4, 1, 2))
+    peaks: dict = {}
     for depth, steps, batch in cands:
         c = dataclasses.replace(cfg, n_layers=depth)
-        tree = _meta_tree(c)
+        tree = FlatTree.from_params(ModelBundle(c).meta_params())
         P_m = protocol.model_split(c, tree, mesh).local.size
         scatter = protocol.collective_volume_bytes(pcfg, P_m)
         gram = 3 * -(-P_m // 4) * 4
         tp = sum(protocol.model_volume_bytes(c, 2, batch * TP_SEQ).values())
         step_b = scatter + gram + tp
         secs = steps * step_b / TP_RATE
-        logits = 3 * batch * min(TP_SEQ, 512) * (c.vocab // 2) * 4
-        mem = 8 * 1.2 * (max(4 * tree.size + 4 * P_m, 10 * P_m + logits)
-                         + 3e9)
+        if (depth, batch) not in peaks:
+            peaks[depth, batch] = _rank_peak(c, pcfg, batch)["memory"][
+                "peak_bytes"]
+        peak = peaks[depth, batch]
+        rank_b = max(4 * tree.size + 4 * P_m, peak)
+        mem = 8 * (1.2 * rank_b + 1e9)
         log(f"{label} reckoning {cfg.name} depth {depth}, {steps} steps, "
             f"{batch} x {TP_SEQ} tokens: P = {tree.size:,}, a rank's blocks "
             f"P_m = {P_m:,}; a step sends pull + aggregate "
             f"{scatter / 1e9:.2f} GB (collective_volume_bytes), the Gram's "
             f"all-to-all {gram / 1e9:.2f} GB, the 'model' tags "
             f"{tp / 1e9:.3f} GB: {step_b / 1e9:.2f} GB, {secs:.0f} s at "
-            f"{TP_RATE / 1e9:.2f} GB/s a rank (budget {budget_s:.0f} s); 8 "
-            f"ranks {mem / 1e9:.1f} GB (budget {TP_MEM_GB:.0f} GB)")
+            f"{TP_RATE / 1e9:.2f} GB/s a rank (budget {budget_s:.0f} s); a "
+            f"rank's step peaks at {peak / 1e9:.2f} GB (dry run), its draw "
+            f"at {(4 * tree.size + 4 * P_m) / 1e9:.2f} GB; 8 ranks "
+            f"{mem / 1e9:.1f} GB (budget {TP_MEM_GB:.0f} GB)")
         if secs <= budget_s and mem <= TP_MEM_GB * 1e9 \
                 or (depth, steps, batch) == cands[-1]:
             return depth, steps, batch
@@ -3129,7 +3150,7 @@ def tp_phase(dev, parts: str = "ab", zoo: bool = True) -> dict:
                 raise AssertionError(f"phase 16 (a) rank {r}: the flash "
                                      "forward or the median not launched")
         log(f"[tp] (a) token-identical to the honest replica on the mesh "
-            f"({N_REQUESTS} requests x {MAX_NEW} tokens), replica "
+            f"({TP_REQUESTS} requests x {TP_NEW} tokens), replica "
             f"{N_REPLICAS - 1} ejected: {time.perf_counter() - t0:.1f} s")
 
     # (b) and (c): one start of 8 ranks -------------------------------------
@@ -3166,6 +3187,7 @@ def tp_phase(dev, parts: str = "ab", zoo: bool = True) -> dict:
                     for arch in TP_ZOO_TINY})
         import dataclasses
         c = dataclasses.replace(cfg, n_layers=depth)
+        TP_TRAIN_RANKS.update(outs=outs, cfg=c, pcfg=pcfg, batch=batch)
         tp_want = model_volume_bytes(c, 2, batch * TP_SEQ)
         for r, o in enumerate(o["train"] for o in outs):
             add(o["launches"])
@@ -3593,6 +3615,202 @@ def tp_zoo_phase(dev, parts: str = "ab") -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the dry run held against the card
+# ---------------------------------------------------------------------------
+
+DRY_MEM_TOL = 0.15      # the dry run's peak against the card's, relative
+# (b): phi4-mini-3.8b's prefill of 4 x 1024 tokens at full width and depth
+DRY_PREFILL = ("phi4-mini-3.8b", 1024, 4)
+# (c): phase 16 (b)'s 8 ranks, left by tp_phase
+TP_TRAIN_RANKS: dict = {}
+
+
+def _card_measure(dev, fn, args) -> tuple[dict, float]:
+    """The dry run's measurement (``dryrun.measure``) of ``fn(*args)`` on
+    the card, and the step's peak: ``max_memory_allocated`` over the call
+    (reset just before it), less what else was resident beside its
+    arguments."""
+    from repro_torch.launch import dryrun
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    fig, out = dryrun.measure(fn, args)
+    torch.cuda.synchronize(dev)
+    del out
+    peak = torch.cuda.max_memory_allocated(dev)
+    other = before - fig["memory"]["argument_bytes"]
+    fig["card"] = dict(max_allocated=peak, resident_before=before,
+                       other=other, peak=peak - other)
+    return fig, peak - other
+
+
+def _roofline_s(fig) -> tuple[float, str]:
+    """One card's roofline estimate of a measured call: the larger of its
+    FLOPs at the bf16 peak and its bytes at HBM's rate (reckoned, H100 SXM
+    published peaks)."""
+    from repro_torch.launch import roofline
+    terms = {"compute": fig["flops"] / roofline.PEAK_FLOPS,
+             "memory": fig["bytes_accessed"] / roofline.HBM_BW}
+    dom = max(terms, key=terms.get)
+    return terms[dom], dom
+
+
+def _dry_gate(label: str, meta: dict, card: dict, card_peak: float) -> None:
+    """FLOPs equal and the dry run's peak within ``DRY_MEM_TOL`` of the
+    card's; the kernels' counts printed side by side."""
+    mp = meta["memory"]["peak_bytes"]
+    rel = abs(mp - card_peak) / card_peak
+    log(f"[dry] {label}: FLOPs meta {meta['flops']:.6e}, card "
+        f"{card['flops']:.6e} (equal: {meta['flops'] == card['flops']}); "
+        f"bytes meta {meta['bytes_accessed']:.6e}, card "
+        f"{card['bytes_accessed']:.6e}; aten ops {meta['aten_ops']} / "
+        f"{card['aten_ops']}; peak meta {mp / 1e9:.3f} GB, card "
+        f"{card_peak / 1e9:.3f} GB (max_memory_allocated "
+        f"{card['card']['max_allocated'] / 1e9:.3f} GB less "
+        f"{card['card']['other'] / 1e9:.3f} GB resident beside the "
+        f"arguments): {100 * rel:.1f} % apart (gate "
+        f"{100 * DRY_MEM_TOL:.0f} %); the meta run took {meta['wall_s']:.1f}"
+        f" s on the host; kernels meta " + json.dumps(meta["kernels"])
+        + " card " + json.dumps(card["kernels"]))
+    if meta["flops"] != card["flops"] or meta["kernels"] != card["kernels"]:
+        raise AssertionError(f"phase 18 {label}: the dry run's FLOPs "
+                             f"{meta['flops']} against the card's "
+                             f"{card['flops']}")
+    if rel > DRY_MEM_TOL:
+        raise AssertionError(f"phase 18 {label}: the dry run's peak "
+                             f"{mp} B against the card's {card_peak} B")
+
+
+def dry_protocol_phase(dev, state) -> None:
+    """18 (a): phase 10's protocol step (phi4-mini-3.8b, depth 2, G = 4,
+    ALIE x1, 4 x 1024 tokens a group) measured by the dry run on meta and
+    on the card (phase 10's state, a scatter step of a fresh step function
+    on each), then timed once more without the counter beside the
+    roofline's estimate."""
+    from repro_torch.core import protocol
+    from repro_torch.core.attacks import ByzantineSpec
+    from repro_torch.data.pipeline import token_stream
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models.registry import get_bundle
+    from repro_torch.optim.schedules import inverse_linear
+    args = train.parser().parse_args(PROTO_ARGV)
+    bundle = get_bundle(args.arch, reduced=args.reduced, depth=args.depth)
+    byz = ByzantineSpec(worker_attack=args.worker_attack,
+                        n_byz_workers=args.n_byz)
+    pcfg = train.protocol_config(args.groups, args.T, args.engine, byz)
+    lr = inverse_linear(args.lr, 0.005)
+
+    def make():
+        return protocol.make_scatter_step(bundle, pcfg, lr, with_attack=True)
+
+    batch = next(token_stream(SEED + 2, bundle.cfg.vocab, args.groups,
+                              args.batch_per_group, args.seq, 1,
+                              device=dev))
+    meta_state = protocol.make_init_fn(bundle, pcfg, "meta")(0)
+    meta, _ = dryrun.measure(make(), (meta_state, {
+        k: torch.empty_like(v, device="meta") for k, v in batch.items()}))
+    step = make()
+    card, card_peak = _card_measure(dev, step, (state, batch))
+    _dry_gate("(a) phase 10's protocol step", meta, card, card_peak)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state = step(state, batch)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    est, dom = _roofline_s(meta)
+    log(f"[dry] (a) the step on the card, without the counter: {wall:.3f} s;"
+        f" the roofline's estimate (reckoned from the dry run, H100 SXM "
+        f"published peaks, {dom}-bound) {est:.4f} s: measured / estimate "
+        f"{wall / est:.2f}")
+
+
+def dry_prefill_phase(dev) -> None:
+    """18 (b): ``build_prefill_cell`` of ``DRY_PREFILL`` on a 1-rank mesh,
+    on meta and on the card (random bf16 weights, zero tokens), held to
+    (a)'s gates."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models.registry import get_bundle
+    arch, S, B = DRY_PREFILL
+    cell = ShapeCell("card_prefill", "prefill", S, B)
+    axes = ("data", "model")
+    mcell = steps.build_prefill_cell(arch, cell, tmesh.RankView(axes, (1, 1)))
+    with torch.no_grad():
+        meta, _ = dryrun.measure(mcell.fn, mcell.in_specs)
+        params = get_bundle(arch).init(
+            torch.Generator(device=dev).manual_seed(SEED),
+            dtype=torch.bfloat16)
+        ccell = steps.build_prefill_cell(arch, cell,
+                                         tmesh.Mesh(axes, (1, 1)),
+                                         device=dev, params=params)
+        del params
+        card, card_peak = _card_measure(dev, ccell.fn, ccell.in_specs)
+    _dry_gate(f"(b) build_prefill_cell({arch}, {B} x {S}) on a 1-rank mesh",
+              meta, card, card_peak)
+    del ccell
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dry_ranks_phase() -> None:
+    """18 (c): phase 16 (b)'s 8 ranks of the (4, 1, 2) mesh dry-run at its
+    reckoned depth and tokens: each rank's bytes by tag equal to its
+    ``Mesh.sent`` of the run's first step; the dry run's peak of the step
+    beside the rank's measured peak (its whole run, the model's draw
+    included)."""
+    run = TP_TRAIN_RANKS
+    if not run:
+        log("[dry] (c) phase 16 (b) did not run: nothing to hold")
+        return
+    for r, o in enumerate(run["outs"]):
+        fig = _rank_peak(run["cfg"], run["pcfg"], run["batch"], rank=r)
+        want = {k: v for k, v in o["train"]["sent"][0].items() if v}
+        got = {k: int(v) for k, v in fig["collective_bytes_by_kind"].items()}
+        log(f"[dry] (c) rank {r} of the (4, 1, 2) mesh: bytes by tag, dry "
+            f"run {got}, Mesh.sent {want} (equal: {got == want}); the dry "
+            f"run's step peak {fig['memory']['peak_bytes'] / 1e9:.2f} GB, the "
+            f"rank's measured peak {o['train']['peak_gb']:.2f} GB")
+        if got != want:
+            raise AssertionError(f"phase 18 (c) rank {r}: {got} against "
+                                 f"{want}")
+
+
+def dry_cell_phase() -> None:
+    """18 (d): phi4-mini-3.8b x train_4k on the 16 x 16 production mesh,
+    dry-run for its fullest rank (the DMC gather too), as a roofline row
+    with the host's wall time."""
+    from repro_torch.launch import dryrun, roofline
+    t0 = time.perf_counter()
+    res = dryrun.run_cell("phi4-mini-3.8b", "train_4k", multi_pod=False,
+                          engine="naive", include_gather=True)
+    wall = time.perf_counter() - t0
+    row = roofline.row_of(res, "phi4-mini-3.8b", "train_4k")
+    log(f"[dry] (d) phi4-mini-3.8b x train_4k on 16x16 (rank {res['rank']}, "
+        f"G = {res['n_groups']}, mesh {res['byz_mesh']}), dry run {wall:.1f} "
+        f"s on this host ({res['full']['aten_ops']} aten ops); roofline row "
+        f"(reckoned from the dry run, H100 SXM published peaks): compute "
+        f"{row['t_compute_s']:.4f} s, memory {row['t_memory_s']:.4f} s, "
+        f"collective {row['t_collective_s']:.4f} s, {row['dominant']}-bound,"
+        f" estimate {row['est_step_s']:.4f} s a step, MFU "
+        f"{100 * row['roofline_fraction']:.1f} %, useful FLOPs "
+        f"{row['useful_flops_ratio']:.2f}, {row['mem_per_dev_gib']:.2f} GiB a"
+        f" rank (fits 80 GB: {row['fits']})")
+
+
+def dry_phase(dev) -> float:
+    """Phase 18 (b)-(d) ((a) runs on phase 10's state, after phase 12
+    (a)); returns its seconds."""
+    t0 = time.perf_counter()
+    dry_prefill_phase(dev)
+    dry_ranks_phase()
+    dry_cell_phase()
+    return time.perf_counter() - t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs an "
@@ -3644,6 +3862,10 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     # phase 12 (a) on phase 10's state, before phase 11 takes the card
     ckpt_launches, _ = checkpoint_phase(dev, state)
+    # phase 18 (a) on the same state
+    t18 = time.perf_counter()
+    dry_protocol_phase(dev, state)
+    t18 = time.perf_counter() - t18
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -3698,6 +3920,11 @@ def main() -> int:
     zoo_tp.pop("seconds")
     for k, v in zoo_tp.items():
         tp_launches[k] = tp_launches.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 18: the dry run held against the card
+    t18 += dry_phase(dev)
+    log(f"[dry] phase 18 took {t18:.1f} s")
     for part in (ckpt_launches, netsim_launches, resume_launches,
                  elastic_launches, *zoo_launches, mesh_launches,
                  tp_launches):

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import card_route
+from ..kernels import work
 from ..kernels.cwise_median import ops as order_ops
 from ..kernels.mda_diameter import ops as diam_ops
 from ..kernels.pairwise_sqdist import ops as gram_ops
@@ -110,12 +112,16 @@ def meamed(x: torch.Tensor, f: int, *, batched: bool = False) -> torch.Tensor:
 
 def mda_weights_from_d2(d2: torch.Tensor, f: int, *, mask=None,
                         exact_limit: int = 200_000) -> torch.Tensor:
-    """``rules.mda_weights_from_d2``. On a CUDA tensor the exact selection
+    """``rules.mda_weights_from_d2``. On a CUDA or a meta tensor
+    (:func:`~repro_torch.device.card_route`) the exact selection
     (no mask, f > 0, n <= 64, at most ``exact_limit`` subsets) is one launch
-    of the selection kernel, which returns the weights; every other route,
-    and every CPU tensor, runs the rules with the subset-diameter wrapper."""
+    of the selection kernel, which returns the weights (on a CPU tensor
+    too while a work counter counts, so a CPU step is counted as the
+    card's: :mod:`repro_torch.kernels.work`); every other route runs the
+    rules with the subset-diameter wrapper."""
     n = d2.shape[-1]
-    if (d2.is_cuda and mask is None and 0 < f < n and n <= MAX_N
+    if ((card_route(d2) or work.counting()) and mask is None
+            and 0 < f < n and n <= MAX_N
             and rules.n_subsets(n, f) <= exact_limit):
         w = diam_ops.mda_select(d2.reshape(-1, n, n), f)[1]
         return w.reshape(d2.shape[:-1])

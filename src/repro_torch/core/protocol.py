@@ -669,13 +669,16 @@ class _Ranks:
         return out
 
     # -- batches ------------------------------------------------------------
-    def batch_part(self, batch, n_micro: int):
+    def batch_part(self, batch, n_micro: int, local: bool = False):
         """``(part, share)``: this rank's groups' rows of the batch (leaves
         ``[G, B, ...]``, or ``[n_micro, G, B, ...]``) and its contiguous
         'fsdp' part of each group's B rows, with that part's share of the
-        rows."""
+        rows. A ``local`` batch is that part already (leaves ``[(n_micro,)
+        G/rep, B/K, ...]``, as the cell builders pass it)."""
         if self.trivial:
             return batch, 1.0
+        if local:
+            return batch, 1.0 / self.K
         ga = 1 if n_micro > 1 else 0
         leaves = batch.values() if isinstance(batch, dict) else batch
         B = next(iter(leaves)).shape[ga + 1]
@@ -896,20 +899,30 @@ def make_init_fn(bundle, pcfg: ProtocolConfig, device=None, mesh=None):
     ``mesh`` every rank draws the whole model and keeps its block: its
     'model' blocks of each leaf, then its 'fsdp' columns), a fresh run
     generator (``seed + 1``, the same stream on every rank) and the
-    optimizer's per-replica state."""
+    optimizer's per-replica state.
+
+    On ``device="meta"`` nothing is drawn (the reference's
+    ``jax.eval_shape(init, ...)``): the tree comes from the family's init
+    under a fake-tensor mode (:meth:`~repro_torch.models.registry.
+    ModelBundle.meta_params`), the rank's block and the optimizer state are
+    meta tensors, and the run's generator is a CPU one, so the quorum
+    tables are drawn on the host and read there as on the card."""
     dev = resolve(device)
     pdt = _dtype(bundle.cfg.param_dtype)
     opt = _optim.get(pcfg.optimizer)
 
     def init(seed: int) -> ByzState:
-        p0 = bundle.init(torch.Generator(device=dev).manual_seed(seed))
-        tree = FlatTree.from_params(p0)
+        meta = dev.type == "meta"
+        p0 = None if meta else bundle.init(
+            torch.Generator(device=dev).manual_seed(seed))
+        tree = FlatTree.from_params(bundle.meta_params() if meta else p0)
         split = model_split(bundle.cfg, tree, mesh)
         local = split.local if split else tree
         (r0, r1), (k0, k1), _ = state_layout(mesh, pcfg.n_groups, local.size)
         params = torch.empty((r1 - r0, k1 - k0), dtype=pdt, device=dev)
-        for i, (leaf, (off, size)) in enumerate(zip(tree.leaves(p0),
-                                                    local.spans())):
+        for i, (leaf, (off, size)) in enumerate(
+                zip(tree.leaves(p0) if p0 is not None else [],
+                    local.spans())):
             a, b = max(off, k0), min(off + size, k1)
             if a < b:
                 if split:
@@ -917,8 +930,8 @@ def make_init_fn(bundle, pcfg: ProtocolConfig, device=None, mesh=None):
                 params[:, a - k0:b - k0] = leaf.reshape(-1)[a - off:b - off]\
                     .to(pdt)
         del p0
-        return ByzState(params=params, t=0,
-                        gen=torch.Generator(device=dev).manual_seed(seed + 1),
+        gen = torch.Generator(device="cpu" if meta else dev)
+        return ByzState(params=params, t=0, gen=gen.manual_seed(seed + 1),
                         opt=opt.init(params), tree=tree, mesh=mesh,
                         split=split)
 
@@ -952,7 +965,8 @@ def _pull_rows(ranks: _Ranks, rows, masks, cfg, rule, out) -> None:
                     out=out[:, c0:c1])
 
 
-def _group_grads(bundle, tree, pulled, batch, cfg, ranks, bufs, out):
+def _group_grads(bundle, tree, pulled, batch, cfg, ranks, bufs, out,
+                 local_batch: bool = False):
     """Per-group gradients of the rank's groups into ``out`` (``[G/rep,
     P_k]``). With 'fsdp' ranks the pulled rows are gathered whole, each rank
     differentiates its part of the batch rows weighted by its share, and
@@ -960,7 +974,7 @@ def _group_grads(bundle, tree, pulled, batch, cfg, ranks, bufs, out):
     ranks ``tree`` is the rank's blocks' and the loss runs under the train
     mesh's rule table (tensor parallelism over the 'model' line)."""
     n_micro = cfg.grad_microbatches
-    part, share = ranks.batch_part(batch, n_micro)
+    part, share = ranks.batch_part(batch, n_micro, local_batch)
     rules = None
     if ranks.split is not None:
         from ..launch.steps import train_rules
@@ -1012,10 +1026,13 @@ def _aggregate(grads, weights, cfg, ranks) -> torch.Tensor:
 
 
 def make_scatter_step(bundle, pcfg: ProtocolConfig, lr_schedule,
-                      with_attack: bool = False, delivery=None, mesh=None):
+                      with_attack: bool = False, delivery=None, mesh=None,
+                      local_batch: bool = False):
     """One ByzSGD scatter step ``(state, batch) -> state``; batch leaves
     ``[G, per_group, ...]`` (``[n_micro, G, ...]`` with micro-batches):
-    every rank of a ``mesh`` passes the whole batch and keeps its part.
+    every rank of a ``mesh`` passes the whole batch and keeps its part
+    (with ``local_batch``, only its part: ``[(n_micro,) G/rep,
+    per_group/K, ...]``).
 
     ``delivery`` is a :class:`~repro_torch.core.quorum.UniformDelivery`
     (the default) or a :class:`~repro_torch.core.quorum.TraceDelivery`
@@ -1046,20 +1063,21 @@ def make_scatter_step(bundle, pcfg: ProtocolConfig, lr_schedule,
         if pcfg.pull == "roundrobin":
             _roundrobin_pull(rows, params, state.t, eta, pcfg, pulled, ranks)
         else:
-            masks = _masks(delivery.pull_indices(gen, state.t, dev), G)
+            masks = _masks(delivery.pull_indices(gen, state.t, gen.device),
+                           G)
             _pull_rows(ranks, rows, masks, pcfg, None, pulled)
         del rows
 
         # 2. per-group worker gradients --------------------------------------
         grads = _buffer(bufs, "grads", params.shape, xdt, dev)
         _group_grads(bundle, ranks.local_tree or state.tree, pulled, batch,
-                     pcfg, ranks, bufs, grads)
+                     pcfg, ranks, bufs, grads, local_batch)
         if with_attack and byz.worker_attack:
             _attack_grads(grads, _Attack("grads", byz, gen), state.tree,
                           ranks)
 
         # 3. gradient rule (MDA by default) per server over its quorum -------
-        push_idx = delivery.push_indices(gen, state.t, dev)
+        push_idx = delivery.push_indices(gen, state.t, gen.device)
         d2 = agg.rules.sqdists_from_gram(ranks.gram(grads))
         weights = quorum_weights(d2, push_idx, pcfg.f_workers, pcfg)
         g_hat = _aggregate(grads, weights, pcfg, ranks)
@@ -1083,7 +1101,8 @@ def make_gather_step(pcfg: ProtocolConfig, with_attack: bool = False,
         params, dev = state.params, state.params.device
         ranks = _Ranks(mesh, G, state.tree.size, pcfg.chunk_bytes,
                        state.split)
-        masks = _masks(delivery.gather_indices(state.gen, state.t, dev), G)
+        masks = _masks(delivery.gather_indices(state.gen, state.t,
+                                               state.gen.device), G)
         inject = (_Attack("models", pcfg.byz, state.gen)
                   if with_attack and pcfg.byz.server_attack else None)
         rows = ranks.rows(params, "gather", inject, state.tree)
@@ -1094,13 +1113,14 @@ def make_gather_step(pcfg: ProtocolConfig, with_attack: bool = False,
 
 
 def make_train_step(bundle, pcfg: ProtocolConfig, lr_schedule,
-                    with_attack: bool = False, delivery=None, mesh=None):
+                    with_attack: bool = False, delivery=None, mesh=None,
+                    local_batch: bool = False):
     """Scatter, then the DMC gather iff the advanced counter hits a
     multiple of T."""
     delivery = delivery or UniformDelivery(
         pcfg.n_groups, pcfg.n_groups, pcfg.q_workers, pcfg.q_servers)
     scatter = make_scatter_step(bundle, pcfg, lr_schedule, with_attack,
-                                delivery, mesh)
+                                delivery, mesh, local_batch)
     gather = make_gather_step(pcfg, with_attack, delivery, mesh)
 
     def train_step(state: ByzState, batch) -> ByzState:

@@ -52,6 +52,16 @@ def dist_backend(device: torch.device, world: int) -> str:
     return "nccl" if world <= torch.cuda.device_count() else "gloo"
 
 
+def card_route(t: torch.Tensor) -> bool:
+    """True where a tensor takes the card's route through the hand-written
+    kernels: a CUDA tensor, or a ``meta`` tensor (shapes alone: the dry
+    run follows the card's routes, and each kernel wrapper answers it with
+    its output shapes and its count of work, never with a plain version).
+    A CPU tensor takes the plain route; any other device raises where a
+    kernel wrapper checks it."""
+    return t.is_cuda or t.is_meta
+
+
 def set_numerics() -> None:
     """Full-precision matmuls, as the JAX package's f32 contractions: no TF32
     for float32 products, and bf16 products reduced in float32."""

@@ -8,8 +8,11 @@ Each takes one stack ``[n <= 64, d]`` or a batch of stacks ``[B, n, d]``
 tensor the wrapper launches ``csrc/cwise_median.cu``; on a CPU tensor it runs
 its ``*_plain`` version, which applies the same :func:`_tile` contract and
 repeats the kernel's arithmetic in plain PyTorch, so the two agree bit for
-bit. :func:`meamed_plan` is MeaMed's launch: which kernel and how many
-columns a thread takes.
+bit; on a ``meta`` tensor (the dry run) it returns the launch's empty
+output. Each reports its work to the active counters (:mod:`..work`), as
+:func:`median_work`, :func:`trimmed_mean_work` and :func:`meamed_work`
+count it. :func:`meamed_plan` is MeaMed's launch: which kernel and how
+many columns a thread takes.
 """
 from __future__ import annotations
 
@@ -18,8 +21,8 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _build
-from .ref import _BIG, sort_stack
+from .. import _build, work
+from .ref import _BIG, _oddeven_pairs, sort_stack
 
 MAX_N = 64
 MAX_EXACT_N = 16     # largest n of MeaMed's exact-n kernel (cwise_median.cu)
@@ -57,6 +60,58 @@ def meamed_plan(n: int, d: int, ptr: int) -> MeamedPlan:
         return MeamedPlan("padded", 1 << (n - 1).bit_length(), 1)
     vec = 2 if d % 2 == 0 and ptr % 8 == 0 else 1
     return MeamedPlan("exact", n, vec)
+
+
+def bitonic_ops(n: int) -> int:
+    """min/max operations per column of the bitonic network over n rows
+    padded to a power of two: np2 / 2 compare-exchanges (two operations
+    each) in each of its log2(np2) (log2(np2) + 1) / 2 stages."""
+    lg = max(n - 1, 0).bit_length()
+    return (1 << lg) * lg * (lg + 1) // 2
+
+
+def _stack_bytes(B: int, n: int, d: int) -> float:
+    """A float32 ``[B, n, d]`` stack read once and ``[B, d]`` written."""
+    return 4.0 * (B * n * d + B * d)
+
+
+def median_work(B: int, n: int, d: int):
+    """(operations, bytes) of the median over ``[B, n, d]``: the bitonic
+    network on each column (the middle pair's average is not counted)."""
+    return float(bitonic_ops(n) * B * d), _stack_bytes(B, n, d)
+
+
+def trimmed_mean_work(B: int, n: int, d: int, f: int):
+    """(operations, bytes) of the trimmed mean: the network, then the
+    n - 2f kept rows added and divided."""
+    return float((bitonic_ops(n) + n - 2 * f) * B * d), _stack_bytes(B, n, d)
+
+
+def meamed_work(B: int, n: int, d: int, f: int):
+    """(operations, bytes) of MeaMed: the network of :func:`meamed_plan`'s
+    kernel (odd-even on n wires, or the padded bitonic one), the median,
+    n distances to it, the first window's sums, and per further window two
+    sums, two distances and the compare."""
+    net = (2 * len(_oddeven_pairs(n)) if n <= MAX_EXACT_N
+           else bitonic_ops(n))
+    m = n - f
+    scan = 2 + 2 * n + 2 * (m - 1) + 3 + 10 * f + 1
+    return float((net + scan) * B * d), _stack_bytes(B, n, d)
+
+
+# entry -> (the counters' kernel name, its work function)
+_WORK = {"cwise_median_f32": ("cwise_median", median_work),
+         "cwise_trimmed_mean_f32": ("cwise_trimmed_mean", trimmed_mean_work),
+         "cwise_meamed_f32": ("cwise_meamed", meamed_work)}
+
+
+def _report(entry: str, x, f):
+    if work.counting():
+        n, d = x.shape[-2:]
+        B = x.shape[0] if x.ndim == 3 else 1
+        name, count = _WORK[entry]
+        work.report(name, *(count(B, n, d) if f is None
+                            else count(B, n, d, f)))
 
 
 def _tile(x):
@@ -142,8 +197,9 @@ def cwise_meamed_plain(x, f: int):
 def _launch(entry: str, wrapper, x, f: int | None):
     """Shared launch of one order-statistic kernel on ``[n, d]`` or
     ``[B, n, d]`` (a non-float32 stack is widened first, as the JAX wrapper
-    does); MeaMed's as :func:`meamed_plan` says."""
-    if not x.is_cuda:
+    does); MeaMed's as :func:`meamed_plan` says. A meta stack gets the
+    launch's empty output."""
+    if not (x.is_cuda or x.is_meta):
         raise ValueError(f"{entry}: unsupported device {x.device}")
     if x.ndim not in (2, 3) or not 1 <= x.shape[-2] <= MAX_N \
             or x.shape[-1] < 1 or (x.ndim == 3 and not 1 <= x.shape[0]
@@ -155,6 +211,9 @@ def _launch(entry: str, wrapper, x, f: int | None):
     x = x.float().contiguous()
     out = torch.empty(x.shape[:-2] + (d,), dtype=torch.float32,
                       device=x.device)
+    _report(entry, x, f)
+    if x.is_meta:
+        return out
     lib = _lib()
     args = [x.data_ptr(), out.data_ptr(), B, n]
     if f is not None:
@@ -173,7 +232,9 @@ def cwise_median(x):
     median (1 <= n <= 64): the kernel on a CUDA tensor,
     :func:`cwise_median_plain` on a CPU one."""
     if x.device.type == "cpu":
-        return cwise_median_plain(x)
+        _report("cwise_median_f32", x, None)
+        with work.plain_version():
+            return cwise_median_plain(x)
     return _launch("cwise_median_f32", cwise_median, x, None)
 
 
@@ -185,7 +246,9 @@ def cwise_trimmed_mean(x, f: int):
         raise ValueError(f"trimmed_mean needs n > 2f (n={x.shape[-2]}, "
                          f"f={f})")
     if x.device.type == "cpu":
-        return cwise_trimmed_mean_plain(x, f)
+        _report("cwise_trimmed_mean_f32", x, f)
+        with work.plain_version():
+            return cwise_trimmed_mean_plain(x, f)
     return _launch("cwise_trimmed_mean_f32", cwise_trimmed_mean, x, f)
 
 
@@ -195,7 +258,9 @@ def cwise_meamed(x, f: int):
     if x.shape[-2] <= f or f < 0:
         raise ValueError(f"meamed needs n > f (n={x.shape[-2]}, f={f})")
     if x.device.type == "cpu":
-        return cwise_meamed_plain(x, f)
+        _report("cwise_meamed_f32", x, f)
+        with work.plain_version():
+            return cwise_meamed_plain(x, f)
     return _launch("cwise_meamed_f32", cwise_meamed, x, f)
 
 

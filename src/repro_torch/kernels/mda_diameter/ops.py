@@ -10,7 +10,9 @@ uint64 bitmasks, built once per mask table and kept on the device.
 :func:`subset_diameters` launches the same kernel for the diameters alone.
 On a CPU tensor each runs its ``*_plain`` version. A max does not depend on
 its order and the argmin follows ``torch.argmin``'s order, so the two agree
-exactly.
+exactly. On a ``meta`` tensor (the dry run) each returns the launch's empty
+outputs (the host mask table is read as on the card). Each call reports
+:func:`select_work` to the active counters (:mod:`..work`).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, work
 
 MAX_N = 64
 NEG = -3.4e38      # the diameter of an empty subset, as the Pallas kernel
@@ -62,6 +64,25 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [P, P, P, P, I, I, I, P]
         fn.restype = ctypes.c_int
     return lib
+
+
+def select_work(B: int, n: int, S: int, k: int, weights: bool = True):
+    """(operations, bytes) of one launch over ``[B, n, n]`` distances and S
+    subsets of k members: a max over each subset's k x k pairs; the
+    distances and the int64 bitmasks read once, the ``[B, S]`` diameters
+    (and the ``[B, n]`` weights) written."""
+    return (float(B * S * k * k),
+            4.0 * (B * n * n + B * S + (B * n if weights else 0)) + 8.0 * S)
+
+
+def _report(d2, masks, weights: bool):
+    if work.counting():
+        n = d2.shape[-1]
+        S = np.shape(masks)[0]
+        k = int(np.asarray(masks[0].cpu() if isinstance(masks, torch.Tensor)
+                           else masks[0]).sum())
+        B = d2.shape[0] if d2.ndim == 3 else 1
+        work.report("subset_diameters", *select_work(B, n, S, k, weights))
 
 
 def bitmasks(masks, device) -> torch.Tensor:
@@ -108,8 +129,9 @@ def mda_select_plain(d2, f: int):
 
 def _launch(d2, masks, weights: bool):
     """One launch of the kernel on ``[n, n]`` or ``[B, n, n]``: the
-    diameters, and the weights too when ``weights``."""
-    if not d2.is_cuda:
+    diameters, and the weights too when ``weights`` (a meta ``d2``: the
+    launch's empty outputs)."""
+    if not (d2.is_cuda or d2.is_meta):
         raise ValueError(f"mda_diameter: unsupported device {d2.device}")
     n = d2.shape[-1]
     if d2.ndim not in (2, 3) or d2.shape[-2] != n or not 1 <= n <= MAX_N \
@@ -127,6 +149,9 @@ def _launch(d2, masks, weights: bool):
                        device=d2.device)
     w = (torch.empty(d2.shape[:-1], dtype=torch.float32, device=d2.device)
          if weights else None)
+    _report(d2, masks, weights)
+    if d2.is_meta:
+        return diam, w
     lib = _lib()
     rc = lib.mda_select_f32(d2.data_ptr(), bits.data_ptr(), diam.data_ptr(),
                             None if w is None else w.data_ptr(), B, n, S,
@@ -141,7 +166,9 @@ def mda_select(d2, f: int):
     (diameters ``[.., S]``, weights ``[.., n]``) as :func:`mda_select_plain`:
     one kernel launch on a CUDA tensor, the plain version on a CPU one."""
     if d2.device.type == "cpu":
-        return mda_select_plain(d2, f)
+        _report(d2, subset_masks(d2.shape[-1], f), True)
+        with work.plain_version():
+            return mda_select_plain(d2, f)
     return _launch(d2, subset_masks(d2.shape[-1], f), weights=True)
 
 
@@ -151,7 +178,9 @@ def subset_diameters(d2, masks):
     :func:`subset_diameters_plain` on a CPU one. ``masks`` is a host table
     ``[S, n]`` such as :func:`subset_masks`'s."""
     if d2.device.type == "cpu":
-        return subset_diameters_plain(d2, masks)
+        _report(d2, masks, False)
+        with work.plain_version():
+            return subset_diameters_plain(d2, masks)
     return _launch(d2, masks, weights=False)[0]
 
 

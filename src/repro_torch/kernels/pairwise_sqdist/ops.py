@@ -8,7 +8,9 @@ all of them). On a CUDA tensor it launches ``csrc/gram.cu``; on a CPU tensor
 it runs :func:`gram_plain`, which splits d into the kernel's chunks and adds
 the chunks' partial sums pair by pair (the sums inside a chunk run in
 another order, so the two agree to float32 summation order, not bit for
-bit; in both, equal rows give equal entries).
+bit; in both, equal rows give equal entries); on a ``meta`` tensor (the
+dry run) it returns the launch's empty output. Each call reports
+:func:`gram_work` to the active counters (:mod:`..work`).
 :func:`launch_plan` is the launch's whole shape: which kernel, the width of
 its loads and the chunks.
 """
@@ -19,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _build
+from .. import _build, work
 from .ref import sqdists_from_gram
 
 MAX_N = 64
@@ -70,6 +72,20 @@ def launch_plan(batch: int, n: int, d: int, ptr: int) -> GramPlan:
     return GramPlan("register", vec, chunk, n_chunks)
 
 
+def gram_work(B: int, n: int, d: int):
+    """(operations, bytes) of the Gram of ``[B, n, d]``: the n (n + 1) / 2
+    row pairs' products over d (two operations a multiply-add); the stack
+    read once, ``[B, n, n]`` written."""
+    return (2.0 * B * (n * (n + 1) // 2) * d,
+            4.0 * (B * n * d + B * n * n))
+
+
+def _report(x):
+    if work.counting():
+        n, d = x.shape[-2:]
+        work.report("gram", *gram_work(x[..., 0, 0].numel(), n, d))
+
+
 def gram_plain(x):
     """``[.., n, d] -> [.., n, n]`` float32: for each pair of rows, their
     products summed within each of the kernel's chunks, then over the
@@ -98,10 +114,12 @@ def gram_plain(x):
 def gram(x):
     """``[n, d] -> [n, n]`` or ``[B, n, d] -> [B, n, n]`` float32 Gram
     (1 <= n <= 64): the kernel on a CUDA tensor, :func:`gram_plain` on a CPU
-    one."""
+    one, the launch's empty output on a meta one."""
     if x.device.type == "cpu":
-        return gram_plain(x)
-    if not x.is_cuda:
+        _report(x)
+        with work.plain_version():
+            return gram_plain(x)
+    if not (x.is_cuda or x.is_meta):
         raise ValueError(f"gram: unsupported device {x.device}")
     if x.ndim not in (2, 3) or not 1 <= x.shape[-2] <= MAX_N \
             or x.shape[-1] < 1 or (x.ndim == 3 and not 1 <= x.shape[0]
@@ -117,6 +135,9 @@ def gram(x):
                           dtype=torch.float32, device=x.device)
     g = torch.empty(x.shape[:-2] + (n, n), dtype=torch.float32,
                     device=x.device)
+    _report(x)
+    if x.is_meta:
+        return g
     lib = _lib()
     rc = lib.gram_f32(x.data_ptr(), partial.data_ptr(), g.data_ptr(), B, n,
                       d, chunk, n_chunks, plan.vec, _build.stream_ptr(x))

@@ -19,6 +19,10 @@ With no process group initialised :func:`make_protocol_mesh` returns the
 ``(1, 1, 1)`` mesh, on which every collective is the identity: today's
 single-card engine.
 
+:class:`RankView` is one rank of a mesh without a world (the dry run's
+production mesh, :func:`production_view`): its collectives take meta
+tensors only and count as the real ones do.
+
 Every collective of the protocol goes through the mesh's methods, which
 count the bytes this rank sends, by tag (``Mesh.sent``): an all-gather of
 n ranks sends ``(n - 1)`` times the local block, an all-to-all ``(n - 1) /
@@ -150,6 +154,76 @@ class Mesh:
             dist.barrier()
 
 
+class RankView(Mesh):
+    """One rank of a mesh without a world: the port's counterpart of the
+    reference's fake host devices (``repro/launch/dryrun.py:2``). It has
+    the mesh's axes, shape and this rank's coordinates, and no process
+    group; its collectives take ``meta`` tensors only (shapes: the dry
+    run) and return meta outputs of the shapes a real collective gives,
+    counting the bytes this rank would send by tag exactly as
+    :class:`Mesh` does (``sent``), and the calls by tag (``calls``). A
+    tensor with storage is refused, so a view never stands in for a real
+    collective."""
+
+    def __init__(self, axis_names, shape, *, rank: int = 0):
+        super().__init__(axis_names, shape, rank=rank, backend="view")
+        self.calls: collections.Counter = collections.Counter()
+
+    def view(self, axis_names, shape) -> "RankView":
+        """The same rank (row-major index) on another factoring of the
+        mesh's ranks."""
+        if int(np.prod(shape)) != self.n_ranks:
+            raise ValueError(f"a {tuple(shape)} view of {self.n_ranks} "
+                             "ranks")
+        return RankView(axis_names, shape, rank=self.rank)
+
+    @staticmethod
+    def _meta(x: torch.Tensor, what: str) -> None:
+        if not x.is_meta:
+            raise ValueError(f"RankView.{what}: takes meta tensors only (a "
+                             f"rank view has no world); got {x.device}")
+
+    def all_gather(self, x, axis, tag):
+        self._meta(x, "all_gather")
+        n = self.size(axis)
+        if n == 1:
+            return x
+        self.sent[tag] += (n - 1) * x.numel() * x.element_size()
+        self.calls[tag] += 1
+        return x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+
+    def all_to_all(self, x, axis, tag):
+        self._meta(x, "all_to_all")
+        n = self.size(axis)
+        if n == 1:
+            return x
+        self.sent[tag] += (n - 1) * (x.numel() // n) * x.element_size()
+        self.calls[tag] += 1
+        return torch.empty_like(x)
+
+    def broadcast(self, x, axis, tag, src: int = 0):
+        self._meta(x, "broadcast")
+        n = self.size(axis)
+        if n == 1:
+            return x
+        self.calls[tag] += 1
+        if self.coord(axis) == src:
+            self.sent[tag] += (n - 1) * x.numel() * x.element_size()
+        return x
+
+    def barrier(self) -> None:
+        return None
+
+
+def production_view(*, multi_pod: bool = False, rank: int = 0) -> RankView:
+    """Rank ``rank`` of the production mesh, 16 x 16 ('data', 'model') or
+    2 x 16 x 16 ('pod', 'data', 'model'), without a world (the dry run's
+    mesh; :func:`make_production_mesh` needs 256 or 512 ranks)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return RankView(axes, shape, rank=rank)
+
+
 def _world() -> tuple[int, int]:
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
@@ -199,10 +273,13 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 def make_byz_mesh(mesh: Mesh, n_groups: int) -> Mesh:
     """The ('rep', 'fsdp', 'model') view over ``mesh``'s ranks: G groups of
-    R / G consecutive data slices each, every slice M 'model' ranks."""
+    R / G consecutive data slices each, every slice M 'model' ranks (of a
+    :class:`RankView`, the same rank's view)."""
     R, M = mesh.dp_size, mesh.model_size
     if R % n_groups:
         raise ValueError(f"n_groups={n_groups} must divide dp slices R={R}")
+    if isinstance(mesh, RankView):
+        return mesh.view(AXES, (n_groups, R // n_groups, M))
     return _with_groups(AXES, (n_groups, R // n_groups, M))
 
 
@@ -248,8 +325,12 @@ def make_protocol_mesh(n_groups: int, world: int | None = None, *,
 
 def make_serve_mesh(mesh: Mesh) -> Mesh:
     """('data', 'model') flat view for serving (no replica axis), with the
-    process groups of its lines."""
-    return _with_groups(("data", "model"), (mesh.dp_size, mesh.model_size))
+    process groups of its lines (of a :class:`RankView`, the same rank's
+    view)."""
+    shape = (mesh.dp_size, mesh.model_size)
+    if isinstance(mesh, RankView):
+        return mesh.view(("data", "model"), shape)
+    return _with_groups(("data", "model"), shape)
 
 
 def launch_mesh(spec: str | None, device, cfg) -> tuple[torch.device, int,

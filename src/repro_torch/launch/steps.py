@@ -1,6 +1,11 @@
-"""Sharding tables of the train and serve meshes — the port of the first
-part of ``repro.launch.steps`` (``train_rules``, ``serve_rules``,
-``serve_param_sharding``, ``cache_sharding``, ``_batch_sharding``).
+"""Sharding tables and cell builders of the train and serve meshes — the
+port of ``repro.launch.steps``: the tables (``train_rules``,
+``serve_rules``, ``serve_param_sharding``, ``cache_sharding``,
+``_batch_sharding``) and the (arch x shape x mesh) cell builders
+(:func:`build_cell`: train, DMC gather, prefill, decode), which give one
+rank's step and the rank's blocks of its inputs — ``meta`` tensors for the
+dry run (``launch/dryrun.py``, on a :class:`~repro_torch.launch.mesh.
+RankView` of the production mesh), or real ones on a mesh of ranks.
 
 The reference returns ``NamedSharding`` trees that GSPMD lays out. Here
 each function returns a per-rank block table: for a logical name, a leaf
@@ -29,11 +34,18 @@ Deliberate differences (ROADMAP.md Queue 3):
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
+from typing import Any, Callable
 
 import torch
 
+from ..configs.shapes import ShapeCell
 from ..core import protocol
+from ..models import sharding as shr
+from ..models.registry import get_bundle
 from ..models.sharding import Rules
+from ..optim.schedules import inverse_linear
+from . import mesh as meshlib
 
 #: bytes a rank may hold of the serving params after the model split
 #: before they are also split over 'data' (the reference's 4 GB)
@@ -140,3 +152,200 @@ def block(t: torch.Tensor, spec: dict, mesh) -> torch.Tensor:
             b = t.shape[dim] // n
             t = t.narrow(dim, mesh.coord(axis) * b, b)
     return t
+
+
+# ---------------------------------------------------------------------------
+# cell builders
+# ---------------------------------------------------------------------------
+
+@dataclass
+class BuiltCell:
+    """A cell's step on one rank: ``fn(*in_specs)`` runs it. ``in_specs``
+    are the rank's blocks of the step's inputs — ``meta`` tensors (the dry
+    run; the builders' default) or real ones (``device``); ``mesh`` is the
+    rank's view (train: ('rep', 'fsdp', 'model'), serve: ('data',
+    'model')), whose ``sent`` counts the bytes its collectives send."""
+    fn: Callable
+    in_specs: tuple
+    mesh: Any
+    rules: Rules | None
+    meta: dict
+
+
+def _groups(cfg, R: int) -> int:
+    """G0: the reference's n_groups policy (``byz_group_divisor``,
+    ``byz_group_cap``)."""
+    G0 = R // cfg.byz_group_divisor
+    return min(G0, cfg.byz_group_cap) if cfg.byz_group_cap else G0
+
+
+def micro_batches(per_group: int, S: int, K: int) -> int:
+    """The reference's micro-batch rule: about 8192 tokens a worker's
+    forward and backward, and every micro-batch K-shardable."""
+    n_micro = max(1, min(per_group, (per_group * S) // 8192))
+    n_micro = min(n_micro, max(per_group // max(K, 1), 1))
+    while per_group % n_micro or (per_group // n_micro) % max(K, 1):
+        n_micro -= 1
+    return n_micro
+
+
+def _train_state(bundle, pcfg, bmesh, device):
+    return protocol.make_init_fn(bundle, pcfg, device=device, mesh=bmesh)(0)
+
+
+def build_train_cell(arch: str, cell: ShapeCell, prod_mesh, *,
+                     engine: str = "naive", exchange_dtype: str = "float32",
+                     reduced: bool = False, T: int = 50,
+                     depth: int | None = None, pull: str = "median",
+                     include_gather: bool = False,
+                     device="meta") -> BuiltCell:
+    """The protocol's step on this rank of ``prod_mesh`` (its byz view):
+    G from ``byz_group_divisor`` / ``byz_group_cap``, the micro-batch rule,
+    ``ProtocolConfig.derive(R, R // G0, ...)``; the state's block from
+    :func:`~repro_torch.core.protocol.make_init_fn` (on meta: no draw) and
+    the rank's part of the batch, ``[(nm,) G/rep, b/K, ...]`` (vlm's
+    ``positions`` ``[(nm,) 3, G/rep, b/K, S]``, moved behind the group axis
+    before the step)."""
+    bundle = get_bundle(arch, reduced=reduced, depth=depth)
+    cfg = bundle.cfg
+    R = prod_mesh.dp_size
+    G0 = _groups(cfg, R)
+    B, S = cell.global_batch, cell.seq_len
+    per_group = B // G0
+    n_micro = micro_batches(per_group, S, R // G0)
+    pcfg = protocol.ProtocolConfig.derive(
+        R, R // G0, T=T, engine=engine, pull=pull,
+        exchange_dtype=exchange_dtype, grad_microbatches=n_micro)
+    bmesh = meshlib.make_byz_mesh(prod_mesh, pcfg.n_groups)
+    G = pcfg.n_groups
+    assert B % G == 0, (arch, cell.name, B, G)
+    state = _train_state(bundle, pcfg, bmesh, device)
+    rep, K = bmesh.size("rep"), bmesh.size("fsdp")
+    nm = pcfg.grad_microbatches
+
+    def part(name, spec):
+        if name == "positions" and spec.shape[0] == 3:
+            b_m = spec.shape[1] // G // nm
+            shape = (3, G // rep, b_m // K) + tuple(spec.shape[2:])
+        else:
+            b_m = spec.shape[0] // G // nm
+            shape = (G // rep, b_m // K) + tuple(spec.shape[1:])
+        if nm > 1:
+            shape = (nm,) + shape
+        return torch.zeros(shape, dtype=spec.dtype, device=device)
+
+    batch = {k: part(k, v)
+             for k, v in bundle.batch_specs("train", B, S).items()}
+    make = (protocol.make_train_step if include_gather
+            else protocol.make_scatter_step)
+    raw_step = make(bundle, pcfg, inverse_linear(0.05, 0.01), mesh=bmesh,
+                    local_batch=True)
+
+    def step(state, batch):
+        if "positions" in batch:
+            batch = dict(batch)
+            ax = 0 if nm == 1 else 1
+            # [.., 3, G, b, S] -> [.., G, 3, b, S]: the group loop maps G
+            batch["positions"] = torch.movedim(batch["positions"], ax,
+                                               ax + 1)
+        return raw_step(state, batch)
+
+    return BuiltCell(fn=step, in_specs=(state, batch), mesh=bmesh,
+                     rules=train_rules(bmesh, cfg),
+                     meta={"arch": arch, "cell": cell.name, "kind": "train",
+                           "G": G, "pcfg": pcfg, "bundle": bundle})
+
+
+def build_gather_cell(arch: str, cell: ShapeCell, prod_mesh, *,
+                      engine: str = "naive", reduced: bool = False,
+                      depth: int | None = None,
+                      device="meta") -> BuiltCell:
+    """The DMC gather step alone (amortised 1/T in the roofline)."""
+    bundle = get_bundle(arch, reduced=reduced, depth=depth)
+    R = prod_mesh.dp_size
+    pcfg = protocol.ProtocolConfig.derive(R, R // _groups(bundle.cfg, R),
+                                          engine=engine)
+    bmesh = meshlib.make_byz_mesh(prod_mesh, pcfg.n_groups)
+    state = _train_state(bundle, pcfg, bmesh, device)
+    return BuiltCell(fn=protocol.make_gather_step(pcfg, mesh=bmesh),
+                     in_specs=(state,), mesh=bmesh, rules=None,
+                     meta={"arch": arch, "cell": cell.name, "kind": "gather",
+                           "G": pcfg.n_groups, "pcfg": pcfg,
+                           "bundle": bundle})
+
+
+def serve_params(bundle, smesh, device="meta", params=None):
+    """The rank's blocks of the bf16 serving params (``params``, or the
+    model's shapes on meta): 'model' by :func:`serve_param_sharding`, ZeRO
+    over 'data' past :data:`ZERO_BYTES` (``launch/serve.py``'s cut)."""
+    from . import serve
+    if params is None:
+        params = bundle.meta_params(torch.bfloat16)
+        if torch.device(device).type != "meta":
+            raise ValueError("serve_params: pass the params to cut on "
+                             f"{device}")
+    return serve._cut_params(params, smesh, bundle.cfg)
+
+
+def _serve_cell(kind: str, arch: str, cell: ShapeCell, prod_mesh, *,
+                reduced: bool, depth, device, params) -> BuiltCell:
+    bundle = get_bundle(arch, reduced=reduced, depth=depth)
+    cfg = bundle.cfg
+    smesh = meshlib.make_serve_mesh(prod_mesh)
+    M = smesh.size("model")
+    B, S = cell.global_batch, cell.seq_len
+    rules = serve_rules(smesh, cfg)
+    p = serve_params(bundle, smesh, device, params)
+    batch = {k: block(torch.zeros(v.shape, dtype=v.dtype, device=device),
+                      batch_sharding(k, v.shape, smesh), smesh).clone()
+             for k, v in bundle.batch_specs(kind, B, S).items()}
+    Bl = next(v for k, v in batch.items() if k != "positions").shape[0]
+    with shr.sharding_rules(rules):
+        caches = bundle.init_caches(Bl, max_len=S, n_chunks=M,
+                                    device=device)
+
+    if kind == "prefill":
+        def fn(params, batch, caches):
+            with shr.sharding_rules(rules):
+                return bundle.prefill(params, batch, caches)
+        specs = (p, batch, caches)
+    else:
+        def fn(params, caches, batch):
+            with shr.sharding_rules(rules):
+                return bundle.decode(params, caches, batch)
+        specs = (p, caches, batch)
+    return BuiltCell(fn=fn, in_specs=specs, mesh=smesh, rules=rules,
+                     meta={"arch": arch, "cell": cell.name, "kind": kind,
+                           "bundle": bundle})
+
+
+def build_prefill_cell(arch: str, cell: ShapeCell, prod_mesh, *,
+                       reduced: bool = False, depth: int | None = None,
+                       device="meta", params=None) -> BuiltCell:
+    """Prefill of the rank's batch rows into its cache: the serving params'
+    blocks, the batch over 'data' where it divides, the cache's chunks at
+    ``n_chunks = M`` split over 'model'. Real inputs: ``device`` and the
+    whole bf16 ``params`` to cut (the batch and cache are zeros)."""
+    return _serve_cell("prefill", arch, cell, prod_mesh, reduced=reduced,
+                       depth=depth, device=device, params=params)
+
+
+def build_decode_cell(arch: str, cell: ShapeCell, prod_mesh, *,
+                      reduced: bool = False, depth: int | None = None,
+                      device="meta", params=None) -> BuiltCell:
+    """One decode step of the rank's rows over a cache of ``seq_len``
+    positions, as :func:`build_prefill_cell` lays it out."""
+    return _serve_cell("decode", arch, cell, prod_mesh, reduced=reduced,
+                       depth=depth, device=device, params=params)
+
+
+def build_cell(arch: str, cell: ShapeCell, prod_mesh, **kw) -> BuiltCell:
+    if cell.kind == "train":
+        return build_train_cell(arch, cell, prod_mesh, **kw)
+    for k in ("engine", "exchange_dtype", "pull"):
+        kw.pop(k, None)
+    if cell.kind == "prefill":
+        return build_prefill_cell(arch, cell, prod_mesh, **kw)
+    if cell.kind == "decode":
+        return build_decode_cell(arch, cell, prod_mesh, **kw)
+    raise ValueError(cell.kind)

@@ -36,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..device import card_route
+from ..kernels import work
 from ..kernels.flash_attention.ops import FlashAttention
 from ..kernels.flash_attention.ref import NEG, attention_ref
 from . import sharding as shr
@@ -214,7 +216,8 @@ def rope_tables(positions, head_dim: int, theta: float, dtype):
     if positions.ndim == 3:
         sec_id = torch.repeat_interleave(
             torch.arange(3, device=pos.device),
-            torch.tensor(mrope_sections(inv.shape[0]), device=pos.device))
+            torch.tensor(mrope_sections(inv.shape[0]), device=pos.device),
+            output_size=inv.shape[0])
         ang = pos[sec_id].permute(1, 2, 0) * inv         # [B, S, hd/2]
     else:
         ang = pos[..., None] * inv
@@ -252,15 +255,20 @@ def blocked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     q: [B, Sq, H, hd]; k, v: [B, Skv, kvH, hd] (GQA: H % kvH == 0).
     window > 0 => sliding-window causal attention; cross => no causal mask.
 
-    On a CUDA tensor this is the hand-written flash-attention kernels
-    through :class:`~repro_torch.kernels.flash_attention.ops.FlashAttention`
+    On a CUDA or a meta tensor (:func:`~repro_torch.device.card_route`)
+    this is the hand-written flash-attention kernels through
+    :class:`~repro_torch.kernels.flash_attention.ops.FlashAttention`
     (forward, and the dq / dkv backward when a gradient is asked for; their
-    tiles are their own, so ``q_block``/``kv_block`` do not apply). On a CPU
-    tensor it is the plain blocked path of the JAX package
+    tiles are their own, so ``q_block``/``kv_block`` do not apply); so is a
+    CPU tensor while a work counter counts
+    (:func:`repro_torch.kernels.work.counting`: the wrappers run their
+    plain versions and report the kernels' work, so a CPU step is counted
+    as the card's). Otherwise on a CPU tensor it is the plain blocked path
+    of the JAX package
     (``layers.py:149-207``), which never materialises more than
     ``[B, H, q_block, kv_block]`` scores, differentiated by autograd.
     """
-    if q.is_cuda:
+    if card_route(q) or work.counting():
         return FlashAttention.apply(q, k, v, causal and not cross, window)
     B, Sq, H, hd = q.shape
     Skv, kvH = k.shape[1], k.shape[2]
@@ -641,7 +649,7 @@ def _logits_f32(x2, table):
     on the bf16 operands with a float32 result (``out_dtype``), so the vocab
     table is not copied; on the CPU the operands are widened (bf16 products
     are exact in f32, so both compute the same sums)."""
-    if x2.is_cuda and x2.dtype != torch.float32:
+    if card_route(x2) and x2.dtype != torch.float32:
         return torch.mm(x2, table.t(), out_dtype=torch.float32)
     return x2.float() @ table.float().t()
 

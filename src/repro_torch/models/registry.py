@@ -7,6 +7,9 @@ Bundle methods, as in ``repro.models.registry``:
     decode(params, caches, batch) -> (logits, caches)
     init_caches(batch, max_len, n_chunks, device=...) -> caches
     make_batch(kind, B, S, gen) -> concrete batch
+    batch_specs(kind, B, S) -> meta stand-ins of every input
+    supports_cell(shape_name) -> (ok, why)
+    meta_params(dtype) -> the params' shapes as meta tensors
 and what the serving loop uses in place of the JAX ``vmap`` over replicas
 and slots:
     prefill_replicas(reps, tokens, caches) -> logits [R, B, V]
@@ -130,13 +133,12 @@ class ModelBundle:
         return self.mod.reset_cache_rows(caches, rows)
 
     # -- batch construction --------------------------------------------------
-    def make_batch(self, kind: str, B: int, S: int,
-                   gen: torch.Generator) -> dict:
-        """Concrete random batch of every model input (smoke tests, the
-        launch drivers), with the reference's shapes: tokens; for ``vlm``
-        bf16 ``embeds`` (``0.02 * normal``) and ``[3, B, S]`` positions in
-        ``[0, max(S, 2))``; for ``audio`` bf16 ``enc_frames [B, S/2, D]``
-        and ``S/2`` tokens. Drawn from ``gen``, in name order."""
+    def batch_specs(self, kind: str, B: int, S: int) -> dict:
+        """Shape-only stand-ins (``meta`` tensors) of every model input, as
+        the reference's ``batch_specs`` (int32 ids, bf16 embeddings): tokens
+        and labels ``[B, S]``; for ``vlm`` ``embeds [B, S, D]`` and M-RoPE
+        ``positions [3, B, S]``; for ``audio`` ``enc_frames [B, S/2, D]``
+        and ``S/2`` tokens; decode one token (one embedding) a row."""
         fam, D = self.cfg.family, self.cfg.d_model
         if kind in ("train", "prefill"):
             if fam == "vlm":
@@ -152,8 +154,20 @@ class ModelBundle:
                      if fam == "vlm" else {"token": (B, 1)})
         else:
             raise ValueError(kind)
+        return {name: torch.empty(s, device="meta", dtype=(
+            torch.bfloat16 if name in ("embeds", "enc_frames")
+            else torch.int32)) for name, s in shape.items()}
+
+    def make_batch(self, kind: str, B: int, S: int,
+                   gen: torch.Generator) -> dict:
+        """Concrete random batch of every model input (smoke tests, the
+        launch drivers) in :meth:`batch_specs`' shapes: bf16 ``embeds`` and
+        ``enc_frames`` (``0.02 * normal``), ids in ``[0, vocab)`` and
+        ``positions`` in ``[0, max(S, 2))`` as int64 (torch's index
+        dtype). Drawn from ``gen``, in name order."""
         out = {}
-        for name, s in sorted(shape.items()):
+        for name, spec in sorted(self.batch_specs(kind, B, S).items()):
+            s = tuple(spec.shape)
             if name in ("embeds", "enc_frames"):
                 out[name] = (0.02 * torch.randn(
                     s, generator=gen, device=gen.device)).bfloat16()
@@ -162,6 +176,30 @@ class ModelBundle:
                 out[name] = torch.randint(0, hi, s, generator=gen,
                                           device=gen.device)
         return out
+
+    def meta_params(self, dtype=torch.float32) -> dict:
+        """The model's params as ``meta`` tensors in ``dtype``: the
+        family's own init run under a fake-tensor mode, so nothing is
+        drawn or allocated (the dry run's shapes)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            fake = self.init(torch.Generator(), dtype)
+
+        def meta(node):
+            if isinstance(node, dict):
+                return {k: meta(v) for k, v in node.items()}
+            return torch.empty(node.shape, dtype=node.dtype, device="meta")
+
+        return meta(fake)
+
+    # -- shape-cell helpers ----------------------------------------------------
+    def supports_cell(self, shape_name: str) -> tuple[bool, str]:
+        """The reference's skips: a ``long_*`` cell needs sub-quadratic
+        serving."""
+        if shape_name.startswith("long_") and not self.cfg.subquadratic:
+            return False, ("full quadratic attention: 500k-context serve_step "
+                           "skipped per assignment (see DESIGN.md)")
+        return True, ""
 
 
 def get_bundle(arch_id: str, reduced: bool = False, depth: int | None = None,

@@ -148,6 +148,27 @@ def jax_tree(tree):
     return jax.tree.map(jnp.asarray, tree)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that claims a device the port has no route for (neither
+    the CPU, a GPU nor ``meta``) and holds nothing: any operation on it
+    raises."""
+
+    @staticmethod
+    def __new__(cls, shape, dtype=torch.float32):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=dtype, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} reached a tensor of no device")
+
+
+def elsewhere(shape, dtype=torch.float32) -> torch.Tensor:
+    """A tensor on a device the kernel wrappers do not take (the tests of
+    their refusal: only the CPU, a GPU and ``meta`` have a route)."""
+    return _Elsewhere(tuple(shape), dtype)
+
+
 def require_cuda() -> torch.device:
     """Skip the calling test unless an NVIDIA GPU is present (decided when
     the test runs, never at import)."""

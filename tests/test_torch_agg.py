@@ -9,6 +9,7 @@ import torch
 
 import repro.agg as jagg
 import repro_torch.agg as agg
+from _torch_parity import elsewhere
 from repro.agg import rules as jrules
 from repro.kernels.cwise_median.ops import cwise_median as jax_cwise_median
 from repro_torch.agg import dispatch, rules
@@ -133,7 +134,7 @@ def test_cpu_runs_plain_version_and_no_silent_fallback():
     ops.cwise_median(torch.zeros((4, 8)))
     assert ops.cwise_median.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.cwise_median(torch.empty((4, 8), device="meta"))
+        ops.cwise_median(elsewhere((4, 8)))
 
 
 
@@ -396,13 +397,12 @@ def test_new_kernels_cpu_route_and_past_64():
                       ops.cwise_trimmed_mean.launches,
                       gram_ops.gram.launches,
                       diam_ops.subset_diameters.launches)
-    meta = torch.empty((4, 8), device="meta")
+    other = elsewhere((4, 8))
     for fn in (lambda t: ops.cwise_meamed(t, 1), gram_ops.gram,
                lambda t: diam_ops.subset_diameters(
-                   torch.empty((4, 4), device="meta"),
-                   rules.subset_masks(4, 1))):
+                   elsewhere((4, 4)), rules.subset_masks(4, 1))):
         with pytest.raises(ValueError, match="unsupported device"):
-            fn(meta)
+            fn(other)
     big = torch.from_numpy(_stack(70, (9,), 8))
     _eq(dispatch.meamed(big, 3), rules.meamed(big, 3))
     _eq(dispatch.trimmed_mean(big, 3), rules.trimmed_mean(big, 3))

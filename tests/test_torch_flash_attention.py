@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import np_dtype_cast
+from _torch_parity import elsewhere, np_dtype_cast
 from repro.kernels.flash_attention.ops import _flash_fwd, flash_attention
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import ops
@@ -85,9 +85,9 @@ def test_cpu_runs_plain_version_without_launch():
 
 
 def test_wrapper_has_no_silent_fallback():
-    """A tensor on neither the CPU nor a GPU raises: the plain version runs
-    only for CPU tensors."""
-    q = torch.empty((1, 8, 2, 128), device="meta")
+    """A tensor on neither the CPU, a GPU nor meta raises: the plain
+    version runs only for CPU tensors."""
+    q = elsewhere((1, 8, 2, 128))
     with pytest.raises(ValueError, match="unsupported device"):
         ops.flash_attention(q, q, q)
 

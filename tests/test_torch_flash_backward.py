@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import np_dtype_cast
+from _torch_parity import elsewhere, np_dtype_cast
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (flash_bwd_from_delta,
@@ -106,10 +106,10 @@ def test_kernel_wrappers_cpu_route_is_the_plain_split():
 
 
 def test_backward_has_no_silent_fallback():
-    """A tensor on neither the CPU nor a GPU raises in every backward
-    wrapper: the plain version runs only for CPU tensors."""
-    m = torch.empty((1, 8, 2, 128), device="meta")
-    s = torch.empty((1, 2, 8), device="meta")
+    """A tensor on neither the CPU, a GPU nor meta raises in every
+    backward wrapper: the plain version runs only for CPU tensors."""
+    m = elsewhere((1, 8, 2, 128))
+    s = elsewhere((1, 2, 8))
     with pytest.raises(ValueError, match="unsupported device"):
         ops.flash_attention_bwd(m, m, m, m, s, m)
     for fn in (ops.flash_bwd_dq, ops.flash_bwd_dkv):

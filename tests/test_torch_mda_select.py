@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import elsewhere
 from repro.agg import rules as jrules
 from repro.kernels.mda_diameter import ops as jdiam
 from repro_torch.agg import dispatch, rules
@@ -83,7 +84,7 @@ def test_mda_select_shapes_and_routes():
                        rules.mda_weights_from_d2(d2, 2))
     assert diam_ops.subset_diameters.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
-        diam_ops.mda_select(torch.empty((4, 4), device="meta"), 1)
+        diam_ops.mda_select(elsewhere((4, 4)), 1)
     with pytest.raises(ValueError, match="0 <= f < n"):
         diam_ops.mda_select(d2, 7)
 

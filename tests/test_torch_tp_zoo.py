@@ -239,3 +239,45 @@ def test_model2_checkpoint_round_trip(runs, arch):
     for rank in range(4):
         rec = json.load(open(d / f"{arch}_sent_{rank}.json"))["ckpt"]
         assert rec["equal"] and rec["step"] == STEPS
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_rank_view_counts_the_gloo_ranks_bytes(runs, arch):
+    """The dry run of the same scatter step on a rank view of the (rep 2,
+    fsdp 1, model 2) mesh — meta tensors, no world — counts, for every
+    rank, the bytes by tag that rank's ``Mesh.sent`` recorded in the gloo
+    run's first step; pull + aggregate and the 'model' tags equal the
+    formulas."""
+    import torch
+
+    from repro_torch.core.attacks import ByzantineSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import AXES, RankView
+    from repro_torch.optim import schedules as tsched
+    d = runs[0]
+    bundle = bundle_of(arch)
+    cfg = bundle.cfg
+    pcfg = tproto.ProtocolConfig.derive(G, T=T, byz=ByzantineSpec(
+        worker_attack="alie", n_byz_workers=1))
+    kw = dict(seq=S, frames=B * 2 * S) if cfg.family == "audio" else {}
+    tp = tproto.model_volume_bytes(cfg, 2, B * S, n_groups=G // 2, **kw)
+    batch = {k: torch.empty((G, B, S), dtype=torch.long, device="meta")
+             for k in ("tokens", "labels")}
+    if cfg.family == "audio":
+        batch["enc_frames"] = torch.empty((G, B, 2 * S, cfg.d_model),
+                                          device="meta")
+    for rank in range(4):
+        view = RankView(AXES, (2, 1, 2), rank=rank)
+        state = tproto.make_init_fn(bundle, pcfg, "meta", view)(0)
+        step = tproto.make_scatter_step(bundle, pcfg,
+                                        tsched.inverse_linear(0.05, 0.05),
+                                        with_attack=True, mesh=view)
+        fig, _ = dryrun.measure(step, (state, batch), view)
+        got = {k: int(v) for k, v in fig["collective_bytes_by_kind"].items()}
+        rec = json.load(open(d / f"{arch}_sent_{rank}.json"))
+        want = {k: v for k, v in rec["sent"][0].items() if v}
+        assert got == want, (rank, got, want)
+        exact = tproto.collective_volume_bytes(pcfg, rec["P_m"], rep=2)
+        assert got["pull"] + got["aggregate"] == exact
+        for tag, n in tp.items():
+            assert got[tag] == n

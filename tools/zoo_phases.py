@@ -7,11 +7,11 @@ the card.
 Phase 13 — a: the flash forward at qwen3-moe's heads; b:
 qwen3-moe-235b-a22b quorum serving at depth 2; c: rwkv6-3b protocol
 training at depth 2 through ``launch/train.py``, with the WKV scan's share
-of a profiler window; d: rwkv6-3b quorum serving at full depth; e:
+of a profiler window; d: rwkv6-3b quorum serving at depth 8; e:
 ``lm/moe_tiny`` and ``lm/rwkv_tiny`` card against CPU. Phase 14 — 14a:
 the flash forward, dq and dkv at the whisper-small, zamba2-1.2b and
 qwen2-vl-7b shapes; 14b: qwen2-vl-7b serving through ``launch/serve.py``;
-14c: zamba2-1.2b quorum serving at full depth; 14d: zamba2-1.2b protocol
+14c: zamba2-1.2b quorum serving at depth 12; 14d: zamba2-1.2b protocol
 training at depth 12, with the SSD scan's share; 14e: whisper-small
 serving and protocol training; 14f: the three families reduced, card
 against CPU. All of them when none is named. Builds the kernels first,
