@@ -2,7 +2,7 @@
 PY      := python
 ENV     := PYTHONPATH=src$(if $(PYTHONPATH),:$(PYTHONPATH),)
 
-.PHONY: all tier1 test fast lint lint-fast netsim agg-bench bench examples perf exp serve serve-bench elastic-bench
+.PHONY: all tier1 test fast lint lint-fast lint-torch netsim agg-bench bench examples perf exp serve serve-bench elastic-bench
 
 # default: static analysis first (seconds to fail on a repo-invariant
 # violation), then the full tier-1 gate
@@ -21,6 +21,14 @@ lint:
 # layer 1 only, taint scoped to changed-file SCC (jax-free) — pre-commit speed
 lint-fast:
 	$(ENV) $(PY) -m repro.analyze --fast
+
+# the port's static analysis (repro_torch.analyze): layer 1 (AST, CUDA
+# sources, build key) + layer 2 (the smoke preset run on the CPU). Exits 1
+# on any violation that is neither inline-suppressed nor in
+# results/analyze_torch/baseline.json (each entry with its reason);
+# `--card` adds layer 3 on a GPU
+lint-torch:
+	$(ENV) $(PY) -m repro_torch.analyze --run --json results/analyze_torch/report.json
 
 # full tier-1 gate: everything, stop at first failure
 tier1:

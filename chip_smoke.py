@@ -189,6 +189,17 @@
    production mesh, dry-run for its fullest rank and printed as a
    roofline row (reckoned, H100 SXM published peaks) with the host's
    seconds.
+19. The port's static analyzer on the card (``python -m
+   repro_torch.analyze --card``, layer 3), run first, right after the
+   build (before any CUDA graph: the profiler was seen to drop records
+   after graph replays): on the ``smoke`` preset, the device->host copies
+   of one ``run()`` of the fused engine and of the protocol engine
+   (``naive``, ``sharded``) counted with ``torch.profiler``, each
+   ``run_epoch`` under ``torch.cuda.set_sync_debug_mode("error")``, and
+   the syncs per protocol step and per decoded token counted in "warn"
+   mode, printed as ``[analyze-card]`` lines. A finding that is neither
+   in ``results/analyze_torch/baseline.json`` nor suppressed fails the
+   run.
 
 The profiler windows are read from their raw trace records in one pass
 (``trace_events``), not through ``key_averages()`` / ``events()``, whose
@@ -3801,6 +3812,41 @@ def dry_cell_phase() -> None:
         f" rank (fits 80 GB: {row['fits']})")
 
 
+def analyze_card_phase(dev) -> float:
+    """Phase 19: layer 3 of ``repro_torch.analyze`` on the card. Prints
+    each engine's device->host copies per ``run()``, its syncs per step and
+    whether ``run_epoch`` passes sync-debug "error", serving's syncs per
+    decode step and per token, and each finding with its baseline status;
+    raises on a finding the baseline does not hold. Returns its seconds."""
+    from repro_torch.analyze import card
+    from repro_torch.analyze import findings as F
+    t0 = time.perf_counter()
+    stats = card.measure(dev)
+    for label, s in stats.items():
+        sites = ", ".join(f"{k} x{v}" for k, v in sorted(s["sync_sites"]
+                                                          .items()))
+        if label == "serve":
+            log(f"[analyze-card] serve decode: "
+                f"{s['syncs_per_decode_step']} syncs a step, "
+                f"{s['syncs_per_token']:.2f} per token; at {sites or '-'}")
+            continue
+        log(f"[analyze-card] {label}: {s['dtoh_per_run']} device->host "
+            f"copies per run(); {s['syncs_per_step']:.2f} syncs per step "
+            f"(at {sites or '-'}); run_epoch under sync-debug 'error': "
+            f"{'passes' if s['epoch_error'] is None else 'raises'}")
+    base = F.load_baseline(str(ROOT / F.BASELINE_PATH))
+    new, known = F.split_baselined(card.findings(stats), base)
+    for f in known:
+        log(f"[analyze-card] baselined: {f.path}: {f.message}")
+    if new:
+        raise AssertionError("analyze --card: findings neither baselined "
+                             "nor suppressed:\n"
+                             + "\n".join(f.format() for f in new))
+    dt = time.perf_counter() - t0
+    log(f"[analyze-card] phase 19 took {dt:.1f} s")
+    return dt
+
+
 def dry_phase(dev) -> float:
     """Phase 18 (b)-(d) ((a) runs on phase 10's state, after phase 12
     (a)); returns its seconds."""
@@ -3837,6 +3883,9 @@ def main() -> int:
             if re.search(r"\(C\d+\)", line):   # ptxas advice, e.g. C7519
                 log(f"[build] {name}: {line.strip()[:300]}")
     meamed_build_check(_build)
+    # phase 19 first: its profiler counts precede any CUDA graph, and its
+    # engines need autograd (outside inference mode)
+    analyze_card_phase(dev)
 
     with torch.inference_mode():
         select_launch_phase(dev)

@@ -1363,6 +1363,16 @@ class ProblemBundle:
     loss: Callable
     cfg: _ProblemCfg = field(default_factory=_ProblemCfg)
 
+    def meta_params(self) -> dict:
+        """The problem's params as ``meta`` tensors (``make_init_fn`` on
+        ``device="meta"``): its init run under a fake-tensor mode, so
+        nothing is drawn or allocated."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            fake = self.init(torch.Generator())
+        return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                for k, v in fake.items()}
+
 
 class ProtocolEngine:
     """Epochs over the protocol: the scatter step, and the DMC gather after

@@ -99,8 +99,9 @@ def receiver_quorum_indices(gen: torch.Generator, n_recv: int, n_send: int,
     index."""
     scores = torch.rand((n_recv, n_send), generator=gen, device=device)
     if include_self:
-        idx = torch.arange(n_recv, device=device)
-        scores[idx, idx] = -1.0
+        # a fill, not an indexed store of a host scalar: no copy to the
+        # device, so no sync with the host
+        scores.diagonal().fill_(-1.0)
     return torch.argsort(scores, dim=1, stable=True)[:, :q]
 
 

@@ -245,8 +245,9 @@ class ByzSGDSimulator:
 
     def _anchors(self, state: SimState, eta: float, gnorm):
         if state.t % self.cfg.T == 0:
-            return (torch.tensor(eta, dtype=torch.float32,
-                                 device=self.device), gnorm)
+            # a fill, not a copy of a host scalar: no sync with the host
+            return (torch.full((), eta, dtype=torch.float32,
+                               device=self.device), gnorm)
         return state.anchor_eta, state.anchor_gnorm
 
     # -- async scatter step (Algorithms 1 & 2) ------------------------------
@@ -362,6 +363,10 @@ class ByzSGDSimulator:
 
         anchor_eta, anchor_gnorm = self._anchors(state, eta,
                                                  tree_gnorm(new_wg[0]))
+        # Algorithm 3 guards worker pulls with the Lipschitz + Outliers
+        # filters (paper Sec. 4.2), not a GAR — the loop above IS the
+        # sanitizer for the w_model write:
+        # analyze: ignore[REPRO-TAINT-BYZ] Alg. 3 Lipschitz+Outliers filters guard this pull
         new_state = state._replace(params=new_params, t=state.t + 1,
                                    w_model=new_wm, w_grad=new_wg,
                                    lip=new_lip, anchor_eta=anchor_eta,

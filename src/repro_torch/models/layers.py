@@ -101,7 +101,10 @@ def whole_leaves(p: dict, shapes: dict) -> dict:
     if not split:
         return p
     out = {k: dict(v) if isinstance(v, dict) else v for k, v in p.items()}
-    for dtype in {get(path).dtype for path in split}:
+    # dtypes in a fixed order: a torch.dtype hashes by identity, so a set's
+    # order differs between processes and the ranks' gathers would pair
+    # different leaves
+    for dtype in sorted({get(path).dtype for path in split}, key=str):
         paths = [path for path in split if get(path).dtype == dtype]
         packed = torch.cat([get(path).reshape(-1) for path in paths])
         rows = shr.gather_from_model(packed[None], tp, 0, "model_leaves")
