@@ -88,7 +88,8 @@
    ``elastic/planned_churn`` at ``mlp_h1024`` (G 5 -> 4 -> 5, 24 steps)
    uninterrupted and killed at step 12 and resumed, bit-identical (steps/s,
    final accuracy above 0.2, peak memory, the median launches of the
-   joiner's seeding); ``elastic/netsim_churn`` finite.
+   joiner's seeding, every MDA selection kept for phase 20);
+   ``elastic/netsim_churn`` finite.
 13. The zoo: the MoE and RWKV6 families. (a) The flash forward at
    qwen3-moe's heads (``[1, 1024, 64/4, 64]``, bf16, causal) against its
    plain version, timed as in 2. (b) qwen3-moe-235b-a22b at full width,
@@ -200,13 +201,29 @@
    mode, printed as ``[analyze-card]`` lines. A finding that is neither
    in ``results/analyze_torch/baseline.json`` nor suppressed fails the
    run.
+20. Elastic membership over ranks (``elastic_ranks_phase``, last, after
+   phase 18 (b)-(d)): ``elastic/planned_churn`` at ``mlp_h1024`` on 8
+   ranks sharing the card over gloo (spawned), each segment on the
+   reference's mesh for its fleet, (5,1,1) / (4,2,1) / (5,1,1), ranks 5-7
+   idle in the G = 5 segments; uninterrupted, with ``ckpt_every=4``, and
+   killed after step 12 and resumed (both bit-identical to the
+   uninterrupted run on every rank). Per rank: the segment meshes, the
+   bytes by tag in each segment (pull + aggregate equal to
+   ``collective_volume_bytes`` a step on the rank's columns, 0 on an idle
+   rank) and at each boundary (``reform`` equal to
+   ``reform_volume_bytes``), the median, Gram and selection launches (at
+   least one a step each), peak memory; every rank's results, counters
+   and generator equal to rank 0's. Against phase 12 (c)'s one-rank card
+   run: the whole params within rel-L2 1e-4 and rel-max 1e-3, the equal
+   selections counted; steps/s and the phase's seconds.
 
 The profiler windows are read from their raw trace records in one pass
 (``trace_events``), not through ``key_averages()`` / ``events()``, whose
 parse took ~290 s of the script. Phases print on earlier lines; the line
 before the last holds the card's name and power limit, the one before it
 the kernels' JSON record (``launches`` over every main-path run,
-``mesh_launches`` phase 15's share, ``tp_launches`` phase 16's), and the
+``mesh_launches`` phase 15's share, ``tp_launches`` phases 16-17's,
+``elastic_launches`` phase 20's), and the
 last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, with no result line, when CUDA is
 absent or any check fails.
@@ -1857,7 +1874,8 @@ def elastic_phase(dev):
     membership.reform_params = counted
     try:
         torch.cuda.reset_peak_memory_stats(dev)
-        churn, got = run("elastic/planned_churn", **ELASTIC_RUN)
+        with _selections() as picked:
+            churn, got = run("elastic/planned_churn", **ELASTIC_RUN)
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         steps = churn.experiment.steps
         acc = churn.final["acc"]
@@ -1898,8 +1916,10 @@ def elastic_phase(dev):
         f"final acc {ns.final['acc']:.4f}, finite {finite}, launches {got}")
     if not finite:
         raise AssertionError("elastic/netsim_churn is not finite")
+    # phase 20 holds its runs over ranks against this one
     return total, dict(steps_s=steps / churn.wall_s, acc=acc,
-                       peak_gb=peak_gb, seeding=churn_seeding)
+                       peak_gb=peak_gb, seeding=churn_seeding,
+                       params=churn.state.params.cpu(), selections=picked)
 
 
 # ---------------------------------------------------------------------------
@@ -3857,6 +3877,267 @@ def dry_phase(dev) -> float:
     return time.perf_counter() - t0
 
 
+# ---------------------------------------------------------------------------
+# phase 20: elastic membership over ranks sharing the card
+# ---------------------------------------------------------------------------
+
+ELASTIC_RANKS = 8       # the reference lane's world
+# the reference's (rep, fsdp, 1) for G = 5, 4, 5 on 8 ranks: ranks 5-7 sit
+# the G = 5 segments out, and 'fsdp' grows to 2 at G' = 4
+ELASTIC_MESHES = [(5, 1, 1), (4, 2, 1), (5, 1, 1)]
+# the whole final params against phase 12 (c)'s one-rank card run (rel-L2,
+# rel-max): the Gram's partials and the aggregation's sum over senders add
+# in rank order over the ranks, in the kernels' and cuBLAS's order on one
+# card
+ELASTIC_TOL = (1e-4, 1e-3)
+ELASTIC_KERNELS = ("cwise_median", "gram", "subset_diameters")
+
+
+def _sent_by_tag() -> dict:
+    """Bytes this rank has sent on every segment mesh of the world, by
+    tag."""
+    from repro_torch.exp import runners
+    out: dict = {}
+    for _, m in runners._MESH_CACHE.values():
+        for k, v in m.sent.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+@contextlib.contextmanager
+def _elastic_hooks(rank: int):
+    """Phase 20's records of one run on one rank: each segment's mesh and
+    whether the rank holds a block of it, the bytes by tag at each
+    boundary's start and end (and the run's), and each boundary's
+    ``reform`` bytes beside ``reform_volume_bytes``."""
+    from repro_torch.core import membership
+    from repro_torch.exp import runners
+    rec = {"segments": [], "marks": [_sent_by_tag()], "boundaries": []}
+    seg_mesh, reform = runners._segment_mesh, membership.reform_state
+
+    def segment_mesh(G):
+        mesh = seg_mesh(G)
+        rec["segments"].append([list(mesh.shape), mesh.member])
+        return mesh
+
+    def reform_state(state, old_active, new_active, mesh=None,
+                     chunk_bytes=256 * 2**20):
+        rec["marks"].append(_sent_by_tag())
+        old = state.mesh
+        sent = old.sent["reform"]
+        out = reform(state, old_active, new_active, mesh, chunk_bytes)
+        rec["boundaries"].append(dict(
+            old=list(old.shape), new=list(mesh.shape),
+            sent=old.sent["reform"] - sent,
+            want=membership.reform_volume_bytes(
+                old.shape, mesh.shape, len(old_active), state.tree.size,
+                state.params.element_size(), rank=rank,
+                stacks=3 if state.opt else 1,
+                run_state_bytes=state.gen.get_state().numel() + 16)))
+        rec["marks"].append(_sent_by_tag())
+        return out
+
+    runners._segment_mesh = segment_mesh
+    membership.reform_state = reform_state
+    try:
+        yield rec
+    finally:
+        runners._segment_mesh = seg_mesh
+        membership.reform_state = reform
+        rec["marks"].append(_sent_by_tag())
+
+
+def _elastic_rank(dev, rank: int, tmp: str) -> dict:
+    """One rank of phase 20: ``elastic/planned_churn`` at ``mlp_h1024``
+    uninterrupted, with ``ckpt_every=4``, and killed after step 12 (the
+    saves past it deleted) and resumed; each run's launches counted from 0
+    around it."""
+    import torch.distributed as dist
+
+    from repro_torch import exp
+    from repro_torch.checkpoint import checkpointer as ck
+    from repro_torch.core import protocol
+    counters = _counters()
+    out = {}
+
+    def run(label, **kw):
+        _zero_counts(counters)
+        with _elastic_hooks(rank) as rec, _selections() as picked:
+            t0 = time.perf_counter()
+            res = exp.run("elastic/planned_churn", device=dev, **ELASTIC_RUN,
+                          **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        whole = protocol.whole_state(res.state)
+        rec.update(launches=_read_counts(counters), wall=wall,
+                   final=res.final, logs=res.logs,
+                   prov_mesh=res.provenance["mesh"],
+                   epochs=res.provenance["membership"]["epochs"],
+                   resumed_at=res.provenance["membership"]["resumed_at"],
+                   block=list(res.state.params.shape), t=res.state.t,
+                   gen=res.state.gen.get_state().tolist(),
+                   P=res.state.tree.size, steps=len(picked),
+                   fingerprint=fingerprint(whole.params))
+        if rank == 0 and label == "whole":
+            torch.save({"params": whole.params.cpu(), "selections": picked},
+                       os.path.join(tmp, "elastic_whole.pt"))
+        out[label] = rec
+
+    run("whole")
+    d = os.path.join(tmp, "elastic_ck")
+    run("ckpt", ckpt_dir=d, ckpt_every=4)
+    dist.barrier()
+    if rank == 0:
+        for name in os.listdir(d):
+            if int(name.split("_")[-1]) > 12:
+                shutil.rmtree(os.path.join(d, name))
+        out["meta12"] = ck.read_manifest(d, 12).get("meta")
+    dist.barrier()
+    run("resumed", ckpt_dir=d, ckpt_every=4)
+    return out
+
+
+RANK_TASKS["elastic"] = _elastic_rank
+
+
+def elastic_ranks_phase(dev, reference: dict) -> dict:
+    """Phase 20: ``elastic/planned_churn`` at ``mlp_h1024`` on 8 ranks
+    sharing the card over gloo (spawned), uninterrupted, with
+    ``ckpt_every=4`` and killed after step 12 and resumed, against phase
+    12 (c)'s one-rank card run of the same spec (``reference``). Returns
+    the kernel launches of its runs, by key."""
+    import tempfile
+
+    from repro_torch import exp
+    from repro_torch.core import membership
+    from repro_torch.core.protocol import collective_volume_bytes
+    t0 = time.perf_counter()
+    R = ELASTIC_RANKS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_ranks_") \
+            as tmp:
+        outs = _spawn_ranks("elastic", R, tmp)
+        mine = torch.load(os.path.join(tmp, "elastic_whole.pt"))
+    pcfg0 = exp.get("elastic/planned_churn", **ELASTIC_RUN) \
+        .to_protocol_config()
+    total = {k: 0 for k in ELASTIC_KERNELS}
+    base = outs[0]["whole"]
+    P = base["P"]
+    log(f"[elastic-ranks] elastic/planned_churn at {TRAIN_MODEL} (P = "
+        f"{P:,}) on {R} ranks sharing the card over gloo: segment meshes "
+        f"{[s for s, _ in base['segments']]}, epochs "
+        f"{[(e['start'], len(e['active'])) for e in base['epochs']]}")
+    for r, o in enumerate(outs):
+        for label in ("whole", "ckpt", "resumed"):
+            rec = o[label]
+            for k in ELASTIC_KERNELS:
+                total[k] += rec["launches"][k]
+            # bytes inside each segment (between boundaries) and at each
+            marks = rec["marks"]
+            segs = [{k: b.get(k, 0) - a.get(k, 0) for k in b}
+                    for a, b in zip(marks[::2], marks[1::2])]
+            epochs = [e for e in rec["epochs"]
+                      if e["stop"] > (rec["resumed_at"] or 0)]
+            for i, (seg, (shape, member), e) in enumerate(zip(
+                    segs, rec["segments"], epochs)):
+                steps = e["stop"] - max(e["start"], rec["resumed_at"] or 0)
+                if tuple(shape) != ELASTIC_MESHES[3 - len(epochs) + i] or \
+                        member != (r < int(np.prod(shape))):
+                    raise AssertionError(f"phase 20 rank {r} {label}: "
+                                         f"segment {i} mesh {shape}")
+                if not member:
+                    if any(seg.values()):
+                        raise AssertionError(f"phase 20 rank {r} {label}: "
+                                             f"idle in segment {i}, sent "
+                                             f"{seg}")
+                    if label == "whole":
+                        log(f"[elastic-ranks] rank {r} segment {i} (mesh "
+                            f"{shape}): idle, 0 bytes sent")
+                    continue
+                K = shape[1]
+                k = r % K
+                cols = (k + 1) * P // K - k * P // K
+                pcfg = membership.epoch_config(pcfg0, tuple(e["active"]))
+                want = steps * collective_volume_bytes(pcfg, cols,
+                                                       rep=shape[0])
+                got = seg.get("pull", 0) + seg.get("aggregate", 0)
+                if got != want:
+                    raise AssertionError(f"phase 20 rank {r} {label}: "
+                                         f"segment {i} pull + aggregate "
+                                         f"{got} against {want}")
+                if label == "whole":
+                    log(f"[elastic-ranks] rank {r} segment {i} (mesh "
+                        f"{shape}, {steps} steps): bytes by tag "
+                        f"{dict(sorted(seg.items()))}; pull + aggregate "
+                        f"{got} = {steps} x collective_volume_bytes "
+                        f"{want // steps}")
+            for b in rec["boundaries"]:
+                if b["sent"] != b["want"]:
+                    raise AssertionError(f"phase 20 rank {r} {label}: "
+                                         f"reform {b['sent']} bytes against "
+                                         f"reform_volume_bytes {b['want']}")
+            if label == "whole":
+                log(f"[elastic-ranks] rank {r}: reform bytes at the "
+                    f"boundaries {[b['sent'] for b in rec['boundaries']]} "
+                    f"= reform_volume_bytes "
+                    f"{[b['want'] for b in rec['boundaries']]}; launches "
+                    + json.dumps({k: rec["launches"][k]
+                                  for k in ELASTIC_KERNELS})
+                    + f" over its {rec['steps']} steps; peak device memory "
+                    f"{o['peak_gb']:.3f} GB (its three runs)")
+            # every rank that ran steps launched the kernels each step
+            for k in ELASTIC_KERNELS:
+                if rec["launches"][k] < rec["steps"]:
+                    raise AssertionError(f"phase 20 rank {r} {label}: {k} "
+                                         f"launched {rec['launches'][k]} "
+                                         f"times in {rec['steps']} steps")
+            for key in ("final", "prov_mesh", "t", "gen", "fingerprint"):
+                if rec[key] != outs[0][label][key]:
+                    raise AssertionError(f"phase 20 rank {r} {label}: "
+                                         f"{key} differs from rank 0's")
+    # the same world's runs: checkpoints and the resume change nothing
+    whole, ckpt, resumed = (outs[0][k] for k in ("whole", "ckpt",
+                                                 "resumed"))
+    by_step = {m["step"]: m for m in whole["logs"]}
+    same_ckpt = (ckpt["fingerprint"] == whole["fingerprint"]
+                 and ckpt["final"] == whole["final"]
+                 and ckpt["logs"] == whole["logs"])
+    same_resumed = (resumed["fingerprint"] == whole["fingerprint"]
+                    and resumed["final"] == whole["final"]
+                    and resumed["resumed_at"] == 12
+                    and resumed["logs"] and all(
+                        m == by_step[m["step"]] for m in resumed["logs"]))
+    meta = outs[0]["meta12"]
+    log(f"[elastic-ranks] ckpt_every=4 bit-identical to the uninterrupted "
+        f"run: {same_ckpt}; killed after step 12 (saved with active "
+        f"{meta['active']}) and resumed at {resumed['resumed_at']}: "
+        f"bit-identical {same_resumed}")
+    if not (same_ckpt and same_resumed and meta["active"] == [0, 1, 2, 3]):
+        raise AssertionError("phase 20: the checkpointed or resumed run "
+                             "differs from the uninterrupted one")
+    # against phase 12 (c)'s one-rank run of the same spec
+    a, b = mine["params"].double(), reference["params"].double()
+    rel_l2 = ((a - b).norm() / b.norm()).item()
+    rel_max = ((a - b).abs().max() / b.abs().max()).item()
+    same_sel = sum(torch.equal(x > 0, y > 0) for x, y in zip(
+        mine["selections"], reference["selections"]))
+    steps_s = 24 / whole["wall"]
+    log(f"[elastic-ranks] against phase 12 (c)'s one-rank run: rel-L2 "
+        f"{rel_l2:.3g}, rel-max {rel_max:.3g} (tolerance {ELASTIC_TOL}); "
+        f"MDA selections equal at {same_sel} of "
+        f"{len(reference['selections'])} steps; final acc "
+        f"{whole['final']['acc']:.4f} against {reference['acc']:.4f}; "
+        f"{steps_s:.3f} steps/s on {R} ranks ({whole['wall']:.2f} s, "
+        f"gloo through the host on one card: not a link's rate) against "
+        f"{reference['steps_s']:.2f} on one; peak device memory of the "
+        f"{R} ranks together {sum(o['peak_gb'] for o in outs):.2f} GB")
+    if rel_l2 > ELASTIC_TOL[0] or rel_max > ELASTIC_TOL[1] \
+            or not np.isfinite(whole["final"]["acc"]):
+        raise AssertionError(f"phase 20: rel-L2 {rel_l2}, rel-max "
+                             f"{rel_max} against the one-rank run")
+    log(f"[elastic-ranks] phase 20 took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs an "
@@ -3921,7 +4202,7 @@ def main() -> int:
     netsim_reference_phase(dev)
     netsim_launches, _ = netsim_train_phase(dev, train_results["busy"])
     resume_launches = resume_phase(dev)
-    elastic_launches, _ = elastic_phase(dev)
+    elastic_launches, elastic_ref = elastic_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
     # phase 13: the zoo. (a) the flash forward at qwen3-moe's heads
@@ -3974,9 +4255,13 @@ def main() -> int:
     # phase 18: the dry run held against the card
     t18 += dry_phase(dev)
     log(f"[dry] phase 18 took {t18:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 20: elastic membership over ranks
+    elastic_rank_launches = elastic_ranks_phase(dev, elastic_ref)
     for part in (ckpt_launches, netsim_launches, resume_launches,
                  elastic_launches, *zoo_launches, mesh_launches,
-                 tp_launches):
+                 tp_launches, elastic_rank_launches):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
 
@@ -4021,6 +4306,7 @@ def main() -> int:
             "launches": launches[name],
             "mesh_launches": mesh_launches.get(name, 0),
             "tp_launches": tp_launches.get(name, 0),
+            "elastic_launches": elastic_rank_launches.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -26,9 +26,13 @@ checkpoint is outvoted.
 A ``ByzState`` spread over the ranks of a mesh is saved by every rank: the
 stacks are gathered whole (over 'rep', 'fsdp' and 'model', the 'model'
 blocks joined leaf by leaf), rank 0 writes the same replica-stacked files
-as one card does, and all ranks meet at a barrier. ``restore`` into a
-``like`` with a mesh (and, with a 'model' axis, its ``split``) reads the
-files on every rank and keeps its rows, blocks and columns.
+as one card does, and all ranks meet at a barrier. On a mesh that leaves
+ranks idle (an elastic run's segment, ``launch.mesh.make_segment_mesh``)
+the mesh's ranks do that and meet at a barrier of their own, and a save
+on an idle rank returns at once. ``restore`` into a ``like`` with a mesh
+(and, with a 'model' axis, its ``split``) reads the files on every rank
+and keeps its rows, blocks and columns; an idle rank keeps the step
+counter, AdamW's count and the generator's state, and no block.
 """
 from __future__ import annotations
 
@@ -128,7 +132,9 @@ def save(ckpt_dir: str, step: int, state, *, meta: dict | None = None) -> str:
     final = step_dir(ckpt_dir, step)
     mesh = state.mesh if isinstance(state, protocol.ByzState) else None
     if mesh is not None and mesh.n_ranks > 1:
-        leaves = _leaf_paths(state)          # the gathers: every rank
+        if not mesh.member:
+            return final          # sits the mesh out: its ranks write
+        leaves = _leaf_paths(state)    # the gathers: every mesh rank
         if mesh.rank == 0:
             _write(ckpt_dir, final, step, leaves, meta)
         mesh.barrier()

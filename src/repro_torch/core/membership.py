@@ -18,6 +18,11 @@ Membership is a declarative plan over virtual steps, and the elastic runner
   active set to the next. A re-admitted group is seeded from the
   coordinate-wise median of the survivors (the DMC rule, the median kernel
   on the card), so the joiner lands inside the honest replicas' diameter.
+* :func:`reform_state` — the same for a run's whole state, from one
+  segment's rank mesh to the next (``launch.mesh.make_segment_mesh``): the
+  stacks gathered whole, handed to the ranks that join the mesh,
+  re-stacked and cut into the new blocks; its bytes a rank sends are
+  :func:`reform_volume_bytes`.
 
 The effective per-epoch resilience is ``f' = min(declared f, structural max
 for G')`` with full-minus-f quorums, so a fleet that regrows returns to the
@@ -201,6 +206,86 @@ def reform_params(params: torch.Tensor, old_active: tuple[int, ...],
             med = agg.dispatch.cwise_median(
                 params[:, c0:c0 + c].index_select(0, take).float())
             out[joiners, c0:c0 + c] = med.to(out.dtype)
+    return out
+
+
+def reform_state(state, old_active: tuple[int, ...],
+                 new_active: tuple[int, ...], mesh=None,
+                 chunk_bytes: int = 256 * 2**20):
+    """The run's ``ByzState`` for the next membership segment, on ``mesh``
+    (that segment's): params and AdamW's moments re-stacked by
+    :func:`reform_params`. Over ranks every rank of the world calls it:
+
+    1. the old mesh's ranks gather each stack whole;
+    2. rank 0 hands the stacks, the step counter, AdamW's count and the
+       generator's state to the ranks of the new mesh that sat the old one
+       out (``Mesh.share``);
+    3. each rank of the new mesh runs :func:`reform_params` on the whole
+       stacks: no summation, so the same stack on every rank, bit for bit;
+    4. each keeps its block of the new mesh (``protocol.shard_state``).
+
+    Every collective is counted under the tag ``reform``
+    (:func:`reform_volume_bytes`). A rank that sits the new mesh out keeps
+    the empty ``[G', 0]`` stacks; one that sat the old mesh out too also
+    keeps its (stale) counters until it joins. On one rank this is
+    :func:`reform_params` on each stack."""
+    from .protocol import shard_state, whole_state
+    upto = mesh.n_ranks if mesh is not None else 1
+    state = whole_state(state, tag="reform", upto=upto)
+    opt = state.opt
+    if mesh is not None and not mesh.member:
+        def empty(x):
+            return x.new_empty((len(new_active), 0))
+        if opt:
+            opt = type(opt)(empty(opt.m), empty(opt.v), opt.count)
+        return state._replace(params=empty(state.params), opt=opt,
+                              mesh=mesh, split=None)
+
+    def re(x):
+        return reform_params(x, old_active, new_active, chunk_bytes)
+
+    if opt:
+        opt = type(opt)(re(opt.m), re(opt.v), opt.count)
+    return shard_state(state._replace(params=re(state.params), opt=opt),
+                       mesh)
+
+
+def reform_volume_bytes(old_shape, new_shape, n_groups: int, n_params: int,
+                        itemsize: int, *, rank: int, stacks: int = 1,
+                        run_state_bytes: int = 0) -> int:
+    """The bytes rank ``rank`` sends at a membership boundary
+    (:func:`reform_state`, tag ``reform``), from a ``(rep, K, 1)`` mesh of
+    ``old_shape`` holding ``stacks`` ``[G, P]`` stacks of ``itemsize``
+    bytes (the params; AdamW's two float32 moments make 3) to a mesh of
+    ``new_shape``, both on the world's first ranks:
+
+    * each rank of the old mesh gathers every stack whole: over 'rep',
+      ``(rep-1)·(G/rep)·P_k`` entries, ``P_k`` the column count of its
+      'fsdp' coordinate; then over 'fsdp', ``(K-1)·G·ceil(P/K)`` (the
+      blocks padded to the widest);
+    * rank 0 sends to each rank of the new mesh past the old mesh's end
+      every stack whole, ``G·P`` entries, and the run's state,
+      ``run_state_bytes`` (the generator's state and two int64
+      counters).
+
+    Of the new mesh only its rank count enters, and G' not at all: a rank
+    cuts its new block from the whole re-formed stack, which moves
+    nothing."""
+    rep, K, M = (int(n) for n in old_shape)
+    if M != 1:
+        raise ValueError(f"the elastic runner's meshes have no 'model' "
+                         f"axis; got {tuple(old_shape)}")
+    G, P = int(n_groups), int(n_params)
+    old_ranks, new_ranks = rep * K, int(np.prod(new_shape))
+    out = 0
+    if rank < old_ranks:
+        k = rank % K
+        cols = (k + 1) * P // K - k * P // K
+        out += stacks * itemsize * ((rep - 1) * (G // rep) * cols
+                                    + (K - 1) * G * -(-P // K))
+    if rank == 0:
+        out += max(new_ranks - old_ranks, 0) * (stacks * G * P * itemsize
+                                                + run_state_bytes)
     return out
 
 

@@ -460,15 +460,18 @@ def state_layout(mesh: Mesh | None, n_groups: int, P: int) -> Layout:
     result beyond summation order. The per-leaf table
     (:func:`leaf_spec`) decides the 'model' blocks only: on the flat
     layout a leaf is a column range, so 'rep' and 'fsdp' have nothing to
-    decide per leaf."""
+    decide per leaf. A rank that sits the mesh out (``Mesh.member``
+    false) holds every row and no column: ``[G, 0]``."""
     sizes = mesh.sizes if mesh is not None else {}
     rep, K = sizes.get("rep", 1), sizes.get("fsdp", 1)
     if n_groups % rep:
         raise ValueError(f"rep={rep} must divide n_groups={n_groups}")
+    bounds = tuple(i * P // K for i in range(K + 1))
+    if mesh is not None and not mesh.member:
+        return Layout((0, n_groups), (0, 0), bounds)
     gl = n_groups // rep
     r = mesh.coord("rep") if rep > 1 else 0
     k = mesh.coord("fsdp") if K > 1 else 0
-    bounds = tuple(i * P // K for i in range(K + 1))
     return Layout((r * gl, (r + 1) * gl), (bounds[k], bounds[k + 1]), bounds)
 
 
@@ -1192,34 +1195,87 @@ def _on_ranks(mesh: Mesh | None) -> bool:
     return mesh is not None and mesh.n_ranks > 1
 
 
-def whole_state(state: ByzState) -> ByzState:
+def _run_state(state: ByzState) -> torch.Tensor:
+    """The generator's state, then the step counter and AdamW's count as
+    int64, in one uint8 tensor on the host."""
+    count = state.opt.count if state.opt else 0
+    return torch.cat([state.gen.get_state(), torch.tensor(
+        [state.t, count], dtype=torch.int64).view(torch.uint8)])
+
+
+def share_run_state(state: ByzState, upto: int, tag: str) -> ByzState:
+    """Rank 0's step counter, AdamW's count and generator state on the
+    world's ranks past the end of the state's mesh and below ``upto`` (a
+    collective of every rank of the world: :meth:`Mesh.share`). Those
+    ranks get the state back with them, on a new generator; every other
+    rank gets it as it is. A rank that sits a segment out runs no step, so
+    its counters and generator fall behind the mesh's, which draw the same
+    stream on every rank; this brings them level."""
+    mesh = state.mesh
+    if not _on_ranks(mesh) or upto <= mesh.n_ranks:
+        return state
+    buf = mesh.share(_run_state(state), upto, tag)
+    if mesh.member or mesh.rank >= upto:
+        return state
+    gen = torch.Generator(device=state.gen.device)
+    gen.set_state(buf[:-16].clone())
+    t, count = (int(v) for v in buf[-16:].clone().view(torch.int64))
+    opt = state.opt._replace(count=count) if state.opt else state.opt
+    return state._replace(t=t, gen=gen, opt=opt)
+
+
+def whole_state(state: ByzState, *, tag: str = "checkpoint",
+                upto: int | None = None) -> ByzState:
     """The state with its stacks (params and AdamW's moments) gathered
     whole, ``[G, P]``, on every rank of its mesh (a collective: every rank
-    calls it); the state itself off a mesh."""
+    calls it), counted under ``tag``; the state itself off a mesh.
+
+    On a mesh that leaves ranks idle the mesh's ranks gather the stacks,
+    and rank 0 hands them, with the run's counters and generator
+    (:func:`share_run_state`), to the idle ranks below ``upto`` (default:
+    every rank of the world, each of which calls it then; ``upto=0``: the
+    mesh's ranks only, the idle ones not calling). An idle rank at or past
+    ``upto`` gets its state back as it is."""
     if not _on_ranks(state.mesh):
         return state
     mesh = state.mesh
-    ranks = _Ranks(mesh, state.params.shape[0] * mesh.size("rep"),
-                   state.tree.size, ProtocolConfig.chunk_bytes, state.split)
+    upto = mesh.world if upto is None else upto
+    stacks = [state.params] + ([state.opt.m, state.opt.v] if state.opt
+                               else [])
+    if mesh.member:
+        ranks = _Ranks(mesh, state.params.shape[0] * mesh.size("rep"),
+                       state.tree.size, ProtocolConfig.chunk_bytes,
+                       state.split)
+        whole = [ranks.gather_all(x, tag) for x in stacks]
+    elif mesh.rank < upto:
+        whole = [x.new_empty((x.shape[0], state.tree.size)) for x in stacks]
+    else:
+        whole = [None] * len(stacks)
+    state = share_run_state(state, upto, tag)
+    for x in whole:
+        mesh.share(x, upto, tag)
+    if whole[0] is None:
+        return state
     opt = state.opt
     if opt:
-        opt = type(opt)(ranks.gather_all(opt.m, "checkpoint"),
-                        ranks.gather_all(opt.v, "checkpoint"), opt.count)
-    return state._replace(params=ranks.gather_all(state.params, "checkpoint"),
-                          opt=opt, mesh=None, split=None)
+        opt = type(opt)(whole[1], whole[2], opt.count)
+    return state._replace(params=whole[0], opt=opt, mesh=None, split=None)
 
 
 def shard_state(state: ByzState, mesh: Mesh | None,
                 split: ModelSplit | None = None) -> ByzState:
     """A whole state's block for this rank of ``mesh`` (copies of its rows,
     its 'model' blocks under ``split`` and its 'fsdp' columns of each
-    stack)."""
+    stack); on a rank that sits the mesh out, the empty ``[G, 0]``
+    stacks."""
     if not _on_ranks(mesh):
         return state._replace(mesh=mesh)
     ranks = _Ranks(mesh, state.params.shape[0], state.tree.size,
                    ProtocolConfig.chunk_bytes, split)
 
     def cut(x):
+        if not mesh.member:
+            return x.new_empty((x.shape[0], 0))
         return ranks.to_local(x[ranks.r0:ranks.r1]).clone()
 
     opt = state.opt
@@ -1237,8 +1293,9 @@ def checkpoint_leaves(state: ByzState) -> list[tuple[str, Any]]:
     it and starts a new stream), AdamW's ``.opt/.m/<path>``,
     ``.opt/.v/<path>`` and ``.opt/.count``; then the port's own ``.gen``,
     the generator's state (uint8), which a JAX restore ignores. On a mesh
-    the stacks are gathered whole first (every rank calls this)."""
-    state = whole_state(state)
+    the stacks are gathered whole first (every rank of the mesh calls
+    this; a rank that sits it out does not)."""
+    state = whole_state(state, upto=0)
     tree = state.tree
     G = state.params.shape[0]
 

@@ -17,10 +17,11 @@
     as their ``acc``; with ``ckpt_every`` the run is chunked at the
     checkpoint boundaries and saved at each;
   * ``elastic``  — the protocol chunked at the membership boundaries of the
-    spec's plan (or of the named scenario's realized crash windows): the
-    ``[G, P]`` stack re-formed per epoch, joiners seeded from the survivors'
-    median, checkpointed resume (one rank: elastic membership over ranks is
-    ROADMAP.md Queue 1 item 18).
+    spec's plan (or of the named scenario's realized crash windows), each
+    segment on the reference's mesh for its fleet over the initialised
+    world's first ranks (the rest idle): the ``[G, P]`` stack re-formed
+    across the ranks at each boundary, joiners seeded from the survivors'
+    median, checkpointed resume.
 
 Delivery is orthogonal to the runner: a ``delivery="trace"`` experiment
 trains stepwise, fused or through the protocol over the realized trace. All
@@ -313,6 +314,26 @@ def _run_protocol(e: Experiment, dev: torch.device, delivery=None,
                      buffers=mbuf)
 
 
+# (G, world size) -> (the world's process group, the segment mesh of G groups
+# on it): a regrow to an earlier fleet size, and a later run in the same
+# world, reuse the mesh and its process groups, as the reference's
+# ``_protocol_mesh`` keeps one mesh per (G, device count). A world made anew
+# (another default group) makes its meshes anew.
+_MESH_CACHE: dict[tuple, tuple] = {}
+
+
+def _segment_mesh(G: int):
+    import torch.distributed as dist
+
+    from ..launch.mesh import make_segment_mesh
+    world = dist.group.WORLD if dist.is_initialized() else None
+    key = (G, dist.get_world_size() if world is not None else 1)
+    hit = _MESH_CACHE.get(key)
+    if hit is None or hit[0] is not world:
+        hit = _MESH_CACHE[key] = (world, make_segment_mesh(G))
+    return hit[1]
+
+
 class _GroupView:
     """Width-adapted view of a :class:`DeviceBatchStream`: the epoch's
     active-group count of rows per step, drawn at the launch width (see
@@ -334,27 +355,31 @@ def _run_elastic(e: Experiment, dev: torch.device) -> RunResult:
     in the spec, or lowered from the named netsim scenario's realized crash
     windows). At each boundary the resilience parameters are re-derived for
     the new fleet (:func:`~repro_torch.core.membership.epoch_config`, Table
-    1 re-validated), the ``[G, P]`` stack and the optimizer's rows are
-    re-stacked (joiners seeded from the survivors' median), a new
-    ``ProtocolEngine`` takes over, and with a ``ckpt_dir`` the re-formed
+    1 re-validated), a new ``ProtocolEngine`` takes over on the segment's
+    mesh, the ``[G, P]`` stack and the optimizer's rows are re-stacked onto
+    it (:func:`~repro_torch.core.membership.reform_state`: joiners seeded
+    from the survivors' median), and with a ``ckpt_dir`` the re-formed
     state is saved. A run with a ``ckpt_dir`` resumes from its latest
     checkpoint, whose ``meta["active"]`` names the fleet it was saved
     under. With an empty plan the run is ``runner="protocol"`` bit for
-    bit."""
+    bit.
+
+    In a ``torch.distributed`` world of W ranks every rank calls it. A
+    segment of G' groups runs on ``make_segment_mesh(G')``, the
+    reference's ``(rep, fsdp, 1)`` on the first ``rep * K`` ranks; the
+    others sit it out, advancing only the batch stream, and take the run's
+    counters and generator from rank 0 when they join. Every rank returns
+    rank 0's ``logs``, ``final``, ``buffers`` and ``provenance``, and its
+    own block of the last segment as ``state`` (``protocol.whole_state``,
+    called on every rank, gives each the whole stack)."""
     import dataclasses as _dc
 
     import torch.distributed as dist
 
     from ..checkpoint import checkpointer as ck
     from ..core import membership as _membership
-    from ..core.protocol import ProtocolEngine
-    from ..launch.mesh import make_protocol_mesh
-    from ..optim.adamw import AdamWState
+    from ..core.protocol import ProtocolEngine, share_run_state
 
-    if dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "runner='elastic' runs on one rank: re-forming the 'rep' group "
-            "over torch.distributed ranks is ROADMAP.md Queue 1 item 18")
     pcfg0 = e.to_protocol_config()
     G0 = pcfg0.n_groups
     sync = e.variant == "sync"
@@ -403,20 +428,17 @@ def _run_elastic(e: Experiment, dev: torch.device) -> RunResult:
                 meta={"elastic": True, "active": [int(g) for g in active],
                       "n_groups_launch": G0, "spec_hash": e.spec_hash})
 
-    def _reform(x, old, new):
-        return _membership.reform_params(x, old, new, pcfg0.chunk_bytes)
-
-    state, prev_active, bufs, eng = None, None, [], None
-    pcfg = pcfg0
+    state, prev_active, bufs, eng, mesh = None, None, [], None, None
     t0 = time.time()
     for seg in segs:
         if seg.stop <= start and seg.stop < e.steps:
             continue  # fully replayed by the checkpoint (keep the last seg)
         pcfg = _membership.epoch_config(pcfg0, seg.active, synchronous=sync)
+        mesh = _segment_mesh(pcfg.n_groups)
         eng = ProtocolEngine(
             bundle, pcfg, e.build_schedule(), with_attack=with_attack,
             acc_fn=acc, eval_set=(ex, ey), track_delta=e.track_delta,
-            metrics_every=e.metrics_every, device=dev)
+            metrics_every=e.metrics_every, device=dev, mesh=mesh)
         if state is None:
             state = eng.init_state(e.seed)
             if start > 0:
@@ -429,14 +451,8 @@ def _run_elastic(e: Experiment, dev: torch.device) -> RunResult:
                 state, _ = ck.restore(e.ckpt_dir, start, state, dev)
                 stream.skip(start)
         elif prev_active != seg.active:
-            opt = state.opt
-            if opt:
-                opt = AdamWState(_reform(opt.m, prev_active, seg.active),
-                                 _reform(opt.v, prev_active, seg.active),
-                                 opt.count)
-            state = state._replace(
-                params=_reform(state.params, prev_active, seg.active),
-                opt=opt)
+            state = _membership.reform_state(state, prev_active, seg.active,
+                                             mesh, pcfg0.chunk_bytes)
             if e.ckpt_dir:
                 # overwrites the chunk save at this step: a resume of THIS
                 # epoch restores the re-formed state
@@ -449,9 +465,12 @@ def _run_elastic(e: Experiment, dev: torch.device) -> RunResult:
             n = seg.stop - done
             if e.ckpt_every:
                 n = min(n, e.ckpt_every - done % e.ckpt_every)
-            state, b = eng.run(state, stream=seg_stream, steps=n,
-                               epoch_steps=e.epoch_steps)
-            bufs.append(b)
+            if mesh.member:
+                state, b = eng.run(state, stream=seg_stream, steps=n,
+                                   epoch_steps=e.epoch_steps)
+                bufs.append(b)
+            else:
+                stream.skip(n)    # idle: keep the batch stream in step
             done += n
             if e.ckpt_every:
                 _save(done, state, seg.active)
@@ -460,6 +479,34 @@ def _run_elastic(e: Experiment, dev: torch.device) -> RunResult:
     _device.synchronize(dev)
     wall = time.time() - t0
 
+    out = None
+    if mesh.member:
+        prov = provenance(e.spec_hash, dev)
+        prov["mesh"] = mesh.sizes
+        prov["protocol_engine"] = pcfg0.engine
+        prov["membership"] = {
+            "plan_source": plan_source,
+            "events": [_dc.asdict(ev) for ev in plan.events],
+            "epochs": [{"start": s.start, "stop": s.stop,
+                        "active": list(s.active)} for s in segs],
+            "resumed_at": start or None,
+        }
+        out = (*_elastic_results(e, eng, state, bufs, start), prov)
+    if mesh.world > 1:
+        # the last segment's idle ranks take rank 0's counters, generator
+        # and results
+        state = share_run_state(state, mesh.world, "metrics")
+        box = [out]
+        dist.broadcast_object_list(box, src=0)
+        out = box[0]
+    logs, final, mbuf, prov = out
+    return RunResult(e, logs, final, wall, prov, netsim=netsim, state=state,
+                     buffers=mbuf)
+
+
+def _elastic_results(e: Experiment, eng, state, bufs: list, start: int):
+    """(logs, final, buffers) of an elastic run, on the last segment's
+    ranks (its metrics are collectives of that mesh)."""
     mbuf = _concat(bufs)
     logs = []
     if "acc" in mbuf:
@@ -472,24 +519,10 @@ def _run_elastic(e: Experiment, dev: torch.device) -> RunResult:
                 m["delta"] = float(mbuf["delta"][j])
                 m["l2_diam"] = float(mbuf["l2_diam"][j])
             logs.append(m)
-
     final = {"acc": float(eng._acc(state))}
     if e.track_delta:
-        h = pcfg.n_groups - e.byz.n_byz_servers
-        final["delta"] = float(coordinatewise_diameter_sum(state.params, h))
-        final["l2_diam"] = float(l2_diameter(state.params, h))
-    prov = provenance(e.spec_hash, dev)
-    prov["mesh"] = make_protocol_mesh(G0).sizes
-    prov["protocol_engine"] = pcfg0.engine
-    prov["membership"] = {
-        "plan_source": plan_source,
-        "events": [_dc.asdict(ev) for ev in plan.events],
-        "epochs": [{"start": s.start, "stop": s.stop,
-                    "active": list(s.active)} for s in segs],
-        "resumed_at": start or None,
-    }
-    return RunResult(e, logs, final, wall, prov, netsim=netsim, state=state,
-                     buffers=mbuf)
+        final["delta"], final["l2_diam"] = map(float, eng.diameters(state))
+    return logs, final, mbuf
 
 
 def write_result(res: RunResult, out_dir: str = "results/benchmarks",

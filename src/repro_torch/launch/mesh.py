@@ -19,6 +19,16 @@ With no process group initialised :func:`make_protocol_mesh` returns the
 ``(1, 1, 1)`` mesh, on which every collective is the identity: today's
 single-card engine.
 
+A mesh may leave ranks idle: :func:`make_segment_mesh`, the elastic
+runner's mesh of one membership segment, places the reference's
+``(rep, fsdp, 1)`` shape for G' groups on the world's first ``rep * K``
+ranks (``repro.launch.mesh.make_protocol_mesh`` takes ``devices[:rep *
+K]``), and the ranks after them sit the segment out. Such a rank is not a
+member (``Mesh.member``): it has no coordinates, and each collective of
+the mesh raises on it rather than wait for ranks that never come. The one
+exception is :meth:`Mesh.share`, which rank 0 uses to hand a tensor to the
+ranks past the mesh's end (a joiner's state at a membership boundary).
+
 :class:`RankView` is one rank of a mesh without a world (the dry run's
 production mesh, :func:`production_view`): its collectives take meta
 tensors only and count as the real ones do.
@@ -60,21 +70,32 @@ class Mesh:
     built without groups)."""
 
     def __init__(self, axis_names, shape, *, rank: int = 0,
-                 groups: dict | None = None, backend: str | None = None):
+                 groups: dict | None = None, backend: str | None = None,
+                 world: int | None = None):
         self.axis_names = tuple(axis_names)
         self.shape = tuple(int(n) for n in shape)
         if len(self.axis_names) != len(self.shape):
             raise ValueError(f"axes {self.axis_names} vs shape {self.shape}")
         self.rank = int(rank)
-        self.coords = tuple(int(c) for c in
-                            np.unravel_index(self.rank, self.shape))
+        self.world = self.n_ranks if world is None else int(world)
+        if self.world < self.n_ranks:
+            raise ValueError(f"a {self.shape} mesh on a world of "
+                             f"{self.world} ranks")
+        # an idle rank (past the mesh's ranks) has no coordinates
+        self.member = self.rank < self.n_ranks
+        self.coords = (tuple(int(c) for c in
+                             np.unravel_index(self.rank, self.shape))
+                       if self.member else None)
         self.groups = dict(groups or {})
         self.backend = backend
         self.sent: collections.Counter = collections.Counter()
 
     def __repr__(self):
+        at = f"at {self.coords}" if self.member else (
+            f"idle, the mesh on ranks 0..{self.n_ranks - 1} of "
+            f"{self.world}")
         return (f"Mesh({dict(zip(self.axis_names, self.shape))}, rank "
-                f"{self.rank} at {self.coords}, {self.backend})")
+                f"{self.rank} {at}, {self.backend})")
 
     @property
     def sizes(self) -> dict:
@@ -88,6 +109,7 @@ class Mesh:
         return self.sizes.get(axis, 1)
 
     def coord(self, axis: str) -> int:
+        self._check_member()
         return self.coords[self.axis_names.index(axis)]
 
     @property
@@ -104,6 +126,11 @@ class Mesh:
         return self.size("model")
 
     # -- collectives (identity on an axis of size 1) ------------------------
+    def _check_member(self) -> None:
+        if not self.member:
+            raise RuntimeError(f"{self}: this rank sits the mesh out and "
+                               "joins none of its collectives")
+
     def _group(self, axis: str):
         if self.size(axis) > 1 and axis not in self.groups:
             raise RuntimeError(f"{self}: no process group for axis {axis!r} "
@@ -114,6 +141,7 @@ class Mesh:
     def all_gather(self, x: torch.Tensor, axis: str, tag: str):
         """``[b, ...]`` on each rank of the axis line -> ``[n * b, ...]``,
         the blocks in coordinate order."""
+        self._check_member()
         n = self.size(axis)
         if n == 1:
             return x
@@ -127,6 +155,7 @@ class Mesh:
     def all_to_all(self, x: torch.Tensor, axis: str, tag: str):
         """``[n * b, ...]``: block j goes to coordinate j; returns ``[n * b,
         ...]`` whose block i came from coordinate i."""
+        self._check_member()
         n = self.size(axis)
         if n == 1:
             return x
@@ -139,6 +168,7 @@ class Mesh:
     def broadcast(self, x: torch.Tensor, axis: str, tag: str, src: int = 0):
         """``x`` of the line's coordinate ``src``, on every rank of the line
         (in place)."""
+        self._check_member()
         n = self.size(axis)
         if n == 1:
             return x
@@ -150,8 +180,32 @@ class Mesh:
         return x
 
     def barrier(self) -> None:
+        """A barrier of the mesh's ranks (of the world when the mesh spans
+        it)."""
+        self._check_member()
         if self.n_ranks > 1:
-            dist.barrier()
+            dist.barrier(group=self.groups.get("members"))
+
+    def share(self, x: torch.Tensor | None, upto: int, tag: str):
+        """Rank 0's ``x`` on the world's ranks ``n_ranks .. upto - 1``, the
+        ranks past the mesh's end (in place there; ``x`` is returned as it
+        is on every other rank, where it may be ``None``). Every rank of the
+        world calls it, idle ones included: the process group of rank 0
+        and those ranks is made on first use, and ``new_group`` is
+        collective over the world. Rank 0 counts ``upto - n_ranks`` copies
+        of ``x`` under ``tag``."""
+        if upto <= self.n_ranks:
+            return x
+        line = [0] + list(range(self.n_ranks, upto))
+        group = self.groups.get(("share", upto))
+        if group is None:
+            group = self.groups[("share", upto)] = dist.new_group(line)
+        if self.rank not in line:
+            return x
+        dist.broadcast(x, 0, group=group)
+        if self.rank == 0:
+            self.sent[tag] += (len(line) - 1) * x.numel() * x.element_size()
+        return x
 
 
 class RankView(Mesh):
@@ -242,10 +296,18 @@ def make_mesh(shape, axis_names) -> Mesh:
                 backend=dist.get_backend() if dist.is_initialized() else None)
 
 
-def _with_groups(axis_names, shape) -> Mesh:
-    """A mesh over the world with one process group per line of every axis
-    longer than one, created in the same order on every rank."""
-    mesh = make_mesh(shape, axis_names)
+def _with_groups(axis_names, shape, *, part: bool = False) -> Mesh:
+    """A mesh over the world (with ``part``, over its first ranks) with one
+    process group per line of every axis longer than one and, when ranks
+    are left idle, one of the mesh's ranks (``"members"``), created in the
+    same order on every rank, idle ones included."""
+    if part:
+        rank, world = _world()
+        mesh = Mesh(axis_names, shape, rank=rank, world=world,
+                    backend=dist.get_backend() if dist.is_initialized()
+                    else None)
+    else:
+        mesh = make_mesh(shape, axis_names)
     ranks = np.arange(mesh.n_ranks).reshape(mesh.shape)
     for i, axis in enumerate(mesh.axis_names):
         if mesh.shape[i] == 1:
@@ -255,6 +317,8 @@ def _with_groups(axis_names, shape) -> Mesh:
             g = dist.new_group([int(r) for r in line])
             if mesh.rank in line:
                 mesh.groups[axis] = g
+    if mesh.n_ranks < mesh.world:
+        mesh.groups["members"] = dist.new_group(list(range(mesh.n_ranks)))
     return mesh
 
 
@@ -309,7 +373,8 @@ def make_protocol_mesh(n_groups: int, world: int | None = None, *,
     initialised world (:func:`protocol_mesh_shape`); without a process
     group, the ``(1, 1, 1)`` mesh. Every rank must hold a place in it: a
     world the rule does not use whole (6 ranks at G = 4 use 4) is refused,
-    where the reference leaves devices idle."""
+    where the reference leaves devices idle (as the elastic runner's
+    segments do: :func:`make_segment_mesh`)."""
     _, have = _world()
     world = have if world is None else world
     if world != have:
@@ -321,6 +386,28 @@ def make_protocol_mesh(n_groups: int, world: int | None = None, *,
         raise ValueError(f"G={n_groups} on {world} ranks places a {shape} "
                          f"mesh on {used} of them; launch {used} ranks")
     return _with_groups(AXES, shape)
+
+
+def segment_ranks(n_groups: int, world: int) -> np.ndarray:
+    """The ranks of the elastic runner's G-group mesh on ``world`` ranks,
+    ``[rep, fsdp, 1]``: the reference's placement
+    (``repro.launch.mesh.make_protocol_mesh`` reshapes ``devices[:rep *
+    K]``), ranks in place of devices. The ranks after them are idle."""
+    shape = protocol_mesh_shape(n_groups, world)
+    return np.arange(int(np.prod(shape))).reshape(shape)
+
+
+def make_segment_mesh(n_groups: int) -> Mesh:
+    """The ('rep', 'fsdp', 'model') mesh of one membership segment of G'
+    groups over the initialised world (:func:`segment_ranks`): where
+    :func:`make_protocol_mesh` refuses a world its shape does not use
+    whole, this leaves the ranks past ``rep * K`` idle, as the reference
+    leaves devices idle. Every rank of the world calls it (the process
+    groups are made on all of them); without a process group, the ``(1, 1,
+    1)`` mesh."""
+    _, world = _world()
+    return _with_groups(AXES, segment_ranks(n_groups, world).shape,
+                        part=True)
 
 
 def make_serve_mesh(mesh: Mesh) -> Mesh:

@@ -2,7 +2,9 @@
 a mesh, in one process: the ('rep', 'fsdp') choice against the reference's
 rule, ``state_layout``'s ranges, the backend rule, the 'model' axis taken
 by every family and refused for a model without one (the paper's MLPs,
-ROADMAP.md Queue 1 item 19), and ``ProtocolEngine(mesh=)``
+ROADMAP.md Queue 1 item 19), the elastic runner's segment meshes placed
+as the reference places them (idle ranks refusing collectives), and
+``ProtocolEngine(mesh=)``
 on a world-1 gloo group bit-equal to the single-card engine. Also the
 layernorm repair: the dense and MoE families with ``norm="layernorm"``
 against JAX's forward and ``jax.grad`` on shared weights. The protocol on
@@ -41,6 +43,38 @@ def test_protocol_mesh_shape_follows_the_reference(G):
         assert tmesh.protocol_mesh_shape(G, world) == tuple(want), world
     with pytest.raises(ValueError, match="fsdp=3 needs"):
         tmesh.protocol_mesh_shape(4, 8, fsdp=3)
+
+
+@pytest.mark.parametrize("world", range(1, 9))
+@pytest.mark.parametrize("G", range(1, 9))
+def test_segment_mesh_places_as_the_reference(G, world, monkeypatch):
+    """The elastic runner's segment mesh of G groups on ``world`` ranks:
+    its ranks are the reference's ``devices[:rep * K]`` in the same
+    ``(rep, fsdp, 1)`` order (device ids standing for ranks), the rest
+    idle; an idle rank has no coordinates or layout block, and each of its
+    collectives raises."""
+    import repro.launch.mesh as jmesh
+    monkeypatch.setattr(jmesh, "_mk_mesh", lambda devs, axes: devs)
+    want = np.asarray(jax_protocol_mesh(G, devices=list(range(world))))
+    got = tmesh.segment_ranks(G, world)
+    np.testing.assert_array_equal(got, want)
+    for rank in range(world):
+        m = tmesh.Mesh(tmesh.AXES, got.shape, rank=rank, world=world)
+        assert m.member == (rank in want)
+        if m.member:
+            assert got[m.coords] == rank
+            continue
+        assert m.coords is None
+        lay = tproto.state_layout(m, G, 10)
+        assert (lay.rows, lay.cols) == ((0, G), (0, 0))
+        x = torch.zeros(2, 3)
+        for call in (lambda: m.all_gather(x, "rep", "t"),
+                     lambda: m.all_to_all(x, "fsdp", "t"),
+                     lambda: m.broadcast(x, "rep", "t"), m.barrier,
+                     lambda: m.coord("rep")):
+            with pytest.raises(RuntimeError, match="sits the mesh out"):
+                call()
+        assert sum(m.sent.values()) == 0
 
 
 def test_state_layout_ranges():
