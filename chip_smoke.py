@@ -216,6 +216,21 @@
    and generator equal to rank 0's. Against phase 12 (c)'s one-rank card
    run: the whole params within rel-L2 1e-4 and rel-max 1e-3, the equal
    selections counted; steps/s and the phase's seconds.
+21. The 'model' axis for the paper's MLPs over ranks (``mlp_model_phase``,
+   last): ``quickstart`` at ``mlp_h1024`` on its ``mixture10_easy`` (P =
+   1,093,642), G = 4 (f_w = 1, ALIE on one worker), T = 5, 12 steps of the
+   protocol engine on numpy quorum tables and batches, first on one card
+   in this process, then on 4 ranks sharing the card over gloo at (rep 2,
+   fsdp 1, model 2): w0 column-parallel, w1 and w2 row-parallel, the
+   biases whole on every rank (P_m = 547,850). Per rank and step: the
+   bytes by tag (pull + aggregate equal to ``collective_volume_bytes`` on
+   the rank's blocks, 'model' and 'model_loss' to ``model_volume_bytes``,
+   no 'model_leaves'); per rank the median, Gram and selection launches
+   (at least one a step each) and peak memory; every rank's whole params
+   equal to rank 0's. Against the one-card run: rel-L2 under 1e-4, the
+   MDA selections equal at every step whose one-card best subset diameter
+   is clear of a tie (the count printed); steps/s and the phase's seconds.
+   ``python3 tools/mlp_model_phase.py`` runs it alone.
 
 The profiler windows are read from their raw trace records in one pass
 (``trace_events``), not through ``key_averages()`` / ``events()``, whose
@@ -223,7 +238,8 @@ parse took ~290 s of the script. Phases print on earlier lines; the line
 before the last holds the card's name and power limit, the one before it
 the kernels' JSON record (``launches`` over every main-path run,
 ``mesh_launches`` phase 15's share, ``tp_launches`` phases 16-17's,
-``elastic_launches`` phase 20's), and the
+``elastic_launches`` phase 20's, ``mlp_model_launches`` phase 21's), and
+the
 last line is ``{"ok": true,
 "device": {...}}``. Exits non-zero, with no result line, when CUDA is
 absent or any check fails.
@@ -4138,6 +4154,220 @@ def elastic_ranks_phase(dev, reference: dict) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the 'model' axis for the paper's MLPs over ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MLP_MODEL_RANKS = 4
+MLP_MODEL_MESH = {"rep": 2, "fsdp": 1, "model": 2}
+MLP_MODEL_STEPS = 12
+# the whole final params against the one-card run (rel-L2): the row-parallel
+# products sum two partials and the Gram its ranks' partials in rank order,
+# where one card sums in cuBLAS's and the kernel's order
+MLP_MODEL_TOL = 1e-4
+# a step's MDA selections are held equal where, for every server, the
+# one-card run's best subset diameter is clear of the runner-up by more
+# than this share of the quorum's largest squared distance (the Gram's
+# float32 noise between two summation orders is ~1e-6 of it)
+MLP_MODEL_TIE = 1e-4
+
+
+def _mlp_model_spec():
+    """Phase 21's run: ``quickstart`` at ``mlp_h1024`` on its
+    ``mixture10_easy``, G = 4 groups (f_w = 1, f_ps = 0, ALIE on one
+    worker), T = 5, 12 protocol steps on numpy quorum tables and batches:
+    (experiment, protocol config, tables, (x, y))."""
+    from repro_torch.core.attacks import ByzantineSpec
+    from repro_torch.exp import presets
+    e = presets.get("quickstart", model=TRAIN_MODEL, n_workers=4,
+                    f_workers=1, n_servers=4, f_servers=0, T=5,
+                    steps=MLP_MODEL_STEPS, byz=ByzantineSpec(
+                        worker_attack="alie", n_byz_workers=1))
+    pcfg = e.to_protocol_config()
+    rng = np.random.default_rng(SEED + 21)
+    tables = _token_tables(rng, pcfg.n_groups, pcfg.q_workers,
+                           pcfg.q_servers, pcfg.T, MLP_MODEL_STEPS)
+    x, y = _mixture_batches(rng, MLP_MODEL_STEPS, pcfg.n_groups, e.batch,
+                            e.mixture)
+    return e, pcfg, tables, (x, y)
+
+
+@contextlib.contextmanager
+def _mda_inputs():
+    """Every step's ``(d2, quorum indices, weights)`` of the MDA rule in
+    the protocol runs inside the block (kept on the device until the block
+    ends)."""
+    from repro_torch.core import protocol
+    qw, rec = protocol.quorum_weights, []
+
+    def record(d2, idx, f, cfg):
+        w = qw(d2, idx, f, cfg)
+        rec.append((d2.clone(), idx.clone(), w.clone()))
+        return w
+
+    protocol.quorum_weights = record
+    try:
+        yield rec
+    finally:
+        protocol.quorum_weights = qw
+        rec[:] = [tuple(t.cpu() for t in r) for r in rec]
+
+
+def _mlp_model_steps(dev, mesh=None):
+    """Phase 21's run on ``dev`` (on ``mesh``'s ranks), a step at a time:
+    (final state, each step's ``(d2, quorum, weights)``, each step's bytes
+    sent by tag, the wall seconds of the 12 steps)."""
+    from repro_torch.core import protocol
+    from repro_torch.core.quorum import TraceDelivery
+    e, pcfg, tables, (x, y) = _mlp_model_spec()
+    eng = protocol.ProtocolEngine(
+        e.build_bundle(), pcfg, e.build_schedule(), with_attack=True,
+        delivery=TraceDelivery(*tables, T=pcfg.T, device=dev), device=dev,
+        mesh=mesh)
+    state = eng.init_state(SEED)
+    x, y = x.to(dev), y.to(dev)
+    sent = []
+    with _mda_inputs() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(MLP_MODEL_STEPS):
+            before = dict(mesh.sent) if mesh is not None else {}
+            state, _ = eng.run(state, (x[i:i + 1], y[i:i + 1]))
+            if mesh is not None:
+                sent.append({k: v - before.get(k, 0)
+                             for k, v in mesh.sent.items()})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return state, rec, sent, wall
+
+
+def _mlp_model_rank(dev, rank: int, tmp: str) -> dict:
+    """One rank of phase 21 on the (rep 2, fsdp 1, model 2) mesh."""
+    from repro_torch.core import protocol
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.make_protocol_mesh(4, model=2)
+    state, rec, sent, wall = _mlp_model_steps(dev, mesh)
+    whole = protocol.whole_state(state).params
+    if rank == 0:
+        torch.save({"params": whole.cpu(), "weights": [w for *_, w in rec]},
+                   os.path.join(tmp, "mlp_model.pt"))
+    ranks = protocol._Ranks(mesh, 4, state.tree.size,
+                            protocol.ProtocolConfig.chunk_bytes, state.split)
+    return dict(mesh=mesh.sizes, backend=mesh.backend, sent=sent, wall=wall,
+                P=state.tree.size, P_m=state.split.local.size,
+                dims=state.split.dims, cols=ranks.k1 - ranks.k0,
+                steps=len(rec), fingerprint=fingerprint(whole))
+
+
+RANK_TASKS["mlp_model"] = _mlp_model_rank
+
+
+def _tied_steps(rec, f: int) -> list[bool]:
+    """For each step of a run's ``(d2, quorum, weights)``: whether some
+    server's best subset diameter (over its quorum's subsets of q - f) is
+    within ``MLP_MODEL_TIE`` of its quorum's largest squared distance of
+    the runner-up."""
+    import itertools
+    out = []
+    for d2, idx, _ in rec:
+        d2 = d2.double()
+        tied = False
+        for row in idx.tolist():
+            diams = sorted(max((d2[a, b].item() for a, b in
+                                itertools.combinations(sub, 2)), default=0.0)
+                           for sub in itertools.combinations(
+                               row, len(row) - f))
+            scale = max(d2[a, b].item() for a in row for b in row)
+            if len(diams) > 1 and diams[1] - diams[0] <= MLP_MODEL_TIE * scale:
+                tied = True
+        out.append(tied)
+    return out
+
+
+def mlp_model_phase(dev) -> dict:
+    """Phase 21: ``quickstart``'s MLP at ``mlp_h1024`` through the protocol
+    engine on 4 ranks sharing the card over gloo at (rep 2, fsdp 1, model
+    2), held against the same spec on one card (in this process, first).
+    Returns the kernel launches of the ranks' run, by key."""
+    import tempfile
+
+    from repro_torch.core import protocol
+    from repro_torch.core.simulator import FlatTree
+    t0 = time.perf_counter()
+    e, pcfg, _, _ = _mlp_model_spec()
+    bundle = e.build_bundle()
+    tree = FlatTree.from_params(bundle.meta_params())
+    state, ref, _, ref_wall = _mlp_model_steps(dev)
+    ref_params = state.params.cpu()
+    del state
+    tied = _tied_steps(ref, pcfg.f_workers)
+    rows = e.batch                         # a group's rows: fsdp = 1
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mlp_model_") as tmp:
+        outs = _spawn_ranks("mlp_model", MLP_MODEL_RANKS, tmp)
+        mine = torch.load(os.path.join(tmp, "mlp_model.pt"))
+    dims = outs[0]["dims"]
+    tp = protocol.model_volume_bytes(bundle.cfg, 2, rows, n_groups=2,
+                                     tree=tree)
+    log(f"[mlp-model] quickstart at {TRAIN_MODEL} (P = {outs[0]['P']:,}, "
+        f"G = 4, ALIE x1, T = 5, {MLP_MODEL_STEPS} steps) on "
+        f"{MLP_MODEL_RANKS} ranks sharing the card over "
+        f"{outs[0]['backend']}, mesh {outs[0]['mesh']}: the leaves' 'model' "
+        f"dims {dict(zip(('/'.join(p) for p in tree.paths), dims))}, P_m = "
+        f"{outs[0]['P_m']:,} a rank; model_volume_bytes {tp} a step")
+    total = {k: 0 for k in ELASTIC_KERNELS}
+    for r, o in enumerate(outs):
+        if o["mesh"] != MLP_MODEL_MESH:
+            raise AssertionError(f"phase 21 rank {r}: mesh {o['mesh']}")
+        want = protocol.collective_volume_bytes(pcfg, o["cols"], rep=2)
+        for i, sent in enumerate(o["sent"]):
+            got = sent.get("pull", 0) + sent.get("aggregate", 0)
+            if got != want or any(sent.get(k, 0) != n for k, n in tp.items()) \
+                    or "model_leaves" in sent:
+                raise AssertionError(
+                    f"phase 21 rank {r} step {i}: bytes by tag {sent}; "
+                    f"collective_volume_bytes {want}, model_volume_bytes "
+                    f"{tp}")
+        for k in ELASTIC_KERNELS:
+            total[k] += o["launches"][k]
+            if o["launches"][k] < o["steps"]:
+                raise AssertionError(f"phase 21 rank {r}: {k} launched "
+                                     f"{o['launches'][k]} times in "
+                                     f"{o['steps']} steps")
+        if o["fingerprint"] != outs[0]["fingerprint"]:
+            raise AssertionError(f"phase 21 rank {r}: whole params differ "
+                                 "from rank 0's")
+        log(f"[mlp-model] rank {r}: bytes by tag, step 1 "
+            f"{dict(sorted(o['sent'][0].items()))}, step 5 (a DMC gather) "
+            f"{dict(sorted(o['sent'][4].items()))}; pull + aggregate {want} "
+            f"= collective_volume_bytes on its {o['cols']:,} columns, every "
+            f"step; launches " + json.dumps({k: o["launches"][k]
+                                            for k in ELASTIC_KERNELS})
+            + f" in {o['steps']} steps; peak device memory "
+            f"{o['peak_gb']:.3f} GB")
+    a, b = mine["params"].double(), ref_params.double()
+    rel_l2 = ((a - b).norm() / b.norm()).item()
+    rel_max = ((a - b).abs().max() / b.abs().max()).item()
+    same = [torch.equal(w > 0, ref_w.cpu() > 0)
+            for w, (*_, ref_w) in zip(mine["weights"], ref)]
+    clear = [i for i, t in enumerate(tied) if not t]
+    wall = outs[0]["wall"]
+    log(f"[mlp-model] against the one-card run: rel-L2 {rel_l2:.3g} "
+        f"(gate {MLP_MODEL_TOL}), rel-max {rel_max:.3g}; MDA selections "
+        f"equal at {sum(same)} of {len(ref)} steps, {len(clear)} of them "
+        f"clear of a tie (the best diameter more than {MLP_MODEL_TIE} of "
+        f"the quorum's largest squared distance from the runner-up) and "
+        f"held equal; {MLP_MODEL_STEPS / wall:.3f} steps/s on "
+        f"{MLP_MODEL_RANKS} ranks ({wall:.2f} s, gloo through the host on "
+        f"one card: not a link's rate) against {MLP_MODEL_STEPS / ref_wall:.3f}"
+        f" on one card ({ref_wall:.2f} s)")
+    if len(same) != len(ref) or not all(same[i] for i in clear) \
+            or not rel_l2 < MLP_MODEL_TOL or not torch.isfinite(a).all():
+        raise AssertionError(f"phase 21: rel-L2 {rel_l2}, selections equal "
+                             f"{same}, tied {tied}")
+    log(f"[mlp-model] phase 21 took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test needs an "
@@ -4259,9 +4489,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 20: elastic membership over ranks
     elastic_rank_launches = elastic_ranks_phase(dev, elastic_ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phase 21: the 'model' axis for the paper's MLPs over ranks
+    mlp_model_launches = mlp_model_phase(dev)
     for part in (ckpt_launches, netsim_launches, resume_launches,
                  elastic_launches, *zoo_launches, mesh_launches,
-                 tp_launches, elastic_rank_launches):
+                 tp_launches, elastic_rank_launches, mlp_model_launches):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
 
@@ -4307,6 +4541,7 @@ def main() -> int:
             "mesh_launches": mesh_launches.get(name, 0),
             "tp_launches": tp_launches.get(name, 0),
             "elastic_launches": elastic_rank_launches.get(name, 0),
+            "mlp_model_launches": mlp_model_launches.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

@@ -18,8 +18,9 @@ not need a device (``repro/analyze/hlo.py``):
   tensor that moved.
 * **REPRO-RUN-COLLECTIVES** (for REPRO-HLO-COLLECTIVES) — for both
   collective engines, on the 1-D lane (rep = G), the (rep, fsdp) lane
-  (G = 4 on a (4, 2, 1) mesh) and a 'model' lane (``lm/tfm_tiny``'s model
-  on a (2, 1, 2) mesh), one scatter step of every rank of the mesh runs
+  (G = 4 on a (4, 2, 1) mesh) and two 'model' lanes on a (2, 1, 2) mesh
+  (``lm/tfm_tiny``'s model, and the smoke preset's MLP at G = 4), one
+  scatter step of every rank of the mesh runs
   on meta tensors through ``launch/dryrun.measure`` and the bytes it sends
   by tag must equal the formulas exactly: ``pull`` + ``aggregate`` equal
   ``core/protocol.collective_volume_bytes`` on the rank's columns, and the
@@ -38,7 +39,7 @@ from .registry import Rule, register
 PRESET = "smoke"
 #: G = 4 so the 8-rank lane has an 'fsdp' axis: (rep 4, fsdp 2)
 FSDP_OVERRIDES = dict(n_workers=4, f_workers=1, n_servers=4, f_servers=0)
-#: the 'model' lane: the MLPs have no 'model' axis (ROADMAP item 19)
+#: the 'model' lane of a model family (the MLP's runs PRESET at G = 4)
 MODEL_PRESET = "lm/tfm_tiny"
 ENGINE = "src/repro_torch/core/engine.py"
 PROTOCOL = "src/repro_torch/core/protocol.py"
@@ -213,21 +214,29 @@ def lanes():
     import torch
 
     from ..core import protocol
+    from ..core.simulator import FlatTree
     from ..exp import presets
     out = []
     for engine in ("naive", "sharded"):
         for tag, overrides, shape_of in (
                 ("1-D", {}, lambda G: (G, 1, 1)),
-                ("rep x fsdp", FSDP_OVERRIDES, lambda G: (G, 2, 1))):
+                ("rep x fsdp", FSDP_OVERRIDES, lambda G: (G, 2, 1)),
+                ("mlp model", FSDP_OVERRIDES, lambda G: (2, 1, 2))):
             e = presets.get(PRESET, runner="protocol",
                             protocol_engine=engine, **overrides)
             pcfg = e.to_protocol_config()
+            bundle = e.build_bundle()
             G = pcfg.n_groups
             batch = (torch.empty((G, e.batch, e.mixture.dim), device="meta"),
                      torch.empty((G, e.batch), dtype=torch.long,
                                  device="meta"))
-            out.append((f"{tag} [{engine}]", e.build_bundle(), pcfg,
-                        shape_of(G), batch, None))
+            rep, _, M = shape_of(G)
+            tp = protocol.model_volume_bytes(
+                bundle.cfg, M, e.batch, n_groups=G // rep,
+                tree=FlatTree.from_params(bundle.meta_params())) \
+                if M > 1 else None
+            out.append((f"{tag} [{engine}]", bundle, pcfg, shape_of(G),
+                        batch, tp))
         e = presets.get(MODEL_PRESET, protocol_engine=engine)
         pcfg = e.to_protocol_config()
         bundle = e.build_bundle()

@@ -50,9 +50,11 @@ partial covers its blocks (a leaf whole on every 'model' rank counts at
 coordinate 0 only), and the partials are summed over 'fsdp', 'rep' and
 'model' in rank order; the coordinate-wise rules, the attacks on gathered
 rows and the update stay on the rank's coordinates. A group's gradient is
-then the tensor-parallel loss of :mod:`repro_torch.models.transformer`
-under :func:`repro_torch.launch.steps.train_rules`, each 'model' rank
-differentiating into its blocks.
+then the tensor-parallel loss of its family (:mod:`repro_torch.models.
+transformer` and the others) under :func:`repro_torch.launch.steps.
+train_rules`, or the paper's MLP's under :func:`repro_torch.configs.
+paper_models.mlp_rules`, each 'model' rank differentiating into its
+blocks.
 
 Engines: 'naive' all-gathers each gradient chunk over 'rep' and forms the
 rank's receivers' weighted sums; 'sharded' forms the partial weighted sums
@@ -78,7 +80,7 @@ import torch
 from .. import agg
 from .. import optim as _optim
 from ..device import resolve
-from ..launch.mesh import AXES, MODEL_AXIS_REFUSAL, Mesh
+from ..launch.mesh import AXES, Mesh
 from ..models import sharding as _sharding
 from . import attacks as _attacks
 from .attacks import ByzantineSpec, inject_gradients, inject_models
@@ -429,15 +431,28 @@ class ModelSplit:
 def model_split(cfg, tree: FlatTree, mesh: Mesh | None) -> ModelSplit | None:
     """The :class:`ModelSplit` of a model of config ``cfg`` on ``mesh``
     (``None`` without a 'model' axis). Every family of
-    :data:`repro_torch.models.registry.MODEL_AXIS_FAMILIES` takes one; a
-    model without a family (the paper's MLPs) is refused, naming ROADMAP.md
-    Queue 1 item 19."""
+    :data:`repro_torch.models.registry.MODEL_AXIS_FAMILIES` takes one,
+    with its attention's overrides; the paper's MLP problem (a
+    :class:`ProblemBundle`'s config, whose tree is an MLP's) takes the
+    table's fallback for every leaf, as the reference's ``leaf_spec``
+    places it."""
     if mesh is None or mesh.size("model") == 1:
         return None
     from ..models.registry import check_model_axis
-    check_model_axis(cfg, mesh.size("model"))
     M = mesh.size("model")
-    return ModelSplit(tree, model_dims(tree, M, attn_overrides(cfg, M)), M,
+    check_model_axis(cfg, M)
+    overrides = None
+    if isinstance(cfg, _ProblemCfg):
+        from ..configs.paper_models import is_mlp_tree
+        if not is_mlp_tree(tree):
+            raise NotImplementedError(
+                f"model = {M} for a problem whose leaves "
+                f"{['/'.join(p) for p in tree.paths]} are not an MLP's: the "
+                "'model' axis runs a problem through the MLP's split form "
+                "(configs.paper_models.make_mlp_problem) only")
+    else:
+        overrides = attn_overrides(cfg, M)
+    return ModelSplit(tree, model_dims(tree, M, overrides), M,
                       mesh.coord("model"))
 
 
@@ -492,9 +507,10 @@ class _Ranks:
         self.chunk_bytes = chunk_bytes
         self.M = self.mesh.size("model")
         if self.M > 1 and split is None:
-            raise NotImplementedError(
+            raise ValueError(
                 f"a 'model' axis of {self.M} needs the model's per-leaf "
-                f"split (protocol.model_split): {MODEL_AXIS_REFUSAL}")
+                "split (protocol.model_split of the model's config and "
+                "tree on the mesh)")
         self.split = split if self.M > 1 else None
         self.P = P
         self.lay = state_layout(self.mesh, self.G,
@@ -975,11 +991,15 @@ def _group_grads(bundle, tree, pulled, batch, cfg, ranks, bufs, out,
     differentiates its part of the batch rows weighted by its share, and
     the parts are summed to column shards in rank order. With 'model'
     ranks ``tree`` is the rank's blocks' and the loss runs under the train
-    mesh's rule table (tensor parallelism over the 'model' line)."""
+    mesh's rule table, or a problem's under the MLP's (tensor parallelism
+    over the 'model' line)."""
     n_micro = cfg.grad_microbatches
     part, share = ranks.batch_part(batch, n_micro, local_batch)
     rules = None
-    if ranks.split is not None:
+    if ranks.split is not None and isinstance(bundle.cfg, _ProblemCfg):
+        from ..configs.paper_models import mlp_rules
+        rules = mlp_rules(ranks.split, ranks.mesh)
+    elif ranks.split is not None:
         from ..launch.steps import train_rules
         rules = train_rules(ranks.mesh, bundle.cfg)
     with _sharding.sharding_rules(rules):
@@ -1625,9 +1645,38 @@ def _divides(n: int, M: int) -> bool:
     return n % M == 0 and n >= M
 
 
+def _mlp_volume_values(tree: FlatTree, M: int, rows: int) -> int:
+    """The values one rank's copy of the MLP's split form
+    (``configs.paper_models``) sends over 'model' in one loss and gradient
+    of ``rows`` rows, before the factor M - 1: per layer, a split input
+    gathered before a column-parallel or whole weight (forward), the sum of
+    a column-parallel product's input gradient (backward; the first
+    layer's input, the data, has none) and its bias block's gradient
+    gathered, a whole input's gradient blocks gathered before a
+    row-parallel product (backward; none for the data) and the product's
+    partials summed (forward); then split logits gathered."""
+    shapes = dict(zip((p[0] for p in tree.paths), tree.shapes))
+    dims = dict(zip((p[0] for p in tree.paths),
+                    model_dims(tree, M, None)))
+    values, split, grad = 0, False, False
+    for i in range(len(shapes) // 2):
+        a, b = shapes[f"w{i}"]
+        d = dims[f"w{i}"]
+        if d == 1:
+            values += (rows * a // M if split else 0) \
+                + (rows * a if grad else 0) + b // M
+        elif d == 0:
+            values += (rows * a // M if grad and not split else 0) + rows * b
+        elif split:
+            values += rows * a // M
+        split, grad = d == 1, True
+    return values + (rows * b // M if split else 0)
+
+
 def model_volume_bytes(cfg, M: int, tokens: int, n_groups: int = 1, *,
                        seq: int | None = None,
-                       frames: int | None = None) -> dict:
+                       frames: int | None = None,
+                       tree: FlatTree | None = None) -> dict:
     """The bytes one rank sends over 'model' (all-gathers of ``M - 1``
     blocks; every reduction is one) for ``n_groups`` losses and gradients
     of ``tokens`` tokens each (a rank's groups and its 'fsdp' part of
@@ -1670,10 +1719,24 @@ def model_volume_bytes(cfg, M: int, tokens: int, n_groups: int = 1, *,
     Every activation and leaf moves in ``cfg.act_dtype``; the MoE's
     routing weights and RWKV6's LoRA in float32. ``seq`` (whisper: the
     decoder's sequence length) defaults to ``tokens``, ``frames`` (its
-    encoder frames) to ``tokens``."""
+    encoder frames) to ``tokens``.
+
+    The paper's MLP problem (``cfg`` a :class:`ProblemBundle`'s, ``tree``
+    its leaves, ``tokens`` the rows a rank differentiates for a group):
+    ``model`` counts its split form's activations and bias gradients
+    (:func:`_mlp_volume_values`), ``model_loss`` the L2 term's one float32
+    sum over the split leaves; no leaf is gathered whole."""
     if M == 1:
         return {}
     a = _dtype(cfg.act_dtype).itemsize
+    if isinstance(cfg, _ProblemCfg):
+        if tree is None:
+            raise ValueError("model_volume_bytes of a problem needs its "
+                             "tree (the MLP's leaves)")
+        out = {"model": _mlp_volume_values(tree, M, tokens) * a}
+        if any(d is not None for d in model_dims(tree, M, None)):
+            out["model_loss"] = 4
+        return {k: v * (M - 1) * n_groups for k, v in out.items() if v}
     N, D, hd = tokens, cfg.d_model, cfg.hd
     H, kvH, F = attn_counts(cfg)
     fam = cfg.family

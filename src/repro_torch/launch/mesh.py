@@ -58,10 +58,6 @@ import torch.distributed as dist
 from ..device import dist_backend, rank_device, resolve
 
 AXES = ("rep", "fsdp", "model")
-MODEL_AXIS_REFUSAL = ("the 'model' axis (tensor parallelism) runs the six "
-                      "model families, each through its per-leaf split "
-                      "(protocol.model_split); a model without a family "
-                      "(the paper's MLPs) is ROADMAP.md Queue 1 item 19")
 
 
 class Mesh:

@@ -64,16 +64,22 @@ MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "audio")
 
 
 def check_model_axis(cfg, M: int) -> None:
-    """Refuse a 'model' axis of M > 1 ranks for a model without a family
-    of :data:`MODEL_AXIS_FAMILIES` (the paper's MLPs): it has no
-    tensor-parallel layers (ROADMAP.md Queue 1 item 19)."""
+    """Refuse a 'model' axis of M > 1 ranks for a model that has no
+    tensor-parallel layers. The axis runs the families of
+    :data:`MODEL_AXIS_FAMILIES` and the paper's MLP problem (a
+    :class:`~repro_torch.core.protocol.ProblemBundle`'s config: the split
+    form of :mod:`repro_torch.configs.paper_models`)."""
     fam = getattr(cfg, "family", None)
-    if M > 1 and fam not in MODEL_AXIS_FAMILIES:
+    if M <= 1 or fam in MODEL_AXIS_FAMILIES:
+        return
+    from ..core.protocol import _ProblemCfg
+    if not isinstance(cfg, _ProblemCfg):
         raise NotImplementedError(
             f"model = {M} for {getattr(cfg, 'name', 'this model')} (family "
             f"{fam!r}): it has no tensor-parallel layers; the 'model' axis "
-            f"runs the families {MODEL_AXIS_FAMILIES}, and the paper's MLPs "
-            "are ROADMAP.md Queue 1 item 19")
+            f"runs the families {MODEL_AXIS_FAMILIES} and the paper's MLP "
+            "problem (protocol.ProblemBundle of "
+            "configs.paper_models.make_mlp_problem)")
 
 _FAMILY_MODULES = {
     "dense": "repro_torch.models.transformer",

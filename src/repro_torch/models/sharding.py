@@ -30,7 +30,8 @@ rank holds the same bits:
 
 Each counts the bytes this rank sends on the mesh under its tag
 (``Mesh.sent``): ``model`` for activations, ``model_leaves`` for leaves
-gathered whole, ``model_loss`` for the vocab-parallel loss statistics.
+gathered whole, ``model_loss`` for the loss's statistics (the
+vocab-parallel loss's, the paper's MLP's L2 sum).
 """
 from __future__ import annotations
 

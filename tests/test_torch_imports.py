@@ -1,6 +1,6 @@
 """The port stands alone: nothing under src/repro_torch/, tools/,
-chip_smoke.py, tests/_torch_dist_runner.py, tests/_torch_tp_runner.py or
-tests/_torch_tp_zoo_runner.py imports jax, any repro.* module (repro_torch.* is allowed) or
+chip_smoke.py, tests/_torch_dist_runner.py, tests/_torch_tp_runner.py,
+tests/_torch_tp_zoo_runner.py or tests/_torch_mlp_model_runner.py imports jax, any repro.* module (repro_torch.* is allowed) or
 the JAX package's benchmarks/ (netsim keeps its own copy of the byte
 model), and the chip smoke script refuses to run without a GPU."""
 import ast
@@ -18,7 +18,9 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
                                       ROOT / "tests" / "_torch_dist_runner.py",
                                       ROOT / "tests" / "_torch_tp_runner.py",
                                       ROOT / "tests" /
-                                      "_torch_tp_zoo_runner.py"]
+                                      "_torch_tp_zoo_runner.py",
+                                      ROOT / "tests" /
+                                      "_torch_mlp_model_runner.py"]
 
 
 def _imports(path: Path):

@@ -1,8 +1,8 @@
 """The port's rank meshes (``repro_torch.launch.mesh``) and the protocol on
 a mesh, in one process: the ('rep', 'fsdp') choice against the reference's
 rule, ``state_layout``'s ranges, the backend rule, the 'model' axis taken
-by every family and refused for a model without one (the paper's MLPs,
-ROADMAP.md Queue 1 item 19), the elastic runner's segment meshes placed
+by every family and by the paper's MLP problem and refused for a model
+with neither, the elastic runner's segment meshes placed
 as the reference places them (idle ranks refusing collectives), and
 ``ProtocolEngine(mesh=)``
 on a world-1 gloo group bit-equal to the single-card engine. Also the
@@ -97,11 +97,11 @@ def test_state_layout_ranges():
     assert tproto.state_layout(None, 4, 7) == ((0, 4), (0, 7), (0, 7))
     # a 'model' axis lays out the rank's flat row of blocks (P = P_m); the
     # rank view refuses a stack without its per-leaf split; every family
-    # gets one (the MoE's experts split on F), a model without a family
-    # (the paper's MLPs) none
+    # gets one (the MoE's experts split on F), and so does the paper's MLP
+    # problem (the table's fallback); a model with neither gets none
     m2 = tmesh.Mesh(tmesh.AXES, (1, 1, 2), rank=1)
     assert tproto.state_layout(m2, 4, 7) == ((0, 4), (0, 7), (0, 7))
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(ValueError, match="per-leaf split"):
         tproto.consolidate(torch.zeros(4, 7), tproto.ProtocolConfig.derive(4),
                            mesh=m2)
     moe = get_bundle("qwen3-moe-235b-a22b", reduced=True)
@@ -110,9 +110,18 @@ def test_state_layout_ranges():
     assert split.local.size < tree.size and split.m == 1
     w_gate = tree.paths.index(("blocks", "moe", "w_gate"))
     assert split.dims[w_gate] == 3
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(NotImplementedError,
+                       match="no tensor-parallel layers"):
         tproto.model_split(types.SimpleNamespace(name="mlp_h1024"), tree,
                            m2)
+    mlp = _mlp()
+    mtree = tproto.FlatTree.from_params(mlp.init(torch.Generator()))
+    msplit = tproto.model_split(mlp.cfg, mtree, m2)
+    # b0 b1 b2 whole; w0 [6, 8] on its output, w1 [8, 8] and w2 [8, 3] on
+    # their inputs
+    assert msplit.dims == [None, None, None, 1, 0, 0] and msplit.m == 1
+    with pytest.raises(NotImplementedError, match="not an MLP's"):
+        tproto.model_split(mlp.cfg, tree, m2)
     with pytest.raises(ValueError, match="must divide"):
         tproto.state_layout(tmesh.Mesh(tmesh.AXES, (3, 1, 1)), 4, 7)
 
@@ -137,9 +146,11 @@ def test_backend_rule_and_model_axis_refusals(monkeypatch):
     for arch in ("qwen3-moe-235b-a22b", "rwkv6-3b", "zamba2-1.2b",
                  "whisper-small"):
         check_model_axis(get_bundle(arch).cfg, 2)
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(NotImplementedError,
+                       match="no tensor-parallel layers"):
         tproto.model_split(types.SimpleNamespace(name="mlp"), None,
                            tmesh.Mesh(tmesh.AXES, (4, 1, 2)))
+    check_model_axis(_mlp().cfg, 2)
     whisper = get_bundle("whisper-small", reduced=True)
     with pytest.raises(ValueError, match="token-in"):
         QuorumService(ReplicaPool.from_params(
