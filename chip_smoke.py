@@ -2057,15 +2057,16 @@ def zoo_serve_phase(dev, arch: str, depth, tag: str, window_new: int,
                      peak_gb=peak_gb)
 
 
-def scan_share(events, name: str = "wkv_chunked") -> dict:
-    """What the ``name`` ranges (the scan's forward and its remat
-    recompute) and the backward nodes of the ops they ran (matched by
-    autograd sequence number) cost: their kernels' device time (the
-    ranges' own spans on the device's timeline left out), the host time
-    the union of their intervals covers, and their kernel launches. From
-    the raw records (:func:`trace_events`): an op is inside a range when it
-    ran on the range's thread within its interval; a kernel and its launch
-    belong to the op whose correlation id they link to."""
+def scan_share(events, name: str = "rwkv6.wkv") -> dict:
+    """What the ``name`` spans (the program's span of a scan, opened in
+    its forward and in its remat recompute) and the backward nodes of the
+    ops they ran (matched by autograd sequence number) cost: their
+    kernels' device time (the spans' own records on the device's timeline
+    left out), the host time the union of their intervals covers, and
+    their kernel launches. From the raw records (:func:`trace_events`):
+    an op is inside a span when it ran on the span's thread within its
+    interval; a kernel and its launch belong to the op whose correlation
+    id they link to."""
     import bisect
     cpu = torch.autograd.DeviceType.CPU
     ops: dict = {}                      # thread -> [(start, end, id, seq)]
@@ -2122,74 +2123,63 @@ def zoo_train_phase(dev):
     a two-step profiler window with the WKV scan's share."""
     from repro_torch.data.pipeline import token_stream
     from repro_torch.launch import train
-    from repro_torch.models import rwkv6
     counters = _counters()
-    scan = rwkv6.wkv_chunked
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    run = train.main(ZOO_TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: c.launches for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [loss for _, loss in run.losses]
+    warm = run.step_s[1:]
+    log(f"[zoo-train] rwkv6-3b full width (d_model 2560, 40 heads of "
+        f"64, d_ff 8960, vocab 65536), depth 2 of 32 (cut as phase 10: "
+        f"~14 bytes a param a group), P = {run.n_params:,}, G = 4, f_w = "
+        f"1 (ALIE x1), T = 5, {PROTO_STEPS} steps of 4 x 1024 tokens per "
+        f"group: {PROTO_STEPS / sum(run.step_s):.3f} steps/s over all "
+        f"steps, {len(warm) / sum(warm):.3f} after the first (first "
+        f"{run.step_s[0]:.2f} s, then {np.mean(warm):.3f} s each), "
+        f"train.main wall {wall:.1f} s, peak device memory "
+        f"{peak_gb:.1f} GB")
+    log("[zoo-train] loss per step " + json.dumps(
+        [(i, round(x, 4)) for i, x in run.losses]))
+    log("[zoo-train] launches " + json.dumps(got) + " | per step "
+        + json.dumps({k: round(v / PROTO_STEPS, 2)
+                      for k, v in got.items()}))
+    if not np.all(np.isfinite(losses)) or len(losses) != PROTO_STEPS:
+        raise AssertionError(f"rwkv6 losses not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"rwkv6 loss did not fall: {losses}")
+    if peak_gb >= 80:
+        raise AssertionError(f"peak device memory {peak_gb:.1f} GB")
+    for k in ("gram", "subset_diameters", "cwise_median"):
+        if got[k] < PROTO_STEPS:
+            raise AssertionError(f"{k} was launched {got[k]} times in "
+                                 f"{PROTO_STEPS} rwkv6 protocol steps")
+    extra = list(token_stream(SEED + 1, run.bundle.cfg.vocab, 4, 4,
+                              1024, 2, device=dev))
+    state = run.state
 
-    def ranged(*a, **k):
-        with torch.profiler.record_function("wkv_chunked"):
-            return scan(*a, **k)
+    def two_steps():
+        nonlocal state
+        for b in extra:
+            state = run.step(state, b)
 
-    rwkv6.wkv_chunked = ranged
-    try:
-        torch.cuda.reset_peak_memory_stats(dev)
-        for c in counters.values():
-            c.launches = 0
-        t0 = time.perf_counter()
-        run = train.main(ZOO_TRAIN_ARGV)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = {k: c.launches for k, c in counters.items()}
-        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        losses = [loss for _, loss in run.losses]
-        warm = run.step_s[1:]
-        log(f"[zoo-train] rwkv6-3b full width (d_model 2560, 40 heads of "
-            f"64, d_ff 8960, vocab 65536), depth 2 of 32 (cut as phase 10: "
-            f"~14 bytes a param a group), P = {run.n_params:,}, G = 4, f_w = "
-            f"1 (ALIE x1), T = 5, {PROTO_STEPS} steps of 4 x 1024 tokens per "
-            f"group: {PROTO_STEPS / sum(run.step_s):.3f} steps/s over all "
-            f"steps, {len(warm) / sum(warm):.3f} after the first (first "
-            f"{run.step_s[0]:.2f} s, then {np.mean(warm):.3f} s each), "
-            f"train.main wall {wall:.1f} s, peak device memory "
-            f"{peak_gb:.1f} GB")
-        log("[zoo-train] loss per step " + json.dumps(
-            [(i, round(x, 4)) for i, x in run.losses]))
-        log("[zoo-train] launches " + json.dumps(got) + " | per step "
-            + json.dumps({k: round(v / PROTO_STEPS, 2)
-                          for k, v in got.items()}))
-        if not np.all(np.isfinite(losses)) or len(losses) != PROTO_STEPS:
-            raise AssertionError(f"rwkv6 losses not finite: {losses}")
-        if not np.mean(losses[-3:]) < losses[0]:
-            raise AssertionError(f"rwkv6 loss did not fall: {losses}")
-        if peak_gb >= 80:
-            raise AssertionError(f"peak device memory {peak_gb:.1f} GB")
-        for k in ("gram", "subset_diameters", "cwise_median"):
-            if got[k] < PROTO_STEPS:
-                raise AssertionError(f"{k} was launched {got[k]} times in "
-                                     f"{PROTO_STEPS} rwkv6 protocol steps")
-        extra = list(token_stream(SEED + 1, run.bundle.cfg.vocab, 4, 4,
-                                  1024, 2, device=dev))
-        state = run.state
-
-        def two_steps():
-            nonlocal state
-            for b in extra:
-                state = run.step(state, b)
-
-        busy, events, wall_us = _profile(
-            "protocol rwkv6-3b depth 2, 2 steps", two_steps, keep=True)
-        sh = scan_share(events)
-        dev_ms = (sh["fwd_device_us"] + sh["bwd_device_us"]) / 1e3
-        log(f"[zoo-train] the WKV scan in that window: {sh['calls']} calls "
-            f"(forward and remat recompute), device {dev_ms:.1f} ms "
-            f"(forward {sh['fwd_device_us'] / 1e3:.1f}, backward "
-            f"{sh['bwd_device_us'] / 1e3:.1f}) = "
-            f"{100 * dev_ms * 1e3 / wall_us:.1f} % of the wall, host "
-            f"{sh['host_us'] / 1e3:.1f} ms = "
-            f"{100 * sh['host_us'] / wall_us:.1f} % of the wall; "
-            f"{sh['launches'] / 2:.0f} launches a step")
-    finally:
-        rwkv6.wkv_chunked = scan
+    busy, events, wall_us = _profile(
+        "protocol rwkv6-3b depth 2, 2 steps", two_steps, keep=True)
+    sh = scan_share(events)
+    dev_ms = (sh["fwd_device_us"] + sh["bwd_device_us"]) / 1e3
+    log(f"[zoo-train] the WKV scan in that window: {sh['calls']} calls "
+        f"(forward and remat recompute), device {dev_ms:.1f} ms "
+        f"(forward {sh['fwd_device_us'] / 1e3:.1f}, backward "
+        f"{sh['bwd_device_us'] / 1e3:.1f}) = "
+        f"{100 * dev_ms * 1e3 / wall_us:.1f} % of the wall, host "
+        f"{sh['host_us'] / 1e3:.1f} ms = "
+        f"{100 * sh['host_us'] / wall_us:.1f} % of the wall; "
+        f"{sh['launches'] / 2:.0f} launches a step")
     del run, extra, state, events
     gc.collect()
     torch.cuda.empty_cache()
@@ -2359,79 +2349,68 @@ def hybrid_train_phase(dev):
     with the SSD scan's share."""
     from repro_torch.data.pipeline import token_stream
     from repro_torch.launch import train
-    from repro_torch.models import mamba2
     counters = _proto_counters()
-    scan = mamba2.ssd_chunked
+    torch.cuda.reset_peak_memory_stats(dev)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    run = train.main(HYBRID_TRAIN_ARGV)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: c.launches for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [loss for _, loss in run.losses]
+    warm = run.step_s[1:]
+    cfg = run.bundle.cfg
+    log(f"[hybrid-train] {cfg.name} full width (d_model {cfg.d_model}, "
+        f"Mamba2 state {cfg.ssm_state}, 64 SSM heads of 64, the shared "
+        f"block's 32 heads of 64 and d_ff {cfg.shared_attn_d_ff}), depth "
+        f"{cfg.n_layers} of 38 (2 shared-attention sites; the full depth"
+        f" would need ~70 GB of replicas before activations), P = "
+        f"{run.n_params:,}, G = 4, f_w = 1 (ALIE x1), T = 5, "
+        f"{PROTO_STEPS} steps of 4 x 1024 tokens per group: "
+        f"{PROTO_STEPS / sum(run.step_s):.3f} steps/s over all steps, "
+        f"{len(warm) / sum(warm):.3f} after the first (first "
+        f"{run.step_s[0]:.2f} s, then {np.mean(warm):.3f} s each), "
+        f"train.main wall {wall:.1f} s, peak device memory "
+        f"{peak_gb:.1f} GB")
+    log("[hybrid-train] loss per step " + json.dumps(
+        [(i, round(x, 4)) for i, x in run.losses]))
+    log("[hybrid-train] launches " + json.dumps(got) + " | per step "
+        + json.dumps({k: round(v / PROTO_STEPS, 2)
+                      for k, v in got.items()}))
+    if not np.all(np.isfinite(losses)) or len(losses) != PROTO_STEPS:
+        raise AssertionError(f"zamba2 losses not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"zamba2 loss did not fall: {losses}")
+    if peak_gb >= 80:
+        raise AssertionError(f"peak device memory {peak_gb:.1f} GB")
+    for k in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "gram",
+              "subset_diameters", "cwise_median"):
+        if got[k] < PROTO_STEPS:
+            raise AssertionError(f"{k} was launched {got[k]} times in "
+                                 f"{PROTO_STEPS} zamba2 protocol steps")
+    extra = list(token_stream(SEED + 1, cfg.vocab, 4, 4, 1024, 2,
+                              device=dev))
+    state = run.state
 
-    def ranged(*a, **k):
-        with torch.profiler.record_function("ssd_chunked"):
-            return scan(*a, **k)
+    def two_steps():
+        nonlocal state
+        for b in extra:
+            state = run.step(state, b)
 
-    mamba2.ssd_chunked = ranged
-    try:
-        torch.cuda.reset_peak_memory_stats(dev)
-        for c in counters.values():
-            c.launches = 0
-        t0 = time.perf_counter()
-        run = train.main(HYBRID_TRAIN_ARGV)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        got = {k: c.launches for k, c in counters.items()}
-        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        losses = [loss for _, loss in run.losses]
-        warm = run.step_s[1:]
-        cfg = run.bundle.cfg
-        log(f"[hybrid-train] {cfg.name} full width (d_model {cfg.d_model}, "
-            f"Mamba2 state {cfg.ssm_state}, 64 SSM heads of 64, the shared "
-            f"block's 32 heads of 64 and d_ff {cfg.shared_attn_d_ff}), depth "
-            f"{cfg.n_layers} of 38 (2 shared-attention sites; the full depth"
-            f" would need ~70 GB of replicas before activations), P = "
-            f"{run.n_params:,}, G = 4, f_w = 1 (ALIE x1), T = 5, "
-            f"{PROTO_STEPS} steps of 4 x 1024 tokens per group: "
-            f"{PROTO_STEPS / sum(run.step_s):.3f} steps/s over all steps, "
-            f"{len(warm) / sum(warm):.3f} after the first (first "
-            f"{run.step_s[0]:.2f} s, then {np.mean(warm):.3f} s each), "
-            f"train.main wall {wall:.1f} s, peak device memory "
-            f"{peak_gb:.1f} GB")
-        log("[hybrid-train] loss per step " + json.dumps(
-            [(i, round(x, 4)) for i, x in run.losses]))
-        log("[hybrid-train] launches " + json.dumps(got) + " | per step "
-            + json.dumps({k: round(v / PROTO_STEPS, 2)
-                          for k, v in got.items()}))
-        if not np.all(np.isfinite(losses)) or len(losses) != PROTO_STEPS:
-            raise AssertionError(f"zamba2 losses not finite: {losses}")
-        if not np.mean(losses[-3:]) < losses[0]:
-            raise AssertionError(f"zamba2 loss did not fall: {losses}")
-        if peak_gb >= 80:
-            raise AssertionError(f"peak device memory {peak_gb:.1f} GB")
-        for k in ("flash_attention", "flash_bwd_dq", "flash_bwd_dkv", "gram",
-                  "subset_diameters", "cwise_median"):
-            if got[k] < PROTO_STEPS:
-                raise AssertionError(f"{k} was launched {got[k]} times in "
-                                     f"{PROTO_STEPS} zamba2 protocol steps")
-        extra = list(token_stream(SEED + 1, cfg.vocab, 4, 4, 1024, 2,
-                                  device=dev))
-        state = run.state
-
-        def two_steps():
-            nonlocal state
-            for b in extra:
-                state = run.step(state, b)
-
-        busy, events, wall_us = _profile(f"protocol {cfg.name} depth 12, 2 "
-                                         f"steps", two_steps, keep=True)
-        sh = scan_share(events, "ssd_chunked")
-        dev_ms = (sh["fwd_device_us"] + sh["bwd_device_us"]) / 1e3
-        log(f"[hybrid-train] the SSD scan in that window: {sh['calls']} "
-            f"calls (forward and remat recompute), device {dev_ms:.1f} ms "
-            f"(forward {sh['fwd_device_us'] / 1e3:.1f}, backward "
-            f"{sh['bwd_device_us'] / 1e3:.1f}) = "
-            f"{100 * dev_ms * 1e3 / wall_us:.1f} % of the wall, host "
-            f"{sh['host_us'] / 1e3:.1f} ms = "
-            f"{100 * sh['host_us'] / wall_us:.1f} % of the wall; "
-            f"{sh['launches'] / 2:.0f} launches a step")
-    finally:
-        mamba2.ssd_chunked = scan
+    busy, events, wall_us = _profile(f"protocol {cfg.name} depth 12, 2 "
+                                     f"steps", two_steps, keep=True)
+    sh = scan_share(events, "mamba2.ssd")
+    dev_ms = (sh["fwd_device_us"] + sh["bwd_device_us"]) / 1e3
+    log(f"[hybrid-train] the SSD scan in that window: {sh['calls']} "
+        f"calls (forward and remat recompute), device {dev_ms:.1f} ms "
+        f"(forward {sh['fwd_device_us'] / 1e3:.1f}, backward "
+        f"{sh['bwd_device_us'] / 1e3:.1f}) = "
+        f"{100 * dev_ms * 1e3 / wall_us:.1f} % of the wall, host "
+        f"{sh['host_us'] / 1e3:.1f} ms = "
+        f"{100 * sh['host_us'] / wall_us:.1f} % of the wall; "
+        f"{sh['launches'] / 2:.0f} launches a step")
     del run, extra, state, events
     gc.collect()
     torch.cuda.empty_cache()

@@ -82,6 +82,7 @@ from .. import optim as _optim
 from ..device import resolve
 from ..launch.mesh import AXES, Mesh
 from ..models import sharding as _sharding
+from ..spans import mark, span
 from . import attacks as _attacks
 from .attacks import ByzantineSpec, inject_gradients, inject_models
 from .quorum import UniformDelivery
@@ -767,6 +768,7 @@ def masked_pull(params: torch.Tensor, masks: torch.Tensor,
     G_recv = masks.shape[0]
     P = params.shape[1]
     counts = masks.sum(dim=1).tolist()
+    mark("byzsgd.host_sync")
     if min(counts) < 1:
         raise ValueError(f"masked_pull needs a delivered replica per "
                          f"receiver; got counts {counts}")
@@ -849,21 +851,23 @@ def group_grads(bundle, tree: FlatTree, pulled: torch.Tensor, batch,
         params = _rebuild(tree, leaves)
         for m in range(n_micro):
             mb = _index(batch, m) if n_micro > 1 else batch
-            loss = bundle.loss(params, _index(mb, g))
-            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-            for (off, size), gl in zip(tree.spans(), gs):
-                dst = out[g, off:off + size]
-                if gl is None:
-                    if m == 0:
-                        dst.zero_()
-                    continue
-                gl = gl.reshape(-1)
-                if n_micro == 1:
-                    dst.copy_(gl)
-                elif m == 0:
-                    dst.copy_(gl.float() / n_micro)
-                else:
-                    dst.add_(gl.float() / n_micro)
+            with span("byzsgd.model"):
+                loss = bundle.loss(params, _index(mb, g))
+                gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with span("byzsgd.flatten"):
+                for (off, size), gl in zip(tree.spans(), gs):
+                    dst = out[g, off:off + size]
+                    if gl is None:
+                        if m == 0:
+                            dst.zero_()
+                        continue
+                    gl = gl.reshape(-1)
+                    if n_micro == 1:
+                        dst.copy_(gl)
+                    elif m == 0:
+                        dst.copy_(gl.float() / n_micro)
+                    else:
+                        dst.add_(gl.float() / n_micro)
             del loss, gs
     return out
 
@@ -1078,35 +1082,43 @@ def make_scatter_step(bundle, pcfg: ProtocolConfig, lr_schedule,
         eta = lr_schedule(state.t)
 
         # 1. worker pull -----------------------------------------------------
-        inject = (_Attack("models", byz, gen)
-                  if with_attack and byz.server_attack else None)
-        rows = ranks.rows(params, "pull", inject, state.tree)
-        pdt = act if params.dtype == torch.float32 else params.dtype
-        pulled = _buffer(bufs, "pulled", params.shape, pdt, dev)
-        if pcfg.pull == "roundrobin":
-            _roundrobin_pull(rows, params, state.t, eta, pcfg, pulled, ranks)
-        else:
-            masks = _masks(delivery.pull_indices(gen, state.t, gen.device),
-                           G)
-            _pull_rows(ranks, rows, masks, pcfg, None, pulled)
-        del rows
+        with span("byzsgd.pull"):
+            inject = (_Attack("models", byz, gen)
+                      if with_attack and byz.server_attack else None)
+            rows = ranks.rows(params, "pull", inject, state.tree)
+            pdt = act if params.dtype == torch.float32 else params.dtype
+            pulled = _buffer(bufs, "pulled", params.shape, pdt, dev)
+            if pcfg.pull == "roundrobin":
+                _roundrobin_pull(rows, params, state.t, eta, pcfg, pulled,
+                                 ranks)
+            else:
+                masks = _masks(delivery.pull_indices(gen, state.t,
+                                                     gen.device), G)
+                _pull_rows(ranks, rows, masks, pcfg, None, pulled)
+            del rows
 
         # 2. per-group worker gradients --------------------------------------
-        grads = _buffer(bufs, "grads", params.shape, xdt, dev)
-        _group_grads(bundle, ranks.local_tree or state.tree, pulled, batch,
-                     pcfg, ranks, bufs, grads, local_batch)
+        with span("byzsgd.grads"):
+            grads = _buffer(bufs, "grads", params.shape, xdt, dev)
+            _group_grads(bundle, ranks.local_tree or state.tree, pulled,
+                         batch, pcfg, ranks, bufs, grads, local_batch)
         if with_attack and byz.worker_attack:
-            _attack_grads(grads, _Attack("grads", byz, gen), state.tree,
-                          ranks)
+            with span("byzsgd.attack"):
+                _attack_grads(grads, _Attack("grads", byz, gen), state.tree,
+                              ranks)
 
         # 3. gradient rule (MDA by default) per server over its quorum -------
-        push_idx = delivery.push_indices(gen, state.t, gen.device)
-        d2 = agg.rules.sqdists_from_gram(ranks.gram(grads))
-        weights = quorum_weights(d2, push_idx, pcfg.f_workers, pcfg)
-        g_hat = _aggregate(grads, weights, pcfg, ranks)
+        with span("byzsgd.select"):
+            push_idx = delivery.push_indices(gen, state.t, gen.device)
+            d2 = agg.rules.sqdists_from_gram(ranks.gram(grads))
+            weights = quorum_weights(d2, push_idx, pcfg.f_workers, pcfg)
+        with span("byzsgd.aggregate"):
+            g_hat = _aggregate(grads, weights, pcfg, ranks)
 
         # 4. local update ----------------------------------------------------
-        new_params, new_opt = optimizer.update(g_hat, state.opt, params, eta)
+        with span("byzsgd.update"):
+            new_params, new_opt = optimizer.update(g_hat, state.opt, params,
+                                                   eta)
         return state._replace(params=new_params, t=state.t + 1, opt=new_opt)
 
     return scatter_step
@@ -1124,12 +1136,13 @@ def make_gather_step(pcfg: ProtocolConfig, with_attack: bool = False,
         params, dev = state.params, state.params.device
         ranks = _Ranks(mesh, G, state.tree.size, pcfg.chunk_bytes,
                        state.split)
-        masks = _masks(delivery.gather_indices(state.gen, state.t,
-                                               state.gen.device), G)
-        inject = (_Attack("models", pcfg.byz, state.gen)
-                  if with_attack and pcfg.byz.server_attack else None)
-        rows = ranks.rows(params, "gather", inject, state.tree)
-        _pull_rows(ranks, rows, masks, pcfg, pcfg.gather_gar, params)
+        with span("byzsgd.gather"):
+            masks = _masks(delivery.gather_indices(state.gen, state.t,
+                                                   state.gen.device), G)
+            inject = (_Attack("models", pcfg.byz, state.gen)
+                      if with_attack and pcfg.byz.server_attack else None)
+            rows = ranks.rows(params, "gather", inject, state.tree)
+            _pull_rows(ranks, rows, masks, pcfg, pcfg.gather_gar, params)
         return state
 
     return gather_step
@@ -1147,8 +1160,9 @@ def make_train_step(bundle, pcfg: ProtocolConfig, lr_schedule,
     gather = make_gather_step(pcfg, with_attack, delivery, mesh)
 
     def train_step(state: ByzState, batch) -> ByzState:
-        state = scatter(state, batch)
-        return gather(state) if state.t % pcfg.T == 0 else state
+        with span("byzsgd.step"):
+            state = scatter(state, batch)
+            return gather(state) if state.t % pcfg.T == 0 else state
 
     return train_step
 

@@ -48,6 +48,17 @@ checkpoint there (params, step counter and the run's generator; the token
 stream skips the steps done) and saves every ``--ckpt-every`` steps and at
 the end, each labelled by the steps done (the JAX launcher labels a save
 after step i with i, one step late).
+``--trace PATH`` profiles the run's last DMC period (its last T steps)
+under ``torch.profiler`` on rank 0 and writes a Chrome trace to PATH
+(open it in Perfetto or ``chrome://tracing``): the device's kernels beside
+the step's spans (``byzsgd.step``, ``byzsgd.pull``, ``byzsgd.grads`` with
+``byzsgd.model`` and ``byzsgd.flatten`` per group, ``byzsgd.attack``,
+``byzsgd.select``, ``byzsgd.aggregate``, ``byzsgd.update``,
+``byzsgd.gather``, the scans' ``rwkv6.wkv`` / ``mamba2.ssd``, and the
+``byzsgd.host_sync`` marks; :mod:`repro_torch.spans`).
+
+  python -m repro_torch.launch.train --reduced --device cpu --steps 4 \\
+      --groups 4 --seq 32 --batch-per-group 2 --T 2 --trace /tmp/step.json
 """
 from __future__ import annotations
 
@@ -108,6 +119,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a GPU)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome trace of the last T steps to PATH")
     return ap
 
 
@@ -194,8 +207,13 @@ def _train(args, bundle) -> TrainRun:
     stream = DeviceTokenStream(0, TokenSpec(bundle.cfg.vocab, args.seq), G,
                                args.batch_per_group, dev)
     stream.skip(start)
+    traced = max(start, args.steps - args.T) if args.trace and lead else None
+    prof = None
     t0 = time.perf_counter()
     for i in range(start, args.steps):
+        if i == traced:
+            prof = _profiler(dev)
+            prof.start()
         batch = {k: v[0] for k, v in stream.next(1).items()}
         ts = time.perf_counter()
         before = dict(mesh.sent)
@@ -223,6 +241,11 @@ def _train(args, bundle) -> TrainRun:
             ck.save(args.ckpt_dir, state.t, state)
             if lead:
                 print(f"[train] checkpoint @ {state.t}")
+    if prof is not None:
+        prof.stop()
+        prof.export_chrome_trace(args.trace)
+        print(f"[train] trace of steps {traced}-{args.steps - 1}: "
+              f"{args.trace}")
     # the serving model: with a 'model' axis each rank keeps its blocks
     protocol.consolidate(state.params, pcfg, mesh=mesh,
                          n_params=state.tree.size, split=state.split,
@@ -234,6 +257,16 @@ def _train(args, bundle) -> TrainRun:
               f"{time.perf_counter() - t0:.1f}s")
     run.state = state
     return run
+
+
+def _profiler(dev) -> torch.profiler.profile:
+    """A profiler of the host's ops and spans, and of the card's kernels
+    on a CUDA device."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
 
 
 if __name__ == "__main__":

@@ -37,6 +37,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..spans import span
 from . import layers as L
 from .config import ArchConfig
 
@@ -121,41 +122,42 @@ def ssd_chunked(xh, la, Bm, Cm, h0, chunk: int):
     cumulative log decay of a chunk: y_t = (C_t . h0) exp(L_t) + sum_{j<=t}
     (C_t . B_j) exp(L_t - L_j) u_j, and the state leaving the chunk is
     exp(L_C) h0 + sum_j exp(L_C - L_j) B_j (x) u_j."""
-    Bsz, S, H, P = xh.shape
-    N = Bm.shape[-1]
-    nch = -(-S // chunk)
-    pad = nch * chunk - S
-    if pad:
-        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        la = F.pad(la, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, pad))
-    # [nch, B, C, ...] float32
-    u = xh.float().reshape(Bsz, nch, chunk, H, P).transpose(0, 1)
-    lac = la.float().reshape(Bsz, nch, chunk, H).transpose(0, 1)
-    Bc = Bm.float().reshape(Bsz, nch, chunk, N).transpose(0, 1)
-    Cc = Cm.float().reshape(Bsz, nch, chunk, N).transpose(0, 1)
+    with span("mamba2.ssd"):
+        Bsz, S, H, P = xh.shape
+        N = Bm.shape[-1]
+        nch = -(-S // chunk)
+        pad = nch * chunk - S
+        if pad:
+            xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+            la = F.pad(la, (0, 0, 0, pad))
+            Bm = F.pad(Bm, (0, 0, 0, pad))
+            Cm = F.pad(Cm, (0, 0, 0, pad))
+        # [nch, B, C, ...] float32
+        u = xh.float().reshape(Bsz, nch, chunk, H, P).transpose(0, 1)
+        lac = la.float().reshape(Bsz, nch, chunk, H).transpose(0, 1)
+        Bc = Bm.float().reshape(Bsz, nch, chunk, N).transpose(0, 1)
+        Cc = Cm.float().reshape(Bsz, nch, chunk, N).transpose(0, 1)
 
-    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                   device=xh.device))
-    Lc = torch.cumsum(lac, dim=2)                        # inclusive
-    G = torch.einsum("zbin,zbjn->zbij", Cc, Bc)          # [nch, B, C, C]
-    Dm = Lc[:, :, :, None, :] - Lc[:, :, None, :, :]     # [nch, B, C, C, H]
-    Dm = torch.where(causal[:, :, None], Dm, float("-inf"))   # before exp
-    M = G[..., None] * torch.exp(Dm)
-    y_intra = torch.einsum("zbijh,zbjhp->zbihp", M, u)
-    wdec = torch.exp(Lc[:, :, -1:, :] - Lc)              # [nch, B, C, H]
-    add = torch.einsum("zbjn,zbjhp,zbjh->zbhpn", Bc, u, wdec)
-    decay = torch.exp(Lc[:, :, -1, :])[..., None, None]  # [nch, B, H, 1, 1]
-    h = h0.float()
-    entering = []
-    for i in range(nch):
-        entering.append(h)
-        h = decay[i] * h + add[i]
-    tmp = torch.einsum("zbcn,zbhpn->zbchp", Cc, torch.stack(entering))
-    y = tmp * torch.exp(Lc)[..., None] + y_intra
-    y = y.transpose(0, 1).reshape(Bsz, nch * chunk, H, P)
-    return y[:, :S], h
+        causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                       device=xh.device))
+        Lc = torch.cumsum(lac, dim=2)                        # inclusive
+        G = torch.einsum("zbin,zbjn->zbij", Cc, Bc)          # [nch, B, C, C]
+        Dm = Lc[:, :, :, None, :] - Lc[:, :, None, :, :]  # [nch, B, C, C, H]
+        Dm = torch.where(causal[:, :, None], Dm, float("-inf"))   # before exp
+        M = G[..., None] * torch.exp(Dm)
+        y_intra = torch.einsum("zbijh,zbjhp->zbihp", M, u)
+        wdec = torch.exp(Lc[:, :, -1:, :] - Lc)              # [nch, B, C, H]
+        add = torch.einsum("zbjn,zbjhp,zbjh->zbhpn", Bc, u, wdec)
+        decay = torch.exp(Lc[:, :, -1, :])[..., None, None]  # [nch,B,H,1,1]
+        h = h0.float()
+        entering = []
+        for i in range(nch):
+            entering.append(h)
+            h = decay[i] * h + add[i]
+        tmp = torch.einsum("zbcn,zbhpn->zbchp", Cc, torch.stack(entering))
+        y = tmp * torch.exp(Lc)[..., None] + y_intra
+        y = y.transpose(0, 1).reshape(Bsz, nch * chunk, H, P)
+        return y[:, :S], h
 
 
 def mamba_block(p, x, cfg: ArchConfig, dtype, cache: MambaCache | None = None,

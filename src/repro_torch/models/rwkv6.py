@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..spans import span
 from . import layers as L
 from . import sharding as shr
 from .config import ArchConfig
@@ -126,38 +127,41 @@ def wkv_chunked(r, k, v, lw, u, s0, chunk: int = 16):
     v_j), so the terms that do not read it are computed for every chunk at
     once and the loop over the chunks is two elementwise ops each, where a
     loop over the reference's whole chunk body would launch ~20."""
-    B, S, H, K = r.shape
-    nch = -(-S // chunk)
-    pad = nch * chunk - S
-    if pad:
-        r, k, v, lw = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v, lw))
+    with span("rwkv6.wkv"):
+        B, S, H, K = r.shape
+        nch = -(-S // chunk)
+        pad = nch * chunk - S
+        if pad:
+            r, k, v, lw = (F.pad(a, (0, 0, 0, 0, 0, pad))
+                           for a in (r, k, v, lw))
 
-    def resh(a):                                # [nch, B, H, C, K] float32
-        return a.reshape(B, nch, chunk, H, K).permute(1, 0, 3, 2, 4).float()
+        def resh(a):                            # [nch, B, H, C, K] float32
+            a = a.reshape(B, nch, chunk, H, K)
+            return a.permute(1, 0, 3, 2, 4).float()
 
-    rc, kc, vc, wc = resh(r), resh(k), resh(v), resh(lw)
-    mask_lt = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                    device=r.device), diagonal=-1)
-    Lc = torch.cumsum(wc, dim=3)                # inclusive
-    Lp = Lc - wc                                # L_{t-1}
-    Dk = Lp[..., :, None, :] - Lc[..., None, :, :]   # [nch, B, H, C, C, K]
-    Dk = torch.where(mask_lt[:, :, None], Dk, float("-inf"))
-    A = (rc[..., :, None, :] * kc[..., None, :, :] * torch.exp(Dk)).sum(-1)
-    y_intra = torch.einsum("nbhtj,nbhjv->nbhtv", A, vc)
-    bonus = torch.sum(rc * (u[None, None, :, None, :] * kc), dim=-1)
-    wtail = torch.exp(Lc[..., -1:, :] - Lc)
-    add = torch.einsum("nbhjk,nbhjv->nbhkv", kc * wtail, vc)
-    decay = torch.exp(Lc[..., -1, :])[..., None]      # [nch, B, H, K, 1]
-    s = s0.float()
-    entering = []
-    for i in range(nch):
-        entering.append(s)
-        s = decay[i] * s + add[i]
-    y_inter = torch.einsum("nbhck,nbhkv->nbhcv", rc * torch.exp(Lp),
-                           torch.stack(entering))
-    y = y_inter + y_intra + bonus[..., None] * vc
-    y = y.permute(1, 0, 3, 2, 4).reshape(B, nch * chunk, H, K)
-    return y[:, :S], s
+        rc, kc, vc, wc = resh(r), resh(k), resh(v), resh(lw)
+        mask_lt = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                        device=r.device), diagonal=-1)
+        Lc = torch.cumsum(wc, dim=3)                # inclusive
+        Lp = Lc - wc                                # L_{t-1}
+        Dk = Lp[..., :, None, :] - Lc[..., None, :, :]   # [nch, B, H, C, C, K]
+        Dk = torch.where(mask_lt[:, :, None], Dk, float("-inf"))
+        A = (rc[..., :, None, :] * kc[..., None, :, :] * torch.exp(Dk)).sum(-1)
+        y_intra = torch.einsum("nbhtj,nbhjv->nbhtv", A, vc)
+        bonus = torch.sum(rc * (u[None, None, :, None, :] * kc), dim=-1)
+        wtail = torch.exp(Lc[..., -1:, :] - Lc)
+        add = torch.einsum("nbhjk,nbhjv->nbhkv", kc * wtail, vc)
+        decay = torch.exp(Lc[..., -1, :])[..., None]      # [nch, B, H, K, 1]
+        s = s0.float()
+        entering = []
+        for i in range(nch):
+            entering.append(s)
+            s = decay[i] * s + add[i]
+        y_inter = torch.einsum("nbhck,nbhkv->nbhcv", rc * torch.exp(Lp),
+                               torch.stack(entering))
+        y = y_inter + y_intra + bonus[..., None] * vc
+        y = y.permute(1, 0, 3, 2, 4).reshape(B, nch * chunk, H, K)
+        return y[:, :S], s
 
 
 def time_mix(p, x, cfg: ArchConfig, dtype, cache: RwkvCache | None):
