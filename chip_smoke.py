@@ -92,7 +92,12 @@
    ``elastic/netsim_churn`` finite.
 13. The zoo: the MoE and RWKV6 families. (a) The flash forward at
    qwen3-moe's heads (``[1, 1024, 64/4, 64]``, bf16, causal) against its
-   plain version, timed as in 2. (b) qwen3-moe-235b-a22b at full width,
+   plain version, timed as in 2; the WKV scan's chunk-recurrence kernels
+   (forward and backward, decays in (0, 1]) against the plain loops at
+   rwkv6-4k's ``[256, 4, 40, 64, 64]`` and at V = 8, within N roundings of
+   the chain's largest value (N + V for ``d_decay``), two launches
+   bit-equal, each timed as in 2 beside its bound by bytes and the loop
+   with autograd it replaced. (b) qwen3-moe-235b-a22b at full width,
    depth 2 of 94 (four bf16 replicas of the full depth would not fit one
    card), random bf16 weights, phase 4's quorum run (4 replicas, replica 3
    ``reversed``, f = 1, 4 slots, 8 requests of 64-1024 prompt tokens, 16
@@ -101,11 +106,13 @@
    flash forward and the median launched; tok/s, the R = 1 ratio, peak
    memory and a profiler window. (c) rwkv6-3b at full width, depth 2,
    through ``launch/train.py`` with phase 10's argv: finite, falling
-   losses, peak memory under 80 GB, the median, the Gram and the
-   selection launched at least once a step; steps/s, and a two-step
+   losses, peak memory under 80 GB, the median, the Gram, the selection
+   and the WKV scan's two kernels launched at least once a step; steps/s,
+   and a two-step
    profiler window with the WKV scan's share (its ranges, and the backward
    nodes of the ops they ran). (d) rwkv6-3b at full width, depth 8 of 32,
-   with (b)'s requests and gates (no attention: the median only); 8
+   with (b)'s requests and gates (no attention: the median and the WKV
+   scan's forward); 8
    requests over 4 slots refill every slot, so the per-request check holds
    the state reset. (e) ``lm/moe_tiny`` and ``lm/rwkv_tiny`` in float32
    (activations and replicas) as phase 9, card against CPU, every MDA
@@ -644,13 +651,14 @@ TRAIN_MODEL = "mlp_h1024"
 REF_STEPS = 23                                   # 2T + 3 at T = 10
 
 
-def _row(label, err, ms, plain_ms, library_ms, work, extra=""):
+def _row(label, err, ms, plain_ms, library_ms, work, extra="",
+         tag="train-kernel"):
     """A kernel row: ``work`` is the kernel package's (operations, bytes)
     count of the call (the one the dry run reads)."""
     ops, nbytes = work
     b_ms, b_by = bound(nbytes, ops, F32_FLOPS)
     lib = "—" if library_ms is None else f"{library_ms:.4f} ms"
-    log(f"[train-kernel] {label}: max|kernel-plain|={err:.3g} | kernel "
+    log(f"[{tag}] {label}: max|kernel-plain|={err:.3g} | kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}, bound "
         f"{b_ms:.4f} ms ({b_by}), {nbytes / ms / 1e6:.1f} GB/s, "
         f"{100 * b_ms / ms:.1f} % of the bound{extra}")
@@ -1002,10 +1010,12 @@ def _counters():
     from repro_torch.kernels.cwise_median import ops as order_ops
     from repro_torch.kernels.mda_diameter import ops as diam_ops
     from repro_torch.kernels.pairwise_sqdist import ops as gram_ops
+    from repro_torch.kernels.wkv_scan import ops as wkv_ops
     return {"cwise_median": order_ops.cwise_median,
             "cwise_trimmed_mean": order_ops.cwise_trimmed_mean,
             "cwise_meamed": order_ops.cwise_meamed, "gram": gram_ops.gram,
-            "subset_diameters": diam_ops.subset_diameters}
+            "subset_diameters": diam_ops.subset_diameters,
+            "wkv_scan_fwd": wkv_ops.scan_fwd, "wkv_scan_bwd": wkv_ops.scan_bwd}
 
 
 def train_phase(dev):
@@ -1667,22 +1677,26 @@ def _ckpt_root(need: int) -> Path:
 
 def _quorum_run(pool, bundle, prompts, label: str, tag: str = "ckpt"):
     """8 requests through QuorumService(median, n_slots=4) over ``pool``;
-    the flash forward's and the median's launches counted from 0."""
+    the flash forward's, the median's and the WKV scan forward's launches
+    counted from 0."""
     from repro_torch.kernels.cwise_median import ops as median_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.wkv_scan import ops as wkv_ops
     from repro_torch.serve import QuorumService
     max_len = -(-(max(map(len, prompts)) + MAX_NEW + 1) // 64) * 64
     svc = QuorumService(pool, bundle, n_slots=N_SLOTS, max_len=max_len,
                         n_chunks=4, rule="median")
     flash_ops.flash_attention.launches = 0
     median_ops.cwise_median.launches = 0
+    wkv_ops.scan_fwd.launches = 0
     t0 = time.perf_counter()
     with torch.inference_mode():
         outs = svc.generate(prompts, max_new=MAX_NEW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = {"flash_attention": flash_ops.flash_attention.launches,
-           "cwise_median": median_ops.cwise_median.launches}
+           "cwise_median": median_ops.cwise_median.launches,
+           "wkv_scan_fwd": wkv_ops.scan_fwd.launches}
     rep = svc.report()
     log(f"[{tag}] {label}: {rep['committed_tokens']} tokens in {wall:.2f} s "
         f"({rep['tok_s']:.2f} tok/s), disagreement "
@@ -1706,7 +1720,7 @@ def checkpoint_phase(dev, state):
     G, P = state.params.shape
     need = state.params.numel() * state.params.element_size()
     root = _ckpt_root(need)
-    launches = {"flash_attention": 0, "cwise_median": 0}
+    launches = {"flash_attention": 0, "cwise_median": 0, "wkv_scan_fwd": 0}
     try:
         t0 = time.perf_counter()
         ck.save(str(root), state.t, state)
@@ -1741,7 +1755,7 @@ def checkpoint_phase(dev, state):
                                    "quorum reads over the restored pool")
         for k, v in got.items():
             launches[k] += v
-            if v <= 0:
+            if v <= 0 and k != "wkv_scan_fwd":          # phi4: no WKV scan
                 raise AssertionError(f"{k} was not launched serving the "
                                      "restored pool")
         base, _, got = _quorum_run(ReplicaPool.from_stacked(live, f=F_BYZ),
@@ -1953,6 +1967,109 @@ ZOO_SERVE = ((MOE_ARCH, 2, "moe-serve", 8),
              (RWKV_ARCH, 8, "rwkv-serve", 2))
 # phase 10's run with the RWKV6 family
 ZOO_TRAIN_ARGV = ["--arch", RWKV_ARCH] + PROTO_ARGV[2:]
+# the WKV scan's chunk recurrence at rwkv6-4k's training shape (N = 256
+# chunks of 16 over S = 4096, B 4, rwkv6-3b's 40 heads of K = V = 64), and
+# at the tests' V = 8
+WKV_SHAPES = ((256, 4, 40, 64, 64), (37, 2, 3, 8, 8))
+
+
+def _event_ms(fn, iters: int = 3) -> float:
+    """Mean time of one ``fn()`` from the host, CUDA events around
+    ``iters`` calls after one unmeasured call."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def wkv_scan_phase(dev) -> dict:
+    """13 (a): the WKV scan's chunk-recurrence kernels, forward and backward,
+    against the plain loops (``scan_fwd_plain``, ``scan_bwd_plain``) at
+    :data:`WKV_SHAPES`, from decays in (0, 1] (so the backward's
+    ``d_decay`` and carried gradient reach every chunk): each output within
+    N roundings of the chain's largest value (N + V for ``d_decay``, V
+    products summed in another order), as the card tests hold them; two
+    launches bit-equal. At the training shape each kernel is timed cold in
+    L2 beside its bound by bytes and the plain loop's device time, with the
+    loop with autograd it replaced (``ref.state_scan_ref``, launched from
+    the host) as a yardstick."""
+    from repro_torch.kernels.wkv_scan import ops as wkv_ops
+    from repro_torch.kernels.wkv_scan.ref import state_scan_ref
+    eps = 2.0 ** -23                 # float32's spacing at 1
+    rows = {"wkv_scan_fwd": [], "wkv_scan_bwd": []}
+    for N, B, H, K, V in WKV_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(SEED + N)
+        decay = 1.0 - torch.rand((N, B, H, K), generator=g, device=dev)
+        add, d_ent = (torch.randn((N, B, H, K, V), generator=g, device=dev)
+                      for _ in range(2))
+        s0, d_fin = (torch.randn((B, H, K, V), generator=g, device=dev)
+                     for _ in range(2))
+        runs = []
+        for _ in range(2):
+            ent, fin = wkv_ops.scan_fwd(decay, add, s0)
+            runs.append((ent, fin, *wkv_ops.scan_bwd(decay, ent, d_ent,
+                                                     d_fin)))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        ent, fin, d_decay, d_add, d_s0 = runs[0]
+        del runs
+        p_ent, p_fin = wkv_ops.scan_fwd_plain(decay, add, s0)
+        p_dd, p_da, p_ds0 = wkv_ops.scan_bwd_plain(decay, ent, d_ent, d_fin,
+                                                   True)
+        s_max = max(p_ent.abs().max().item(), p_fin.abs().max().item())
+        g_max = max(p_da.abs().max().item(), p_ds0.abs().max().item())
+        checks = {"entering": (ent, p_ent, N * eps * s_max),
+                  "final": (fin, p_fin, N * eps * s_max),
+                  "d_add": (d_add, p_da, N * eps * g_max),
+                  "d_s0": (d_s0, p_ds0, N * eps * g_max),
+                  "d_decay": (d_decay, p_dd, (N + V) * eps * V * g_max
+                              * ent.abs().max().item())}
+        errs = {k: (a - b).abs().max().item() for k, (a, b, _) in
+                checks.items()}
+        log(f"[zoo-kernel] wkv_scan [{N}, {B}, {H}, {K}, {V}], decays in "
+            f"({decay.min().item():.3g}, {decay.max().item():.3g}]: "
+            + ", ".join(f"{k} max|kernel-plain|={errs[k]:.3g} (tol "
+                        f"{tol:.3g})" for k, (_, _, tol) in checks.items())
+            + f"; two launches bit-equal {same}")
+        bad = [k for k, (_, _, tol) in checks.items() if not errs[k] <= tol]
+        if bad or not same:
+            raise AssertionError(f"wkv_scan at [{N}, {B}, {H}, {K}, {V}]: "
+                                 f"{bad} off, bit-equal {same}")
+        del p_ent, p_fin, p_dd, p_da, p_ds0, checks
+        if (N, B, H, K, V) != WKV_SHAPES[0]:
+            continue
+
+        def loop():
+            leaves = [t.detach().requires_grad_() for t in (decay, add)]
+            e, f = state_scan_ref(*leaves, s0)
+            torch.autograd.grad((e, f), leaves, (d_ent, d_fin))
+        loop_ms = _event_ms(loop)
+        shape = f"[{N}, {B}, {H}, {K}, {V}]"
+        rows["wkv_scan_fwd"].append(_row(
+            f"wkv_scan forward {shape}",
+            max(errs["entering"], errs["final"]),
+            cold_ms(wkv_ops.scan_fwd, (decay, add, s0), 20),
+            cold_ms(wkv_ops.scan_fwd_plain, (decay, add, s0), 3), None,
+            wkv_ops.scan_fwd_work(N, B, H, K, V),
+            ptxas_note("state_scan_fwd_kernel"), tag="zoo-kernel"))
+        rows["wkv_scan_bwd"].append(_row(
+            f"wkv_scan backward {shape} (no d_s0)",
+            max(errs["d_add"], errs["d_decay"]),
+            cold_ms(lambda *t: wkv_ops.scan_bwd(*t, d_s0=False),
+                    (decay, ent, d_ent, d_fin), 20),
+            cold_ms(lambda *t: wkv_ops.scan_bwd_plain(*t, False),
+                    (decay, ent, d_ent, d_fin), 3), None,
+            wkv_ops.scan_bwd_work(N, B, H, K, V, False),
+            ptxas_note("state_scan_bwd_kernel")
+            + f"; the loop with autograd it replaced {loop_ms:.2f} ms a "
+            f"forward and backward", tag="zoo-kernel"))
+    return rows
 
 
 def _single_run(bundle, params, prompt, max_len: int, dev):
@@ -2040,7 +2157,7 @@ def zoo_serve_phase(dev, arch: str, depth, tag: str, window_new: int,
                              f"own B = 1 runs")
     if any(len(o) != MAX_NEW for o in outs):
         raise AssertionError("a request did not reach max_new tokens")
-    need = ("cwise_median",) if cfg.family == "ssm" \
+    need = ("cwise_median", "wkv_scan_fwd") if arch == RWKV_ARCH \
         else ("flash_attention", "cwise_median")    # RWKV6 has no attention
     for k in need:
         if got[k] <= 0:
@@ -2155,7 +2272,8 @@ def zoo_train_phase(dev):
         raise AssertionError(f"rwkv6 loss did not fall: {losses}")
     if peak_gb >= 80:
         raise AssertionError(f"peak device memory {peak_gb:.1f} GB")
-    for k in ("gram", "subset_diameters", "cwise_median"):
+    for k in ("gram", "subset_diameters", "cwise_median", "wkv_scan_fwd",
+              "wkv_scan_bwd"):
         if got[k] < PROTO_STEPS:
             raise AssertionError(f"{k} was launched {got[k]} times in "
                                  f"{PROTO_STEPS} rwkv6 protocol steps")
@@ -3489,8 +3607,8 @@ def tp_zoo_phase(dev, parts: str = "ab") -> dict:
     t0 = time.perf_counter()
 
     def add(got):
-        for k in MESH_KERNELS:
-            total[k] = total.get(k, 0) + got.get(k, 0)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
 
     # (a) and (b) ------------------------------------------------------------
     if "a" in parts:
@@ -3540,10 +3658,11 @@ def tp_zoo_phase(dev, parts: str = "ab") -> dict:
                 add(o["launches"])
                 log(f"[tp-zoo] (a) {arch} rank {r}: the launcher's launches "
                     + json.dumps(o["launches"]))
-                if arch != RWKV_ARCH and o["launches"]["flash_attention"] \
-                        <= 0:
+                need = "wkv_scan_fwd" if arch == RWKV_ARCH \
+                    else "flash_attention"
+                if o["launches"][need] <= 0:
                     raise AssertionError(f"phase 17 (a) {arch} rank {r}: "
-                                         "the flash forward not launched")
+                                         f"{need} not launched")
                 if arch not in TP_ZOO_QUORUM:
                     continue
                 add(o["quorum_launches"])
@@ -4417,6 +4536,7 @@ def main() -> int:
     # phase 13: the zoo. (a) the flash forward at qwen3-moe's heads
     flash.append(flash_row(dev, 1, 1024, 64, 4, 64, 0, tag="zoo-kernel",
                            main=False))
+    wkv_rows = wkv_scan_phase(dev)
     zoo_launches = []
     for zs in ZOO_SERVE[:1]:                                    # (b)
         zoo_launches.append(zoo_serve_phase(dev, *zs)[0])
@@ -4480,6 +4600,7 @@ def main() -> int:
 
     rows = dict(train_rows)
     rows.update(bwd_rows)
+    rows.update(wkv_rows)
     rows["flash_attention"] = flash
     rows["cwise_median"] = [dict(r, nbytes=4.0 * (r["n"] + 1) * N_SLOTS
                                  * 200064) for r in median] \
@@ -4488,21 +4609,26 @@ def main() -> int:
     kernels = []
     for name, src, replaces in (
             ("flash_attention", "flash_attention/csrc/flash_fwd.cu",
-             "flash_attention/kernel.py:28"),
+             "kernels/flash_attention/kernel.py:28"),
             ("cwise_median", "cwise_median/csrc/cwise_median.cu",
-             "cwise_median/kernel.py:54"),
+             "kernels/cwise_median/kernel.py:54"),
             ("cwise_trimmed_mean", "cwise_median/csrc/cwise_median.cu",
-             "cwise_median/kernel.py:60"),
+             "kernels/cwise_median/kernel.py:60"),
             ("cwise_meamed", "cwise_median/csrc/cwise_median.cu",
-             "cwise_median/kernel.py:69"),
+             "kernels/cwise_median/kernel.py:69"),
             ("gram", "pairwise_sqdist/csrc/gram.cu",
-             "pairwise_sqdist/kernel.py:24"),
+             "kernels/pairwise_sqdist/kernel.py:24"),
             ("subset_diameters", "mda_diameter/csrc/mda_diameter.cu",
-             "mda_diameter/kernel.py:17"),
+             "kernels/mda_diameter/kernel.py:17"),
             ("flash_bwd_dq", "flash_attention/csrc/flash_bwd.cu",
-             "flash_attention/kernel.py:135"),
+             "kernels/flash_attention/kernel.py:135"),
             ("flash_bwd_dkv", "flash_attention/csrc/flash_bwd.cu",
-             "flash_attention/kernel.py:164")):
+             "kernels/flash_attention/kernel.py:164"),
+            # no TPU kernel: the reference's jax.lax.scan over the chunks
+            ("wkv_scan_fwd", "wkv_scan/csrc/wkv_scan.cu",
+             "models/rwkv6.py:125"),
+            ("wkv_scan_bwd", "wkv_scan/csrc/wkv_scan.cu",
+             "models/rwkv6.py:125")):
         rs = rows[name]
         on_path = [r for r in rs if r.get("main", True)]
         # the row of the path's largest call (flash forward and backward:
@@ -4515,7 +4641,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/{src}",
-            "replaces": f"src/repro/kernels/{replaces}",
+            "replaces": f"src/repro/{replaces}",
             "launches": launches[name],
             "mesh_launches": mesh_launches.get(name, 0),
             "tp_launches": tp_launches.get(name, 0),

@@ -31,6 +31,7 @@ SOURCES = {
     "cwise_median": _HERE / "cwise_median" / "csrc" / "cwise_median.cu",
     "pairwise_sqdist": _HERE / "pairwise_sqdist" / "csrc" / "gram.cu",
     "mda_diameter": _HERE / "mda_diameter" / "csrc" / "mda_diameter.cu",
+    "wkv_scan": _HERE / "wkv_scan" / "csrc" / "wkv_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels.wkv_scan.ops import state_scan
 from ..spans import span
 from . import layers as L
 from . import sharding as shr
@@ -125,8 +126,8 @@ def wkv_chunked(r, k, v, lw, u, s0, chunk: int = 16):
     v_t, and the inter term reads the state entering the chunk. Only that
     state is sequential (s' = exp(L_C) s + sum_j exp(L_C - L_j) k_j (x)
     v_j), so the terms that do not read it are computed for every chunk at
-    once and the loop over the chunks is two elementwise ops each, where a
-    loop over the reference's whole chunk body would launch ~20."""
+    once, and the recurrence over the chunks is :func:`state_scan`: one
+    kernel launch forward and one backward on the card."""
     with span("rwkv6.wkv"):
         B, S, H, K = r.shape
         nch = -(-S // chunk)
@@ -151,14 +152,11 @@ def wkv_chunked(r, k, v, lw, u, s0, chunk: int = 16):
         bonus = torch.sum(rc * (u[None, None, :, None, :] * kc), dim=-1)
         wtail = torch.exp(Lc[..., -1:, :] - Lc)
         add = torch.einsum("nbhjk,nbhjv->nbhkv", kc * wtail, vc)
-        decay = torch.exp(Lc[..., -1, :])[..., None]      # [nch, B, H, K, 1]
-        s = s0.float()
-        entering = []
-        for i in range(nch):
-            entering.append(s)
-            s = decay[i] * s + add[i]
+        decay = torch.exp(Lc[..., -1, :])                 # [nch, B, H, K]
+        entering, s = state_scan(decay.contiguous(), add.contiguous(),
+                                 s0.float().contiguous())
         y_inter = torch.einsum("nbhck,nbhkv->nbhcv", rc * torch.exp(Lp),
-                               torch.stack(entering))
+                               entering)
         y = y_inter + y_intra + bonus[..., None] * vc
         y = y.permute(1, 0, 3, 2, 4).reshape(B, nch * chunk, H, K)
         return y[:, :S], s

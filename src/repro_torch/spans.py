@@ -7,6 +7,8 @@ profiler propagates the range to autograd's threads, so a span opened in a
 rematerialized block's recompute is recorded there too. ``mark(name)``
 records one zero-length range, a count the trace holds. With the profiler
 off each call is one check of the profiler's own flag and records nothing.
+The rule lives in :mod:`repro_torch.kernels._spans`, below the kernel
+packages, which open their spans by it.
 
 The names the port emits (each protocol phase that exchanges data takes
 the ``Mesh.sent`` tag of its bytes):
@@ -21,26 +23,13 @@ the ``Mesh.sent`` tag of its bytes):
     ``byzsgd.gather`` (the DMC gather);
   * ``rwkv6.wkv`` and ``mamba2.ssd``: the chunked scans, forward and
     recompute;
+  * ``rwkv6.wkv_state``: each launch of the WKV scan's chunk-recurrence
+    kernels, forward (inside ``rwkv6.wkv``) and backward
+    (``repro_torch.kernels.wkv_scan.ops``);
   * the mark ``byzsgd.host_sync``: a device-to-host read inside the step.
 """
 from __future__ import annotations
 
-from contextlib import nullcontext
+from .kernels._spans import mark, span
 
-from torch.autograd import profiler as _profiler
-
-_OFF = nullcontext()
-
-
-def span(name: str):
-    """A range named ``name`` while the profiler records, else a no-op."""
-    if _profiler._is_profiler_enabled:
-        return _profiler.record_function(name)
-    return _OFF
-
-
-def mark(name: str) -> None:
-    """One zero-length range named ``name`` while the profiler records."""
-    if _profiler._is_profiler_enabled:
-        with _profiler.record_function(name):
-            pass
+__all__ = ["mark", "span"]

@@ -478,11 +478,12 @@ def test_build_key(tmp_path, case):
 
 def test_live_cuda_sources_audit_clean():
     units = cuda_audit.units(ROOT)
-    assert len(units) == 5                 # one per _build.SOURCES entry
+    assert len(units) == 6                 # one per _build.SOURCES entry
     assert sum(len(u) for u in units) >= 9  # their headers came along
     launched = set().union(*(cuda_audit._ceil_launched(u) for u in units))
     assert {"order_stat_kernel", "meamed_exact_kernel", "fwd_kernel",
-            "dq_kernel", "dkv_kernel"} <= launched
+            "dq_kernel", "dkv_kernel", "state_scan_fwd_kernel",
+            "state_scan_bwd_kernel"} <= launched
     for rule in ("REPRO-CUDA-GRID", "REPRO-CUDA-GUARD", "REPRO-CUDA-ACC",
                  "REPRO-CUDA-MASK", "REPRO-BUILD-KEY"):
         assert port_analyze.get(rule).check(ROOT) == [], rule

@@ -1,11 +1,11 @@
 """The CUDA kernels on the card: each against its plain PyTorch version at
 shapes of the serving and training paths (the flash backward pair, the
 batched median, trimmed mean, MeaMed on both its paths, Gram and the exact
-MDA selection included),
-gradients through the kernels' ``autograd.Function``, a reduced model
-run through the kernels against the same model on the CPU's plain path, and
-quorums that repeat a sender (equal rows in the Gram, the protocol's
-quorum weights) against the CPU. Imports no JAX, so it runs
+MDA selection included, and the WKV scan's chunk recurrence forward and
+backward), gradients through the kernels' ``autograd.Function``, a reduced
+model run through the kernels against the same model on the CPU's plain
+path, and quorums that repeat a sender (equal rows in the Gram, the
+protocol's quorum weights) against the CPU. Imports no JAX, so it runs
 on a machine with a GPU and PyTorch alone:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -21,6 +21,7 @@ from repro_torch.kernels.cwise_median import ops as median_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      flash_bwd_ref)
+from repro_torch.kernels.wkv_scan import ops as wkv_ops
 from repro_torch.models.registry import get_bundle
 from repro_torch.serve.replica import tree_map
 
@@ -592,3 +593,148 @@ def test_backward_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="Sq <= Skv"):
         flash_ops.flash_attention_bwd(q, k, k, q, torch.zeros(
             (1, 2, 9), device=dev), q)
+
+
+# ---------------------------------------------------------------------------
+# the WKV scan's chunk recurrence
+# ---------------------------------------------------------------------------
+
+EPS = 2.0 ** -23        # float32's spacing at 1: two roundings' worth
+
+
+def _scan_case(N, B, H, K, V, seed):
+    """Decays in (0, 1], ``add``, ``s0`` and the two incoming gradients."""
+    dev = require_cuda()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    decay = 1.0 - torch.rand((N, B, H, K), generator=g, device=dev)
+    add, d_ent = (torch.randn((N, B, H, K, V), generator=g, device=dev)
+                  for _ in range(2))
+    s0, d_fin = (torch.randn((B, H, K, V), generator=g, device=dev)
+                 for _ in range(2))
+    return decay, add, s0, d_ent, d_fin
+
+
+def _chain_close(got, want, steps, scale):
+    """Within ``steps`` roundings of a chain that carries values up to
+    ``scale``: the kernels round each multiply-add once (fmaf), the plain
+    version twice, and the decays (<= 1) carry an error on undiminished."""
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=steps * EPS * float(scale))
+
+
+@pytest.mark.parametrize("N,B,H,K,V", [(256, 4, 40, 64, 64), (37, 2, 3, 8, 8),
+                                       (3, 1, 5, 7, 8), (9, 3, 1, 3, 4),
+                                       (10, 1, 2, 2, 128)])
+def test_wkv_state_scan_kernels_match_plain(N, B, H, K, V):
+    """The forward's entering states and final state, and the backward's
+    d_decay, d_add and d_s0 (from the kernel's own entering states),
+    against the plain loops on the card: at the training shape, at the
+    tests' V = 8, N under and past the kernels' ring of 8 chunks, rows
+    that leave a warp partly empty, every lane count."""
+    decay, add, s0, d_ent, d_fin = _scan_case(N, B, H, K, V, N + V)
+    before = wkv_ops.scan_fwd.launches, wkv_ops.scan_bwd.launches
+    ent, fin = wkv_ops.scan_fwd(decay, add, s0)
+    d_decay, d_add, d_s0 = wkv_ops.scan_bwd(decay, ent, d_ent, d_fin)
+    torch.cuda.synchronize()
+    assert (wkv_ops.scan_fwd.launches, wkv_ops.scan_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    p_ent, p_fin = wkv_ops.scan_fwd_plain(decay, add, s0)
+    p_dd, p_da, p_ds0 = wkv_ops.scan_bwd_plain(decay, ent, d_ent, d_fin, True)
+    s_max = max(p_ent.abs().max(), p_fin.abs().max())
+    g_max = max(p_da.abs().max(), p_ds0.abs().max())
+    _chain_close(ent, p_ent, N, s_max)
+    _chain_close(fin, p_fin, N, s_max)
+    _chain_close(d_add, p_da, N, g_max)
+    _chain_close(d_s0, p_ds0, N, g_max)
+    # V products summed in another order, on a gradient N roundings off
+    _chain_close(d_decay, p_dd, N + V, V * g_max * ent.abs().max())
+
+
+def test_wkv_state_scan_kernel_without_d_final_or_d_s0():
+    decay, add, s0, d_ent, _ = _scan_case(20, 2, 3, 8, 64, 1)
+    ent, _ = wkv_ops.scan_fwd(decay, add, s0)
+    d_decay, d_add, d_s0 = wkv_ops.scan_bwd(decay, ent, d_ent, None,
+                                            d_s0=False)
+    p_dd, p_da, _ = wkv_ops.scan_bwd_plain(decay, ent, d_ent, None, False)
+    assert d_s0 is None
+    g_max = p_da.abs().max()
+    _chain_close(d_add, p_da, 20, g_max)
+    _chain_close(d_decay, p_dd, 20 + 64, 64 * g_max * ent.abs().max())
+
+
+def test_wkv_state_scan_kernels_repeat_bit_for_bit():
+    decay, add, s0, d_ent, d_fin = _scan_case(64, 4, 40, 64, 64, 2)
+    runs = []
+    for _ in range(2):
+        ent, fin = wkv_ops.scan_fwd(decay, add, s0)
+        runs.append((ent, fin, *wkv_ops.scan_bwd(decay, ent, d_ent, d_fin)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_wkv_state_scan_refuses_what_the_kernels_do_not_take():
+    """No fallback: a CUDA operand the kernels do not take raises."""
+    decay, add, s0, _, _ = _scan_case(3, 1, 2, 4, 8, 0)
+    dev = add.device
+    flat = torch.zeros(add.numel() + 1, device=dev)
+    bad = {
+        "float32": (decay.double(), add.double(), s0.double()),
+        "V in": (decay, torch.zeros((3, 1, 2, 4, 12), device=dev),
+                 torch.zeros((1, 2, 4, 12), device=dev)),
+        "contiguous": (decay, torch.zeros((3, 1, 2, 8, 4), device=dev)
+                       .transpose(-1, -2), s0),
+        "aligned": (decay, flat[1:].view(add.shape), s0),
+        "unsupported device": (decay.cpu(), add, s0),
+        "state_scan takes": (decay, add, s0[0]),
+    }
+    for match, args in bad.items():
+        with pytest.raises(ValueError, match=match):
+            wkv_ops.state_scan(*args)
+
+
+def test_wkv_chunked_on_the_card_one_launch_each_way_and_cpu_grads():
+    """``wkv_chunked`` at rwkv6-3b's heads over S = 300 (19 chunks, the
+    last padded) from a non-zero state, with gradients: one forward and
+    one backward launch of the recurrence, each inside a
+    ``rwkv6.wkv_state`` span, and the gradients of r, k, v, lw, u and s0
+    against the CPU's (float32 products summed in other orders)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import rwkv6
+    dev = require_cuda()
+    rng = np.random.default_rng(4)
+    B, S, H, K = 2, 300, 40, 64
+
+    def a(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape))
+                                .astype(np.float32))
+    args = (a(B, S, H, K), a(B, S, H, K), a(B, S, H, K),
+            -torch.exp(a(B, S, H, K, scale=0.5)), a(H, K, scale=0.1),
+            a(B, H, K, K, scale=0.3))
+    cot_y, cot_s = a(B, S, H, K), a(B, H, K, K)
+
+    def grads(device):
+        leaves = [t.to(device).requires_grad_() for t in args]
+        y, fin = rwkv6.wkv_chunked(*leaves)
+        return torch.autograd.grad((y * cot_y.to(device)).sum()
+                                   + (fin * cot_s.to(device)).sum(), leaves)
+    want = grads(CPU)
+    before = wkv_ops.scan_fwd.launches, wkv_ops.scan_bwd.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = grads(dev)
+        torch.cuda.synchronize()
+    assert (wkv_ops.scan_fwd.launches, wkv_ops.scan_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    cpu = torch.autograd.DeviceType.CPU
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    spans = [e for e in prof.profiler.kineto_results.events()
+             if e.name() == wkv_ops.SPAN and e.device_type() == cpu]
+    assert len(spans) == 2          # the host's ranges (not their GPU copies)
+    assert sum("state_scan_fwd_kernel" in n for n in names) == 1
+    assert sum("state_scan_bwd_kernel" in n for n in names) == 1
+    for name, g, w in zip(("r", "k", "v", "lw", "u", "s0"), got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()),
+                                   msg=name)

@@ -51,6 +51,31 @@ def test_wkv_chunked_pads_and_matches_jax():
                                atol=1e-5)
 
 
+def test_wkv_chunked_grads_match_jax_vjp():
+    """The same scan's gradients of r, k, v, lw, u and s0 for random
+    cotangents of y and the final state, against ``jax.vjp`` of JAX's
+    ``wkv_chunked`` in f32 (the chunk recurrence's backward is the port's
+    ``state_scan``; sums in other orders: seen 1.0e-6 to 3.2e-5 of each
+    gradient's largest entry, varying between processes in r, k, v and lw,
+    whose products the CPU's BLAS sums in another order from process to
+    process; u's and s0's at 1.7e-7 and 7.3e-8 every time)."""
+    rng = np.random.default_rng(3)
+    args = _scan_inputs(rng, 2, 37, 3, 8)
+    cot_y = rng.standard_normal((2, 37, 3, 8)).astype(np.float32)
+    cot_s = rng.standard_normal((2, 3, 8, 8)).astype(np.float32)
+    _, vjp = jax.vjp(jrwkv.wkv_chunked, *(jnp.asarray(x) for x in args))
+    want = vjp((jnp.asarray(cot_y), jnp.asarray(cot_s)))
+    ts = [torch.from_numpy(x).requires_grad_() for x in args]
+    ty, tfin = rwkv6.wkv_chunked(*ts)
+    got = torch.autograd.grad(
+        (ty * torch.from_numpy(cot_y)).sum()
+        + (tfin * torch.from_numpy(cot_s)).sum(), ts)
+    for name, g, w in zip(("r", "k", "v", "lw", "u", "s0"), got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=name)
+
+
 def test_decode_branch_equals_the_chunked_scan():
     """``time_mix`` over 21 tokens in one call (the chunked scan) and one
     token at a time with a cache (the exact single-step branch): the same

@@ -4,7 +4,8 @@ the card.
 
     python3 tools/zoo_phases.py [a] [b] [c] [d] [e] [14a] ... [14f]
 
-Phase 13 — a: the flash forward at qwen3-moe's heads; b:
+Phase 13 — a: the flash forward at qwen3-moe's heads and the WKV
+scan's chunk-recurrence kernels at rwkv6-4k's training shape; b:
 qwen3-moe-235b-a22b quorum serving at depth 2; c: rwkv6-3b protocol
 training at depth 2 through ``launch/train.py``, with the WKV scan's share
 of a profiler window; d: rwkv6-3b quorum serving at depth 8; e:
@@ -47,11 +48,12 @@ def main(argv) -> int:
         cs.PTXAS.update(_build.ptxas_usage(text))
     cs.log(f"[build] {time.perf_counter() - t0:.1f} s")
 
-    def flash():
+    def kernels():
         with torch.inference_mode():
             cs.flash_row(dev, 1, 1024, 64, 4, 64, 0, tag="zoo-kernel")
+        cs.wkv_scan_phase(dev)
 
-    parts = {"a": flash,
+    parts = {"a": kernels,
              "b": lambda: cs.zoo_serve_phase(dev, *cs.ZOO_SERVE[0]),
              "c": lambda: cs.zoo_train_phase(dev),
              "d": lambda: cs.zoo_serve_phase(dev, *cs.ZOO_SERVE[1]),
