@@ -394,9 +394,11 @@ def _sdpa_mask(Sq: int, Skv: int, window: int, causal: bool, dev) -> dict:
 
 
 def flash_row(dev, B, S, H, kvH, hd, window, tag="kernel", *, Skv=None,
-              causal: bool = True, main: bool = True):
+              causal: bool = True, main: bool = True,
+              scale: float | None = None):
     """The flash forward at q ``[B, S, H, hd]``, k/v ``[B, Skv, kvH, hd]``
-    bf16 (Skv = S by default; causal, or not): error against the plain
+    bf16 (Skv = S by default; causal, or not; the softmax ``scale``, by
+    default ``1/sqrt(hd)``): error against the plain
     version, two launches bit-equal, and the times of the kernel, the plain
     version and SDPA, cold in L2, beside the bound. ``main`` marks a row of
     the serving or protocol path's own shapes (the kernels line's)."""
@@ -407,7 +409,7 @@ def flash_row(dev, B, S, H, kvH, hd, window, tag="kernel", *, Skv=None,
     q = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
     k = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).bfloat16()
     v = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).bfloat16()
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, scale=scale)
     o, lse = ops.flash_attention(q, k, v, **kw)
     o2, lse2 = ops.flash_attention(q, k, v, **kw)
     po, plse = attention_ref(q, k, v, return_lse=True, **kw)
@@ -428,8 +430,8 @@ def flash_row(dev, B, S, H, kvH, hd, window, tag="kernel", *, Skv=None,
                        max(iters // 4, 5))
     lib = _sdpa_mask(S, Skv, window, causal, dev)
     library_ms = cold_ms(lambda *t: F.scaled_dot_product_attention(
-        *(x.transpose(1, 2) for x in t), enable_gqa=True, **lib),
-        (q, k, v), iters)
+        *(x.transpose(1, 2) for x in t), enable_gqa=True, scale=scale,
+        **lib), (q, k, v), iters)
     # the work these inputs need: visible (q, k) pairs only, at the true hd
     # (the kernel package's count, which the dry run reads too)
     flops, nbytes = ops.fwd_work(B, S, Skv, H, kvH, hd, 2, causal, window)
@@ -437,7 +439,8 @@ def flash_row(dev, B, S, H, kvH, hd, window, tag="kernel", *, Skv=None,
     shape = f"{S}" + (f"/{Skv}" if Skv != S else "")
     log(f"[{tag}] flash_attention [{B}, {shape}, {H}/{kvH}, {hd}] "
         f"{'causal' if causal else 'non-causal'} "
-        f"window={window} rows={B * H}: max|o-plain|={err:.3g} "
+        f"window={window}{'' if scale is None else f' scale={scale:g}'} "
+        f"rows={B * H}: max|o-plain|={err:.3g} "
         f"max|lse-plain|={lse_err:.3g}, two launches bit-equal {same} | "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
         f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
@@ -450,9 +453,12 @@ def flash_row(dev, B, S, H, kvH, hd, window, tag="kernel", *, Skv=None,
 
 def flash_phase(dev):
     # R*H = 96 rows, phi4's heads: serving's prefills (S 128 and 1000,
-    # causal and windowed) and the protocol run's shape (S 1024)
+    # causal and windowed) and the protocol run's shape (S 1024); then
+    # granite-h-4k's protocol shape, hd 64 (padded to 128) at its muP
+    # softmax scale 1/64
     return [flash_row(dev, N_REPLICAS, S, 24, 8, 128, window)
-            for S, window in ((128, 0), (1000, 0), (1000, 256), (1024, 0))]
+            for S, window in ((128, 0), (1000, 0), (1000, 256), (1024, 0))
+            ] + [flash_row(dev, 4, 4096, 32, 8, 64, 0, scale=1 / 64)]
 
 
 def median_phase(dev):
@@ -1092,11 +1098,15 @@ def sdpa_bwd_ms(q, k, v, do, lib: dict) -> float:
 
 
 BWD_CASES = (
-    # label, B, Sq, Skv, H, kvH, hd, window, dtype, causal
-    ("protocol shape", 4, 1024, 1024, 24, 8, 128, 0, torch.bfloat16, True),
+    # label, B, Sq, Skv, H, kvH, hd, window, dtype, causal, softmax scale
+    # (None: 1/sqrt(hd))
+    ("protocol shape", 4, 1024, 1024, 24, 8, 128, 0, torch.bfloat16, True,
+     None),
     ("ragged windowed GQA", 2, 1000, 1000, 24, 8, 128, 256, torch.bfloat16,
-     True),
-    ("padded hd 32", 4, 64, 64, 4, 2, 32, 0, torch.float32, True),
+     True, None),
+    ("padded hd 32", 4, 64, 64, 4, 2, 32, 0, torch.float32, True, None),
+    ("granite-h-4k shape, scale 1/64", 4, 4096, 4096, 32, 8, 64, 0,
+     torch.bfloat16, True, 1 / 64),
 )
 
 
@@ -1107,20 +1117,18 @@ def flash_bwd_phase(dev, cases=BWD_CASES, main: bool = True):
     from repro_torch.kernels.flash_attention.ref import (
         flash_bwd_from_delta, flash_delta)
     rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
-    for label, B, Sq, Skv, H, kvH, hd, window, dt, causal in cases:
+    for label, B, Sq, Skv, H, kvH, hd, window, dt, causal, scale in cases:
         g = torch.Generator(device=dev).manual_seed(Sq + hd + window)
         q = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dt)
         k = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).to(dt)
         v = torch.randn((B, Skv, kvH, hd), generator=g, device=dev).to(dt)
         do = torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dt)
-        o, lse = ops.flash_attention(q, k, v, causal=causal, window=window)
-        got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                      window=window)
-        again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                        window=window)
+        attn = dict(causal=causal, window=window, scale=scale)
+        o, lse = ops.flash_attention(q, k, v, **attn)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, **attn)
+        again = ops.flash_attention_bwd(q, k, v, o, lse, do, **attn)
         delta = flash_delta(o, do).contiguous()
-        want = flash_bwd_from_delta(q, k, v, do, lse, delta, causal=causal,
-                                    window=window)
+        want = flash_bwd_from_delta(q, k, v, do, lse, delta, **attn)
         torch.cuda.synchronize()
         # both sides accumulate in float32 and round once at the output:
         # bf16 outputs may differ by one rounding step (2^-7 of the value),
@@ -1139,16 +1147,16 @@ def flash_bwd_phase(dev, cases=BWD_CASES, main: bool = True):
         # the kernels' own operands: hd padded to 128, contiguous
         pad = (lambda t: t if hd == 128 else F.pad(t, (0, 128 - hd)))
         qp, kp, vp, dop = (pad(t).contiguous() for t in (q, k, v, do))
-        kw = dict(scale=hd ** -0.5, causal=causal, window=window)
+        kw = dict(attn, scale=hd ** -0.5 if scale is None else scale)
         dq_ms = cold_ms(lambda *t: ops.flash_bwd_dq(*t, **kw),
                         (qp, kp, vp, dop, lse, delta), 10)
         dkv_ms = cold_ms(lambda *t: ops.flash_bwd_dkv(*t, **kw),
                          (qp, kp, vp, dop, lse, delta), 10)
-        plain_ms = cold_ms(lambda *t: flash_bwd_from_delta(
-            *t, causal=causal, window=window), (q, k, v, do, lse, delta), 3)
+        plain_ms = cold_ms(lambda *t: flash_bwd_from_delta(*t, **attn),
+                           (q, k, v, do, lse, delta), 3)
         # the library's backward of the same attention (dq, dk, dv at once)
-        library_ms = sdpa_bwd_ms(q, k, v, do,
-                                 _sdpa_mask(Sq, Skv, window, causal, dev))
+        library_ms = sdpa_bwd_ms(q, k, v, do, dict(
+            _sdpa_mask(Sq, Skv, window, causal, dev), scale=scale))
         # the work these inputs need: visible (q, k) pairs, the true hd (the
         # kernel package's counts, which the dry run reads too)
         es = torch.finfo(dt).bits // 8
@@ -2347,8 +2355,10 @@ ZOO2_FLASH = (
     (4, 1024, 28, 4, 128, 1024, True),
 )
 ZOO2_BWD = (
-    ("whisper encoder", 4, 1500, 1500, 12, 12, 64, 0, torch.bfloat16, False),
-    ("qwen2-vl GQA-7", 4, 1024, 1024, 28, 4, 128, 0, torch.bfloat16, True),
+    ("whisper encoder", 4, 1500, 1500, 12, 12, 64, 0, torch.bfloat16, False,
+     None),
+    ("qwen2-vl GQA-7", 4, 1024, 1024, 28, 4, 128, 0, torch.bfloat16, True,
+     None),
 )
 # (b): launch/serve.py's default path, full width and depth
 VLM_SERVE_ARGV = ["--arch", VLM_ARCH, "--batch", "4", "--prefill", "1024",

@@ -20,8 +20,8 @@ Each reports its work to the active counters (:mod:`..work`), counted by
 visible (q, k) pairs; anything the kernel does not take raises.
 The kernels work on a head dim of 128; the public functions take any hd up
 to 128 by zero-padding q, k, v (and do) to 128, as the JAX wrapper pads to
-the TPU's lane width, keep ``scale = 1/sqrt(hd)`` of the true hd, and slice
-the outputs back.
+the TPU's lane width, keep the softmax scale of the true hd (``scale``,
+by default ``1/sqrt(hd)``), and slice the outputs back.
 """
 from __future__ import annotations
 
@@ -139,9 +139,12 @@ def _pad(x):
     return x.contiguous()
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: float | None = None):
     """Flash-attention forward. q: [B, Sq, H, hd]; k, v: [B, Skv, kvH, hd]
-    (GQA: H % kvH == 0). Returns ``(o [B, Sq, H, hd], lse [B, H, Sq] f32)``.
+    (GQA: H % kvH == 0); the scores are ``scale * q k^T`` (``scale``
+    defaults to ``1/sqrt(hd)``). Returns ``(o [B, Sq, H, hd], lse [B, H,
+    Sq] f32)``.
 
     CUDA tensors launch the kernel (hd <= 128, float32 or bfloat16, any
     ragged S); anything it does not take raises. CPU tensors run the plain
@@ -151,7 +154,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         _report("flash_attention", fwd_work, q, k, causal, window)
         with work.plain_version():
             return attention_ref(q, k, v, causal=causal, window=window,
-                                 return_lse=True)
+                                 return_lse=True, scale=scale)
     _check(q, k, v, causal, "flash_attention")
     B, Sq, H, hd = q.shape
     Skv, kvH = k.shape[1], k.shape[2]
@@ -164,8 +167,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     lib = _lib("flash_attention", "flash_fwd", _FWD_ARGS)
     rc = lib.flash_fwd(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                        o.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype], B, H,
-                       kvH, Sq, Skv, 1.0 / math.sqrt(hd), int(causal),
-                       int(window), _build.stream_ptr(q))
+                       kvH, Sq, Skv,
+                       1.0 / math.sqrt(hd) if scale is None else scale,
+                       int(causal), int(window), _build.stream_ptr(q))
     _build.check(lib, rc, "flash_fwd")
     flash_attention.launches += 1
     return (o if hd == _HD else o[..., :hd]), lse
@@ -202,7 +206,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
         _report("flash_bwd_dq", bwd_dq_work, q, k, causal, window, hd)
         with work.plain_version():
             return flash_bwd_from_delta(q, k, v, do, lse, delta,
-                                        causal=causal, window=window)[0]
+                                        causal=causal, window=window,
+                                        scale=scale)[0]
     _bwd_args(q, k, v, do, lse, delta, causal, "flash_bwd_dq")
     B, Sq, H, _ = q.shape
     Skv, kvH = k.shape[1], k.shape[2]
@@ -231,7 +236,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
         _report("flash_bwd_dkv", bwd_dkv_work, q, k, causal, window, hd)
         with work.plain_version():
             return flash_bwd_from_delta(q, k, v, do, lse, delta,
-                                        causal=causal, window=window)[1:]
+                                        causal=causal, window=window,
+                                        scale=scale)[1:]
     _bwd_args(q, k, v, do, lse, delta, causal, "flash_bwd_dkv")
     B, Sq, H, _ = q.shape
     Skv, kvH = k.shape[1], k.shape[2]
@@ -251,13 +257,15 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, scale: float | None = None):
     """Attention backward from the forward's ``o`` and ``lse``: ``delta``
     in plain PyTorch, then the dq and dkv kernels (CUDA; any hd <= 128,
-    zero-padded; meta: empty outputs) or their plain versions (CPU).
-    Returns ``(dq, dk, dv)`` in the inputs' shapes and dtypes."""
+    zero-padded; meta: empty outputs) or their plain versions (CPU), at
+    the forward's ``scale`` (by default ``1/sqrt(hd)``). Returns ``(dq,
+    dk, dv)`` in the inputs' shapes and dtypes."""
     hd = q.shape[-1]
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     kw = dict(scale=scale, causal=causal, window=window)
     if q.device.type != "cpu":
         _check(q, k, v, causal, "flash_attention_bwd")
@@ -267,7 +275,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         _report("flash_bwd_dkv", bwd_dkv_work, q, k, causal, window)
         with work.plain_version():
             return flash_bwd_from_delta(q, k, v, do, lse, delta,
-                                        causal=causal, window=window)
+                                        causal=causal, window=window,
+                                        scale=scale)
     qp, kp, vp, dop = _pad(q), _pad(k), _pad(v), _pad(do.to(q.dtype))
     lse = lse.contiguous()
     dq = flash_bwd_dq(qp, kp, vp, dop, lse, delta, hd=hd, **kw)
@@ -279,16 +288,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: ``FlashAttention.apply(q, k, v,
-    causal, window) -> o``. The forward is :func:`flash_attention` and
-    saves ``o`` and ``lse``; the backward is :func:`flash_attention_bwd`.
+    causal, window, scale) -> o`` (``scale`` None: ``1/sqrt(hd)``). The
+    forward is :func:`flash_attention` and saves ``o`` and ``lse``; the
+    backward is :func:`flash_attention_bwd`.
     The kernels on CUDA tensors, the plain versions on CPU tensors, the
     launches' empty outputs on meta tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool = True, window: int = 0):
-        o, lse = flash_attention(q, k, v, causal=causal, window=window)
+    def forward(ctx, q, k, v, causal: bool = True, window: int = 0,
+                scale: float | None = None):
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return o
 
     @staticmethod
@@ -296,8 +308,8 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
                                          causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None
+                                         window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 flash_attention.launches = 0

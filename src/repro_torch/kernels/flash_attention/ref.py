@@ -24,10 +24,12 @@ def _causal_mask(Sq, Skv, window, device):
     return mask
 
 
-def attention_ref(q, k, v, *, causal=True, window=0, return_lse=False):
+def attention_ref(q, k, v, *, causal=True, window=0, return_lse=False,
+                  scale=None):
     """Full (loop-free) attention, as the JAX ``_naive_attention``: float32
     scores from float32 ``q * scale`` and ``k``, softmax, probabilities cast
-    to ``v.dtype`` and multiplied with float32 accumulation.
+    to ``v.dtype`` and multiplied with float32 accumulation. ``scale``
+    defaults to ``1/sqrt(hd)``.
 
     q [B, Sq, H, hd]; k, v [B, Skv, kvH, hd] (GQA: H % kvH == 0) ->
     o [B, Sq, H, hd] in ``q.dtype``; with ``return_lse`` also the per-row
@@ -38,8 +40,9 @@ def attention_ref(q, k, v, *, causal=True, window=0, return_lse=False):
     rep = H // kvH
     kr = torch.repeat_interleave(k, rep, dim=2)
     vr = torch.repeat_interleave(v, rep, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * (1.0 / math.sqrt(hd)),
-                     kr.float())
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, kr.float())
     if causal:
         s = torch.where(_causal_mask(Sq, Skv, window, q.device), s, NEG)
     p = torch.softmax(s, dim=-1)
@@ -50,19 +53,22 @@ def attention_ref(q, k, v, *, causal=True, window=0, return_lse=False):
     return o
 
 
-def flash_bwd_from_delta(q, k, v, do, lse, delta, *, causal=True, window=0):
+def flash_bwd_from_delta(q, k, v, do, lse, delta, *, causal=True, window=0,
+                         scale=None):
     """The backward kernels' arithmetic on full ``[S, S]`` float32 scores:
     ``p = exp(s - lse)`` under the forward's masks (``_bwd_mask_and_p``),
     ``dp = do v^T``, ``ds = p * (dp - delta)``, ``dq = scale * ds k``,
     ``dk = scale * ds^T q`` and ``dv = p^T do``, the GQA grads summed over
-    the query heads that share a kv head in float32.
+    the query heads that share a kv head in float32. ``scale`` defaults to
+    ``1/sqrt(hd)``.
 
     q, do [B, Sq, H, hd]; k, v [B, Skv, kvH, hd]; lse, delta [B, H, Sq]
     float32 -> (dq, dk, dv) in the inputs' dtypes."""
     B, Sq, H, hd = q.shape
     Skv, kvH = k.shape[1], k.shape[2]
     rep = H // kvH
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     kr = torch.repeat_interleave(k, rep, dim=2).float()
     vr = torch.repeat_interleave(v, rep, dim=2).float()
     qf, dof = q.float(), do.float()
@@ -86,9 +92,10 @@ def flash_delta(o, do):
     return torch.sum(do.float() * o.float(), dim=-1).transpose(1, 2)
 
 
-def flash_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=0):
+def flash_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=0,
+                  scale=None):
     """Plain attention backward from the forward's ``o`` and ``lse``:
     :func:`flash_delta`, then :func:`flash_bwd_from_delta`. Returns
     ``(dq, dk, dv)``."""
     return flash_bwd_from_delta(q, k, v, do, lse, flash_delta(o, do),
-                                causal=causal, window=window)
+                                causal=causal, window=window, scale=scale)

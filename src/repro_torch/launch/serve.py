@@ -12,7 +12,8 @@ greedy decode of one random prompt batch. Three model sources, by flag:
   python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --batch 4 --prefill 64 --decode 32
 
-``--arch`` takes every arch of the reference (``models.registry.ARCH_IDS``);
+``--arch`` takes every arch of the reference (``models.registry.ARCH_IDS``)
+and the port's own (``PORT_ONLY_IDS``: granite-4.0-h-micro);
 the decode steps the B rows together (a MoE routes them as one group, as
 the JAX driver does). The vlm family (qwen2-vl-7b) prefills merged
 embeddings at ``[3, B, S]`` M-RoPE ids and decodes the last embedding at
@@ -48,7 +49,7 @@ import torch.distributed as dist
 from ..core.simulator import FlatTree
 from ..models import layers as L
 from ..models import sharding as shr
-from ..models.registry import ARCH_IDS, get_bundle
+from ..models.registry import ALL_IDS, get_bundle
 from . import steps
 from .mesh import launch_mesh, leaving_group, make_mesh, make_serve_mesh
 
@@ -104,7 +105,7 @@ def main(argv=None, stats: dict | None = None):
     the prefill's last-token logits of this rank's rows (``logits``,
     float32 on the host, joined over 'model')."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="phi4-mini-3.8b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="phi4-mini-3.8b", choices=ALL_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--depth", type=int, default=None,
                     help="keep the arch's width, cut its depth")

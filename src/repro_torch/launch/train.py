@@ -25,7 +25,8 @@ and loss logging.
       --groups 2 --steps 2
 
 ``--arch`` takes every arch of the reference (``models.registry.ARCH_IDS``)
-and feeds it the token stream; whisper-small (the audio family), whose
+and the port's own (``PORT_ONLY_IDS``: granite-4.0-h-micro, whose family
+takes no 'model' axis) and feeds it the token stream; whisper-small (the audio family), whose
 loss reads encoder frames a token stream does not carry, is refused up
 front (the JAX launcher fails with a ``KeyError`` at its first step).
 Runs on the GPU; ``--device cpu`` is for smoke runs. ``--mesh DxM`` names
@@ -74,7 +75,7 @@ from ..checkpoint import checkpointer as ck
 from ..core import protocol
 from ..core.attacks import ByzantineSpec
 from ..data.pipeline import DeviceTokenStream, TokenSpec
-from ..models.registry import ARCH_IDS, get_bundle
+from ..models.registry import ALL_IDS, get_bundle
 from ..models.sharding import sharding_rules
 from ..optim.schedules import inverse_linear
 from .mesh import (launch_mesh, leaving_group, make_byz_mesh, make_mesh,
@@ -98,7 +99,7 @@ class TrainRun:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="phi4-mini-3.8b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="phi4-mini-3.8b", choices=ALL_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--depth", type=int, default=None,
                     help="override n_layers (the width stays)")

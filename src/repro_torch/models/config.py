@@ -84,3 +84,28 @@ class ArchConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclass(frozen=True)
+class HybridStackConfig(ArchConfig):
+    """A stack whose layers each hold one mixer, named by ``layer_types``
+    (``"mamba"``: a Mamba2 mixer on the ``ssm_*`` sizes; ``"attention"``:
+    GQA with no positional embedding), each followed by a SwiGLU MLP of
+    ``d_ff``, with the muP multipliers of Granite 4.0-H: the embedding
+    times ``embedding_multiplier``, each residual branch times
+    ``residual_multiplier``, the softmax scale ``attention_multiplier``
+    (None: ``1/sqrt(hd)``), the logits over ``logits_scaling``. The layers
+    are ``layer_types[:n_layers]``. A port-only schema: the JAX package
+    has no such family."""
+    layer_types: tuple = ()
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float | None = None
+    logits_scaling: float = 1.0
+
+    def reduced(self, **overrides) -> "HybridStackConfig":
+        """The smoke-test sibling: :meth:`ArchConfig.reduced`'s widths over
+        three layers, Mamba2, attention, Mamba2, so both mixers run."""
+        small = dict(n_layers=3, layer_types=("mamba", "attention", "mamba"))
+        small.update(overrides)
+        return super().reduced(**small)

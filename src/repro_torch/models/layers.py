@@ -252,11 +252,12 @@ def _naive_attention(q, k, v, *, causal, window, cross, return_lse=False):
 
 def blocked_attention(q, k, v, *, causal: bool = True, window: int = 0,
                       q_block: int = 512, kv_block: int = 512,
-                      cross: bool = False):
+                      cross: bool = False, scale: float | None = None):
     """Online-softmax blocked attention.
 
     q: [B, Sq, H, hd]; k, v: [B, Skv, kvH, hd] (GQA: H % kvH == 0).
     window > 0 => sliding-window causal attention; cross => no causal mask.
+    The scores are ``scale * q k^T``; ``scale`` defaults to ``1/sqrt(hd)``.
 
     On a CUDA or a meta tensor (:func:`~repro_torch.device.card_route`)
     this is the hand-written flash-attention kernels through
@@ -272,11 +273,13 @@ def blocked_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``[B, H, q_block, kv_block]`` scores, differentiated by autograd.
     """
     if card_route(q) or work.counting():
-        return FlashAttention.apply(q, k, v, causal and not cross, window)
+        return FlashAttention.apply(q, k, v, causal and not cross, window,
+                                    scale)
     B, Sq, H, hd = q.shape
     Skv, kvH = k.shape[1], k.shape[2]
     rep = H // kvH
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     q_block = min(q_block, Sq)
     kv_block = min(kv_block, Skv)
     nq, nk = -(-Sq // q_block), -(-Skv // kv_block)
@@ -415,9 +418,11 @@ def cache_prefill(cache: KVCache, k_all, v_all) -> KVCache:
     return cache
 
 
-def flash_decode(q, cache: KVCache, *, window: int = 0):
+def flash_decode(q, cache: KVCache, *, window: int = 0,
+                 scale: float | None = None):
     """One-token decode attention against the chunked cache (plain torch,
-    as in the JAX package). q: [B, 1, H, hd] -> [B, 1, H, hd].
+    as in the JAX package). q: [B, 1, H, hd] -> [B, 1, H, hd]; the scores
+    are ``scale * q k^T`` (``scale`` defaults to ``1/sqrt(hd)``).
 
     Each chunk computes a partial softmax (max, sum, weighted values), then
     the partials merge across chunks by log-sum-exp. GQA reads the shared
@@ -430,7 +435,8 @@ def flash_decode(q, cache: KVCache, *, window: int = 0):
     kvH, nc, ck = cache.k.shape[1], cache.k.shape[2], cache.k.shape[3]
     M, mm = _cache_split()
     rep = H // kvH
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     qh = (q[:, 0] * scale).reshape(B, kvH, rep, hd).float()
     s = torch.einsum("bgrd,bgnkd->bgrnk", qh, cache.k.float())
     pos = torch.arange(nc * ck, device=q.device).reshape(1, nc, ck) \

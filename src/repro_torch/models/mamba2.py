@@ -1,5 +1,7 @@
 """Mamba2 (SSD) block (PyTorch port of ``repro.models.mamba2``), the
-backbone of the hybrid family (zamba2-1.2b).
+backbone of the hybrid family (zamba2-1.2b); its mixer alone
+(:func:`mamba_mixer`, no norm or residual) is a layer of the
+``granite_hybrid`` family, which scales the mixer's branch.
 
 State recurrence (per head h, head dim P, state N):
     h_t = a_t * h_{t-1} + (dt_t * x_t) outer B_t,   a_t = exp(-exp(A_log) dt_t)
@@ -19,8 +21,10 @@ Where a straightforward port would differ from the reference:
   * the decay floor is ``torch.maximum`` against a tensor, whose gradient
     splits a tie as ``jnp.maximum``'s (``clamp`` would pass it whole);
   * the causal conv sums its K shifted terms in the reference's order.
-The terms of the chunked scan that do not read the state are computed for
-every chunk at once; only the state is carried by a loop over the chunks.
+Every term of the chunked scan is computed for all chunks at once: the
+state entering each chunk too, as one contraction of the chunks' state
+increments with the decays between chunks (:func:`_segsum`), where the
+reference carries it by a scan over the chunks.
 
 Tensor parallelism (the 'model' axis): ``in_proj`` and ``out_proj`` are
 row-parallel (D and d_inner over 'model'), each a partial product and
@@ -112,6 +116,19 @@ def _split_proj(p, x, cfg: ArchConfig, dtype):
     return z, xc, Bm, Cm, dt
 
 
+def _segsum(x):
+    """x ``[..., T]`` -> ``[..., T, T]``: ``x[j+1] + ... + x[i]`` at
+    ``[i, j]`` for j <= i (0 on the diagonal), ``-inf`` above it. Each
+    entry is summed along its own segment, not taken as the difference of
+    two cumulative sums, which cancels once the sums are large."""
+    T = x.shape[-1]
+    ones = torch.ones((T, T), dtype=torch.bool, device=x.device)
+    below = torch.tril(ones, diagonal=-1)
+    seg = torch.cumsum(x[..., :, None].expand(*x.shape, T)
+                       .masked_fill(~below, 0.0), dim=-2)
+    return seg.masked_fill(~torch.tril(ones), float("-inf"))
+
+
 def ssd_chunked(xh, la, Bm, Cm, h0, chunk: int):
     """Chunked SSD scan. xh: [B, S, H, P] (dt-scaled inputs); la: [B, S, H]
     log decays (<= 0); Bm, Cm: [B, S, N]; h0: [B, H, P, N]. Returns
@@ -148,66 +165,86 @@ def ssd_chunked(xh, la, Bm, Cm, h0, chunk: int):
         y_intra = torch.einsum("zbijh,zbjhp->zbihp", M, u)
         wdec = torch.exp(Lc[:, :, -1:, :] - Lc)              # [nch, B, C, H]
         add = torch.einsum("zbjn,zbjhp,zbjh->zbhpn", Bc, u, wdec)
-        decay = torch.exp(Lc[:, :, -1, :])[..., None, None]  # [nch,B,H,1,1]
-        h = h0.float()
-        entering = []
-        for i in range(nch):
-            entering.append(h)
-            h = decay[i] * h + add[i]
-        tmp = torch.einsum("zbcn,zbhpn->zbchp", Cc, torch.stack(entering))
+        # the state entering chunk i, i = 0..nch (nch: the final state):
+        # sum_{j<=i} exp(log decay of chunks j..i-1) s_j, with s_0 = h0 and
+        # s_j the increment of chunk j-1
+        seg = _segsum(F.pad(Lc[:, :, -1, :].permute(1, 2, 0), (1, 0)))
+        states = torch.cat([h0.float()[None], add])    # [nch+1, B, H, P, N]
+        hs = torch.einsum("bhij,jbhpn->ibhpn", torch.exp(seg), states)
+        tmp = torch.einsum("zbcn,zbhpn->zbchp", Cc, hs[:-1])
         y = tmp * torch.exp(Lc)[..., None] + y_intra
         y = y.transpose(0, 1).reshape(Bsz, nch * chunk, H, P)
-        return y[:, :S], h
+        return y[:, :S], hs[-1]
+
+
+def _small_leaves(cfg: ArchConfig) -> dict:
+    """The mixer's small leaves (path -> whole shape), gathered whole at
+    use."""
+    d_inner, H, P, N = dims(cfg)
+    conv_ch = d_inner + 2 * N
+    return {"conv_w": (cfg.ssm_conv, conv_ch), "conv_b": (conv_ch,),
+            "A_log": (H,), "dt_bias": (H,), "D_skip": (H,),
+            "gate_ln/scale": (d_inner,)}
+
+
+def mamba_mixer(p, h, cfg: ArchConfig, dtype,
+                cache: MambaCache | None = None, chunk: int = 64):
+    """The Mamba2 mixer on normed inputs, without norm or residual: h
+    ``[B, S, D]`` -> (``[B, S, D]``, new cache), under the span
+    ``mamba2.mixer`` (``mamba2.ssd`` inside). ``cache`` None is training
+    (zero state, no cache out); a cache is prefill or decode, carrying its
+    state (a one-token call runs the single-step recurrence)."""
+    with span("mamba2.mixer"):
+        d_inner, H, P, N = dims(cfg)
+        p = L.whole_leaves(p, _small_leaves(cfg))
+        z, xc, Bm, Cm, dt = _split_proj(p, h, cfg, dtype)
+        conv_in = torch.cat([xc, Bm, Cm], dim=-1)
+        conv_state = cache.conv if cache is not None else None
+        conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
+                                          conv_state)
+        xc = conv_out[..., :d_inner]
+        Bm = conv_out[..., d_inner:d_inner + N]
+        Cm = conv_out[..., d_inner + N:]
+
+        dtf = dt.float() + p["dt_bias"]
+        dt_act = torch.logaddexp(dtf, torch.zeros_like(dtf))     # softplus
+        la = torch.maximum(-torch.exp(p["A_log"]) * dt_act,
+                           dt_act.new_tensor(LOG_DECAY_FLOOR))   # [B, S, H]
+        xh = xc.reshape(*xc.shape[:2], H, P)
+        u = xh.float() * dt_act[..., None]
+
+        B_, S = h.shape[0], h.shape[1]
+        h0 = (cache.ssm if cache is not None
+              else torch.zeros((B_, H, P, N), dtype=torch.float32,
+                               device=h.device))
+        if S == 1 and cache is not None:   # decode: the single-step recurrence
+            a = torch.exp(la[:, 0])                                  # [B, H]
+            h_new = (a[..., None, None] * h0
+                     + torch.einsum("bhp,bn->bhpn", u[:, 0],
+                                    Bm[:, 0].float()))
+            y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(),
+                             h_new)[:, None]
+            h_fin = h_new
+        else:
+            y, h_fin = ssd_chunked(u, la, Bm, Cm, h0, chunk)
+        y = y + p["D_skip"][None, None, :, None] * xh.float()
+        y = y.reshape(B_, S, d_inner).to(dtype)
+        y = L.rmsnorm(p["gate_ln"], y * F.silu(z), cfg.norm_eps)
+        out = L.row_parallel(y, p["out_proj"].to(dtype))
+        new_cache = MambaCache(new_conv, h_fin) if cache is not None else None
+        return out, new_cache
 
 
 def mamba_block(p, x, cfg: ArchConfig, dtype, cache: MambaCache | None = None,
                 chunk: int = 64):
-    """x: [B, S, D] -> ([B, S, D], new cache). ``cache`` None is training
-    (zero state, no cache out); a cache is prefill or decode, carrying its
-    state (a one-token call runs the single-step recurrence)."""
-    d_inner, H, P, N = dims(cfg)
-    conv_ch = d_inner + 2 * N
-    # the small leaves whole, in one gather over 'model' when split
-    p = L.whole_leaves(p, {"ln/scale": (cfg.d_model,),
-                           "conv_w": (cfg.ssm_conv, conv_ch),
-                           "conv_b": (conv_ch,), "A_log": (H,),
-                           "dt_bias": (H,), "D_skip": (H,),
-                           "gate_ln/scale": (d_inner,)})
+    """x: [B, S, D] -> (x + the mixer of rmsnorm(x), new cache): the block
+    of the hybrid family (zamba2), :func:`mamba_mixer` behind its norm and
+    residual. ``cache`` as the mixer's."""
+    # the small leaves whole, in one gather over 'model' when split (the
+    # mixer then finds them whole)
+    p = L.whole_leaves(p, {"ln/scale": (cfg.d_model,), **_small_leaves(cfg)})
     h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
-    z, xc, Bm, Cm, dt = _split_proj(p, h, cfg, dtype)
-    conv_in = torch.cat([xc, Bm, Cm], dim=-1)
-    conv_state = cache.conv if cache is not None else None
-    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
-                                      conv_state)
-    xc = conv_out[..., :d_inner]
-    Bm = conv_out[..., d_inner:d_inner + N]
-    Cm = conv_out[..., d_inner + N:]
-
-    dtf = dt.float() + p["dt_bias"]
-    dt_act = torch.logaddexp(dtf, torch.zeros_like(dtf))     # softplus
-    la = torch.maximum(-torch.exp(p["A_log"]) * dt_act,
-                       dt_act.new_tensor(LOG_DECAY_FLOOR))   # [B, S, H]
-    xh = xc.reshape(*xc.shape[:2], H, P)
-    u = xh.float() * dt_act[..., None]
-
-    B_, S = x.shape[0], x.shape[1]
-    h0 = (cache.ssm if cache is not None
-          else torch.zeros((B_, H, P, N), dtype=torch.float32,
-                           device=x.device))
-    if S == 1 and cache is not None:   # decode: the single-step recurrence
-        a = torch.exp(la[:, 0])                                  # [B, H]
-        h_new = (a[..., None, None] * h0
-                 + torch.einsum("bhp,bn->bhpn", u[:, 0],
-                                Bm[:, 0].float()))
-        y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), h_new)[:, None]
-        h_fin = h_new
-    else:
-        y, h_fin = ssd_chunked(u, la, Bm, Cm, h0, chunk)
-    y = y + p["D_skip"][None, None, :, None] * xh.float()
-    y = y.reshape(B_, S, d_inner).to(dtype)
-    y = L.rmsnorm(p["gate_ln"], y * F.silu(z), cfg.norm_eps)
-    out = L.row_parallel(y, p["out_proj"].to(dtype))
-    new_cache = MambaCache(new_conv, h_fin) if cache is not None else None
+    out, new_cache = mamba_mixer(p, h, cfg, dtype, cache, chunk)
     return x + out, new_cache
 
 

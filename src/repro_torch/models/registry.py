@@ -23,9 +23,11 @@ phi4-mini-3.8b, h2o-danube-3-4b, phi3-medium-14b, internlm2-20b), ``vlm``
 qwen2-vl-7b), ``moe`` (``moe.py``: qwen3-moe-235b-a22b, dbrx-132b),
 ``ssm`` (``rwkv6.py``: rwkv6-3b), ``hybrid`` (``hybrid.py`` over
 ``mamba2.py``: zamba2-1.2b) and ``audio`` (``encdec.py``: whisper-small).
-The serving loop's replica forms exist for the token-in families; ``vlm``
-and ``audio`` are served by ``prefill`` and ``decode`` only, as in the
-reference.
+The port adds a family of its own, ``granite_hybrid``
+(``granite_hybrid.py`` over ``mamba2.py``: granite-4.0-h-micro), under
+an id of :data:`PORT_ONLY_IDS`. The serving loop's replica forms exist
+for the token-in families; ``vlm`` and ``audio`` are served by
+``prefill`` and ``decode`` only, as in the reference.
 """
 from __future__ import annotations
 
@@ -53,13 +55,20 @@ _CONFIG_MODULES = {
     "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
     "whisper-small": "repro_torch.configs.whisper_small",
+    "granite-4.0-h-micro": "repro_torch.configs.granite_4_h_micro",
 }
 
 #: the arch ids the port runs, in ``ARCH_IDS`` order (all of them)
 PORTED_IDS = [a for a in ARCH_IDS if a in _CONFIG_MODULES]
 
+#: the arch ids of the port alone (no config of the JAX package's)
+PORT_ONLY_IDS = ["granite-4.0-h-micro"]
+
+#: every arch id ``get_config``, ``get_bundle`` and the launchers take
+ALL_IDS = ARCH_IDS + PORT_ONLY_IDS
+
 #: the families whose layers take the 'model' axis (tensor parallelism,
-#: ``repro_torch.models.sharding``): every family of the zoo
+#: ``repro_torch.models.sharding``): every family of the reference's zoo
 MODEL_AXIS_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "audio")
 
 
@@ -88,12 +97,13 @@ _FAMILY_MODULES = {
     "hybrid": "repro_torch.models.hybrid",
     "ssm": "repro_torch.models.rwkv6",
     "audio": "repro_torch.models.encdec",
+    "granite_hybrid": "repro_torch.models.granite_hybrid",
 }
 
 
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in _CONFIG_MODULES:
-        raise ValueError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
+        raise ValueError(f"unknown arch {arch_id!r}; have {ALL_IDS}")
     return importlib.import_module(_CONFIG_MODULES[arch_id]).CONFIG
 
 

@@ -2,8 +2,9 @@
 package's ``repro.models.mamba2`` on shared numpy inputs: the causal conv
 with and without a state, the chunked SSD scan at a length that pads from
 a non-zero state, the whole block in training and with a cache, the
-single-step decode recurrence against the chunked scan, and a NaN-free
-backward with decays at the floor. float32 throughout: rtol / atol 1e-5
+single-step decode recurrence against the chunked scan, the states carried
+between chunks against a step-by-step float64 recurrence after a large
+cumulative decay, and a NaN-free backward with decays at the floor. float32 throughout: rtol / atol 1e-5
 for single functions (the same arithmetic in other orders), 1e-4 for
 gradients and for 21 steps of the recurrence against one scan."""
 import jax
@@ -83,6 +84,30 @@ def test_ssd_chunked_pads_and_matches_jax():
         return torch.cat([t, z((2, 28) + t.shape[2:])], dim=1)
     _, th128 = tm.ssd_chunked(ext(xh), ext(la), ext(Bm), ext(Cm), h0, 64)
     torch.testing.assert_close(th, th128, rtol=1e-6, atol=1e-6)
+
+
+def test_chunk_states_hold_after_a_large_cumulative_decay():
+    """``ssd_chunked`` over 24 chunks whose first four decay by ~1,000 in
+    log and the rest by ~0.1 a chunk, against the step-by-step recurrence
+    in float64: the states entering late chunks are summed along their own
+    segments, so the ~1e-4 error of a difference of two cumulative sums
+    of ~1,000 does not reach them."""
+    rng = np.random.default_rng(5)
+    B, S, H, P, N = 1, 24 * 64, 2, 4, 8
+    la = np.full((B, S, H), -0.002)
+    la[:, :256] = -4.0
+    xh, Bm, Cm = (_a(rng, *s) for s in ((B, S, H, P), (B, S, N), (B, S, N)))
+    h0 = _a(rng, B, H, P, N)
+    y, h = tm.ssd_chunked(*(torch.from_numpy(np.asarray(t, np.float32))
+                            for t in (xh, la, Bm, Cm, h0)), 64)
+    hh, ys = h0.astype(np.float64), []
+    for t in range(S):
+        hh = (np.exp(la[:, t])[..., None, None] * hh
+              + np.einsum("bhp,bn->bhpn", xh[:, t], Bm[:, t]))
+        ys.append(np.einsum("bn,bhpn->bhp", Cm[:, t], hh))
+    _close(h, hh, rtol=1e-5, atol=1e-5 * np.abs(hh).max())
+    want = np.stack(ys, 1)
+    _close(y, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
 def test_decode_recurrence_equals_the_chunked_scan():
